@@ -1,0 +1,60 @@
+"""Generic retry with exponential backoff.
+
+A copy of `retry_with_backoff` from the JAX package's
+`utils/fault_tolerance.py` for this package (the model zoo's
+sha-verified load retries through it).  Reference:
+core/utils/FaultToleranceUtils.scala:9 and the retry idioms in
+io/http/HTTPClients.scala:74-121.
+"""
+from __future__ import annotations
+
+import random
+from typing import Callable, Optional, Tuple, Type, TypeVar
+
+from .faults import sleep as _clock_sleep
+
+T = TypeVar("T")
+
+__all__ = ["retry_with_backoff"]
+
+
+def retry_with_backoff(
+    fn: Callable[[], T],
+    retries: int = 5,
+    initial_delay_sec: float = 0.1,
+    max_delay_sec: float = 30.0,
+    backoff: float = 2.0,
+    retryable: Tuple[Type[BaseException], ...] = (Exception,),
+    jitter: bool = True,
+    on_retry: Optional[Callable[[int, BaseException, float], None]] = None,
+    rng: Optional[random.Random] = None,
+) -> T:
+    """Exponential backoff with full jitter.
+
+    `jitter=True` draws each sleep uniformly from [0, delay] (the AWS
+    "full jitter" scheme) so a thundering herd of failed clients doesn't
+    re-synchronize on the retry schedule; pass `rng` for a deterministic
+    draw in tests.  `on_retry(attempt, exc, sleep_s)` is called before
+    each sleep — the hook used for retry telemetry and test probes.
+    """
+    if retries < 1:
+        raise ValueError(f"retries must be >= 1, got {retries}")
+    draw = (rng or random).uniform
+    delay = initial_delay_sec
+    last: Optional[BaseException] = None
+    for attempt in range(retries):
+        try:
+            return fn()
+        except retryable as e:
+            last = e
+            if attempt == retries - 1:
+                break
+            sleep_s = draw(0.0, delay) if jitter else delay
+            if on_retry is not None:
+                on_retry(attempt, e, sleep_s)
+            # through the injectable clock (utils/faults.py): chaos tests
+            # swap in a VirtualClock so backoff ladders cost no wall time
+            _clock_sleep(sleep_s)
+            delay = min(delay * backoff, max_delay_sec)
+    assert last is not None
+    raise last

@@ -1,0 +1,87 @@
+"""mmlspark_tpu_torch imports nothing of JAX, flax or the JAX package.
+
+Two checks: every module of the port (and chip_smoke.py) imports in a
+fresh interpreter whose `sys.meta_path` refuses `jax`, `flax`, `jaxlib`
+and `mmlspark_tpu` (the exact name and its submodules — note that
+"mmlspark_tpu_torch" starts with "mmlspark_tpu", so a bare prefix test
+would be wrong); and an AST scan of the sources finds no such import.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mmlspark_tpu_torch")
+BLOCKED = ("jax", "jaxlib", "flax", "mmlspark_tpu")
+
+
+def _blocked(name: str) -> bool:
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _subdirs, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
+    return out
+
+
+def _modules():
+    mods = []
+    for path in _sources()[1:]:
+        rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+        mods.append(rel[:-len(".__init__")] if rel.endswith(".__init__") else rel)
+    return sorted(mods)
+
+
+def test_blocked_names_are_exact():
+    assert _blocked("mmlspark_tpu") and _blocked("mmlspark_tpu.ops.image")
+    assert _blocked("jax.numpy") and _blocked("flax")
+    assert not _blocked("mmlspark_tpu_torch")
+    assert not _blocked("mmlspark_tpu_torch.ops.image_kernels")
+    assert not _blocked("jaxtyping")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _blocked(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _blocked(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_every_module_imports_with_jax_blocked():
+    script = f"""
+import importlib, importlib.abc, runpy, sys
+BLOCKED = {BLOCKED!r}
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+for m in {_modules()!r}:
+    importlib.import_module(m)
+# chip_smoke.py's own imports (its main() needs a card; not run here)
+runpy.run_path({os.path.join(ROOT, "chip_smoke.py")!r}, run_name="not_main")
+leaked = [m for m in sys.modules
+          if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not leaked, leaked
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), \
+        proc.stdout + proc.stderr
