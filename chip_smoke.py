@@ -21,8 +21,10 @@ exit, no result line) if anything in it fails:
    just after; the pooled features are checked for shape and finiteness,
    against the same transform with the preprocess forced through the
    plain version on the card, and against an f32 run of the port on the
-   CPU for a few images.  Then images/s (best of 3) with the feed's
-   time split, and one chunk's device time alone.
+   CPU (on weights with random BatchNorms, so that every residual
+   branch counts) for a few images.  Then images/s as a range over
+   repeated runs with the feed's time split, and one chunk's device time
+   from a CUDA-graph replay beside its eager stream span.
 5. record: a `{"kernels": [...]}` JSON line, the nvidia-smi line, and
    last the `{"ok": true, "device": ...}` line.
 
@@ -45,6 +47,8 @@ FP32_FLOPS = 67e12
 ATOL = 1e-3              # kernel vs plain version, normalized units
 PLAIN_FEATURES_RTOL = 2e-2   # relative L2, bf16 forward on both sides
 CPU_FEATURES_RTOL = 3e-2     # relative L2, bf16 card vs f32 CPU
+
+TIMED_RUNS = 7
 
 IMG = 224
 BATCH = 64
@@ -82,8 +86,9 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def resample_bound(plan, batch) -> tuple:
-    """(bound_ms, bound_by) of one affine resample: each input byte read
-    once and each output byte written once at the HBM rate, against the
+    """(bound_ms, bound_by) of one affine resample: the bytes it must move
+    at the HBM rate (the batch read once, the f32 output written once, and
+    of the weights only the non-zero taps and their ranges), against the
     f32 operations these taps need at the f32 peak."""
     import numpy as np
 
@@ -93,10 +98,9 @@ def resample_bound(plan, batch) -> tuple:
     flops = b * (ny.sum() * nx.sum() * 2 * ci        # width taps
                  + ny.sum() * plan.w_out * 2 * ci    # height taps
                  + plan.h_out * plan.w_out * co * (2 * ci + 2))  # mix + norm
-    consts = sum(a.nbytes for a in (plan.a_h, plan.a_w, plan.cmix,
-                                    plan.mean_eff, plan.inv_eff,
-                                    plan.y_rng, plan.x_rng))
-    nbytes = (batch.numel() * batch.element_size() + consts
+    taps = (ny.sum() + nx.sum()) * 4 + plan.y_rng.nbytes + plan.x_rng.nbytes
+    epilogue = plan.cmix.nbytes + plan.mean_eff.nbytes + plan.inv_eff.nbytes
+    nbytes = (batch.numel() * batch.element_size() + taps + epilogue
               + b * plan.h_out * plan.w_out * co * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
@@ -150,6 +154,60 @@ def check_resample(K, shape, dtype, seed):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def graph_ms(forward, x, iters: int) -> tuple:
+    """Device time of one forward(x), from replays of a CUDA graph of it
+    (no host dispatch between kernels), and the largest gap between the
+    graph's output and an eager call's, relative to the output's scale."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            forward(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = forward(x)
+    ms = cuda_ms(graph.replay, iters)
+    eager = forward(x)
+    torch.cuda.synchronize()
+    gap = float((out - eager).abs().max() / eager.abs().max())
+    return ms, gap
+
+
+def profiled_kernel_ms(fn):
+    """(compute-kernel ms, affine_resample ms, wall ms) of one fn() under
+    torch.profiler: the device time of every kernel (copies and memsets
+    left out: they run on the feed's side stream and overlap), or None
+    if the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    total_us = b1_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or \
+                ev.key.startswith(("Memcpy", "Memset")):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        total_us += us
+        if "affine_resample" in ev.key:
+            b1_us += us
+    if total_us <= 0:
+        return None
+    return total_us / 1e3, b1_us / 1e3, wall_ms
+
+
 def rel_l2(a, b) -> float:
     import numpy as np
 
@@ -169,6 +227,8 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     from mmlspark_tpu_torch import Table
     from mmlspark_tpu_torch.io.feed import FEED_TELEMETRY
+    from mmlspark_tpu_torch.models.bundle import (TorchBundle, get_builder,
+                                                  init_state_dict)
     from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
     from mmlspark_tpu_torch.models.torch_model import ImagePreprocess
     from mmlspark_tpu_torch.models.zoo import ModelRepo, get_or_create_resnet
@@ -256,46 +316,79 @@ def main() -> None:
     if err_plain > PLAIN_FEATURES_RTOL:
         fail("features disagree with the plain-preprocess run")
 
+    # The card's bf16 forward against an f32 CPU run of the port, on
+    # weights whose BatchNorms are all random: under the zoo's flax-style
+    # init every residual branch is 0, and only the stem and the
+    # projection convs would be checked.
     few = [i for s in range(len(SIZES)) for i in range(s, 12, len(SIZES))]
-    cpu_bundle = type(bundle)(bundle.builder, bundle.builder_kwargs,
-                              state_dict=bundle.state_dict,
-                              input_shape=bundle.input_shape, dtype="float32")
-    cpu_feats = ImageFeaturizer(bundle=cpu_bundle, batch_size=BATCH,
-                                device="cpu").transform(
-                                    Table({"image": [images[i] for i in few]}))
-    err_cpu = rel_l2(feats[few], cpu_feats["features"])
-    log(f"[main] features vs f32 CPU run of {len(few)} images: "
-        f"rel_l2={err_cpu:.3e} (bound {CPU_FEATURES_RTOL})")
+    few_table = Table({"image": [images[i] for i in few]})
+    check_state = init_state_dict(get_builder("resnet50")(num_classes=1000),
+                                  seed=1, random_bn=True)
+    side_feats = {}
+    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
+        check_bundle = TorchBundle("resnet50", {"num_classes": 1000},
+                                   state_dict=check_state,
+                                   input_shape=(IMG, IMG, 3), dtype=dtype)
+        side_feats[dev] = ImageFeaturizer(
+            bundle=check_bundle, batch_size=BATCH,
+            device=dev).transform(few_table)["features"]
+    err_cpu = rel_l2(side_feats["cuda"], side_feats["cpu"])
+    log(f"[main] features (random-BatchNorm ResNet-50, bf16 on the card) vs "
+        f"an f32 CPU run of {len(few)} images: rel_l2={err_cpu:.3e} "
+        f"(bound {CPU_FEATURES_RTOL})")
     if err_cpu > CPU_FEATURES_RTOL:
         fail("features disagree with the f32 CPU run")
 
-    best, best_feed = float("inf"), {}
-    for _ in range(3):
+    # images/s on the host's clock, as a range over repeated runs (a run
+    # is tens of ms on a shared host), with the feed's split of the median
+    runs = []
+    for _ in range(TIMED_RUNS):
         torch.cuda.synchronize()
         before = FEED_TELEMETRY.snapshot()
         t0 = time.perf_counter()
         featurizer.transform(table)
-        dt = time.perf_counter() - t0
-        if dt < best:
-            best, best_feed = dt, FEED_TELEMETRY.delta(before)
-    log(f"[main] ImageFeaturizer resnet50 pool {IMG}x{IMG} batch {BATCH}: "
-        f"{N_IMAGES / best:.1f} images/s (best of 3, {N_IMAGES} images, "
-        f"{best:.4f} s) on {card}")
-    log("[main] best run's feed: " + " ".join(
-        f"{k}={best_feed[k]:.4f}" for k in (
+        runs.append((time.perf_counter() - t0, FEED_TELEMETRY.delta(before)))
+    runs.sort(key=lambda r: r[0])
+    walls = [r[0] for r in runs]
+    med_wall, med_feed = runs[len(runs) // 2]
+    log(f"[main] ImageFeaturizer resnet50 pool {IMG}x{IMG} batch {BATCH}, "
+        f"{N_IMAGES} images, {TIMED_RUNS} runs: images/s min "
+        f"{N_IMAGES / walls[-1]:.0f}, median {N_IMAGES / med_wall:.0f}, "
+        f"max {N_IMAGES / walls[0]:.0f} (walls {walls[0]:.4f}-{walls[-1]:.4f}"
+        f" s) on {card}")
+    log("[main] median run's feed: " + " ".join(
+        f"{k}={med_feed[k]:.4f}" for k in (
             "wall_s", "stall_decode_s", "transfer_s", "compute_s",
             "stall_drain_s")))
-    # one chunk's device work alone: preprocess (B1 at identity size) +
-    # the ResNet-50 forward, and the forward's share of the best run
+    # one chunk's device work (B1 at identity size + the ResNet-50 bf16
+    # forward): from a CUDA-graph replay, which has no dispatch gaps, and
+    # the eager stream span, which includes them
     _module, forward = featurizer._model_for(bundle, "image")._executor(
         bundle, "pool", torch.device("cuda"))
     x224 = torch.randint(0, 256, (BATCH, IMG, IMG, 3), dtype=torch.uint8,
                          device="cuda")
-    chunk_ms = cuda_ms(lambda: forward(x224), 10)
-    log(f"[main] one chunk on the device (B1 + ResNet-50 bf16, batch "
-        f"{BATCH}): {chunk_ms:.3f} ms = {BATCH / chunk_ms * 1e3:.1f} "
-        f"images/s; x{n_chunks} chunks = "
-        f"{n_chunks * chunk_ms / (best * 1e3):.3f} of the best run's wall")
+    span_ms = cuda_ms(lambda: forward(x224), 10)
+    dev_ms, gap = graph_ms(forward, x224, 20)
+    log(f"[main] one chunk (B1 + ResNet-50 bf16, batch {BATCH}): device "
+        f"time {dev_ms:.3f} ms (CUDA-graph replay; graph vs eager output "
+        f"gap {gap:.1e}) = {BATCH / dev_ms * 1e3:.0f} images/s; eager "
+        f"stream span incl. dispatch gaps {span_ms:.3f} ms; x{n_chunks} "
+        f"chunks of device time = {n_chunks * dev_ms / (med_wall * 1e3):.3f}"
+        f" of the median run's wall")
+    if gap > 1e-2:
+        fail(f"the CUDA graph's output differs from the eager forward's "
+             f"(relative gap {gap:.1e})")
+    busy = profiled_kernel_ms(lambda: featurizer.transform(table))
+    if busy is None:
+        log("[main] profiled run: the profiler saw no device time "
+            "(device busy share not measured)")
+    else:
+        total_ms, b1_ms, wall_ms = busy
+        log(f"[main] profiled run: compute kernels {total_ms:.3f} ms on the "
+            f"device, of which affine_resample {b1_ms:.4f} ms "
+            f"({b1_ms / total_ms:.4f}); the profiled run's wall {wall_ms:.3f}"
+            f" ms; kernels / median unprofiled wall = "
+            f"{total_ms / (med_wall * 1e3):.3f}")
 
     # ---- 5. record -----------------------------------------------------
     lib = [c["library_ms"] for c in checks]

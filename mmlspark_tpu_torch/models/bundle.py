@@ -48,12 +48,18 @@ for _name in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152"):
     register_builder(_name, getattr(R, _name))
 
 
-def init_state_dict(module: nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
+def init_state_dict(module: nn.Module, seed: int = 0,
+                    random_bn: bool = False) -> Dict[str, np.ndarray]:
     """Random weights from a seeded torch.Generator, initialised like the
     flax modules: convs and the dense head LeCun-normal (variance 1/fan_in),
     BatchNorm scale 1 / bias 0 / mean 0 / var 1, except the last BatchNorm
     of every residual branch, whose scale starts at 0 (flax's
-    `scale_init=zeros`)."""
+    `scale_init=zeros`).
+
+    With `random_bn`, every BatchNorm instead gets scale and running var
+    from U(0.5, 1.5) and bias and running mean from N(0, 0.1), so that
+    every residual branch contributes: weights for numerical checks of
+    the whole network, where flax's init would leave each branch at 0."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for m in module.modules():
@@ -65,9 +71,15 @@ def init_state_dict(module: nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
-        for block in getattr(module, "blocks", ()):
-            n_branch = len(block.bns) - int(block.has_proj)
-            block.bns[n_branch - 1].weight.zero_()
+                if random_bn:
+                    for t in (m.weight, m.running_var):
+                        t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+                    for t in (m.bias, m.running_mean):
+                        t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+        if not random_bn:
+            for block in getattr(module, "blocks", ()):
+                n_branch = len(block.bns) - int(block.has_proj)
+                block.bns[n_branch - 1].weight.zero_()
     return {k: v.detach().cpu().numpy().copy()
             for k, v in module.state_dict().items()}
 

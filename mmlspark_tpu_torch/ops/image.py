@@ -1,22 +1,18 @@
-"""Batched image ops in eager PyTorch: the CPU path and the plain oracle.
+"""Linear-resize weights, as the JAX package's `jax.image.resize` builds
+them.
 
-Counterpart of the JAX package's `ops/image.py` for the ops the
-ImageFeaturizer path runs.  Every op takes a `[B, H, W, C]` batch (NHWC,
-the JAX package's layout) and returns one.  `resize` reproduces
-`jax.image.resize(method="linear")` exactly: its weights come from
-`resize_weights`, a copy of the JAX package's `_resize_weights_np`
-(half-pixel centres, triangle kernel, antialiased on downscale), applied
-as two separable contractions.  `torch.nn.functional.interpolate` is not
-used here: its weights are not defined to match.
+`resize_weights` is a copy of the JAX package's `_resize_weights_np`
+(half-pixel centres, triangle kernel, antialiased on downscale).  The
+resize+normalize kernel (`ops/image_kernels.py`) and its plain PyTorch
+version both apply these weights, so the port reproduces
+`jax.image.resize(method="linear")`.  `torch.nn.functional.interpolate`
+is not used: its weights are not defined to match.
 """
 from __future__ import annotations
 
-from typing import Sequence
-
 import numpy as np
-import torch
 
-__all__ = ["resize_weights", "resize", "normalize", "hwc_to_chw_flat"]
+__all__ = ["resize_weights"]
 
 
 def resize_weights(n_in: int, n_out: int) -> np.ndarray:
@@ -33,27 +29,3 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     total = w.sum(axis=0, keepdims=True)
     w = np.where(total > 0, w / np.where(total == 0, 1.0, total), 0.0)
     return np.ascontiguousarray(w.T, dtype=np.float32)
-
-
-def resize(batch: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Linear resize of a float [B,H,W,C] batch (ImageTransformer
-    ResizeImage, ImageTransformer.scala:127-146)."""
-    _, h, w, _ = batch.shape
-    a_h = torch.from_numpy(resize_weights(h, height)).to(batch.device)
-    a_w = torch.from_numpy(resize_weights(w, width)).to(batch.device)
-    t = torch.einsum("yh,bhwc->bywc", a_h, batch)
-    return torch.einsum("xw,bywc->byxc", a_w, t)
-
-
-def normalize(batch: torch.Tensor, mean: Sequence[float],
-              std: Sequence[float], scale: float = 1.0) -> torch.Tensor:
-    """(x*scale - mean)/std channelwise — the fused tail of every DL feed."""
-    mean_t = torch.as_tensor(mean, dtype=batch.dtype, device=batch.device)
-    std_t = torch.as_tensor(std, dtype=batch.dtype, device=batch.device)
-    return (batch * scale - mean_t) / std_t
-
-
-def hwc_to_chw_flat(batch: torch.Tensor) -> torch.Tensor:
-    """[B,H,W,C] -> [B, C*H*W] flat vector, CHW order — UnrollImage
-    semantics (core/image/UnrollImage.scala:30-55)."""
-    return batch.permute(0, 3, 1, 2).reshape(batch.shape[0], -1)

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from mmlspark_tpu_torch import Table
-from mmlspark_tpu_torch.models.bundle import TorchBundle
+from mmlspark_tpu_torch.models.bundle import (TorchBundle, get_builder,
+                                              init_state_dict)
 from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
 from mmlspark_tpu_torch.ops import image_kernels as K
 
@@ -72,7 +73,11 @@ def test_featurizer_on_card_launches_the_kernel_per_chunk(cuda_device):
     images = [rng.integers(0, 256, size=s, dtype=np.uint8)
               for s in [(40, 40, 3), (32, 32, 3), (40, 40, 3), (48, 36, 1),
                         (40, 40, 3)]]
-    bundle = TorchBundle("resnet18", {"num_classes": 10},
+    # random BatchNorms: under flax's init every residual branch is 0 and
+    # the check would see only the stem and the projection convs
+    state = init_state_dict(get_builder("resnet18")(num_classes=10), seed=0,
+                            random_bn=True)
+    bundle = TorchBundle("resnet18", {"num_classes": 10}, state_dict=state,
                          input_shape=(32, 32, 3), dtype="float32")
     K.LAUNCHES = 0
     got = ImageFeaturizer(bundle=bundle, batch_size=2).transform(

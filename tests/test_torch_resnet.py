@@ -26,7 +26,8 @@ import jax.numpy as jnp
 
 from mmlspark_tpu.models import resnet as JR
 from mmlspark_tpu.models.bundle import FlaxBundle
-from mmlspark_tpu_torch.models.bundle import TorchBundle, from_flax_variables
+from mmlspark_tpu_torch.models.bundle import (TorchBundle, from_flax_variables,
+                                              get_builder, init_state_dict)
 from mmlspark_tpu_torch.models.zoo import ModelRepo, get_or_create_resnet
 
 from torch_port_util import random_flax_variables
@@ -116,3 +117,26 @@ def test_zoo_seeds_and_reloads_random_init(tmp_path):
     # flax's zero-init of each residual branch's last BatchNorm
     assert not a.state_dict["blocks.0.bns.1.weight"].any()
     assert a.state_dict["blocks.0.bns.0.weight"].all()
+
+
+@pytest.mark.parametrize("random_bn", [False, True])
+def test_random_bn_init_lets_every_branch_count(random_bn):
+    """Under flax's init every residual branch ends in a zero-scale
+    BatchNorm, so a branch's 3x3 conv cannot change the output; under
+    `random_bn` it must (numerical checks of the card's forward use it)."""
+    module = get_builder("resnet18")(num_classes=NUM_CLASSES)
+    sd = init_state_dict(module, seed=3, random_bn=random_bn)
+    bns = [k for k in sd if ".bns." in k and k.endswith(".weight")]
+    assert all(sd[k].all() for k in bns) == random_bn
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, HW, HW, 3)).astype(np.float32))
+
+    def pool(state):
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        with torch.inference_mode():
+            return module.eval()(x)[1]["pool"].numpy()
+
+    broken = dict(sd, **{"blocks.3.convs.0.weight":
+                         np.zeros_like(sd["blocks.3.convs.0.weight"])})
+    changed = np.abs(pool(broken) - pool(sd)).max() > 1e-3 * np.abs(pool(sd)).max()
+    assert changed == random_bn
