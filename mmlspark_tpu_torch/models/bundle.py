@@ -8,13 +8,21 @@ CNTK-style node addressing (CNTKModel.scala:229-371).  `dtype` is the
 compute dtype the module runs in (the flax modules' `dtype` field).
 
 `from_flax_variables` turns a flax ResNet's ``{'params', 'batch_stats'}``
-numpy tree into a TorchBundle: conv kernels HWIO -> OIHW, the dense
-`head` kernel transposed, BatchNorm scale/bias from `params` and
-mean/var from `batch_stats`, block `<Block>_i` -> `blocks.i` in numeric
-order.  Every leaf on either side must be used exactly once.
+or a flax ViT's / TransformerLM's ``{'params'}`` numpy tree into a
+TorchBundle: conv kernels HWIO -> OIHW, Dense kernels [in, out] ->
+Linear weights [out, in], BatchNorm scale/bias from `params` and
+mean/var from `batch_stats`, LayerNorm scale/bias -> weight/bias, Embed
+`embedding` -> Embedding weight, the ViT's `pos_embed` param as it is,
+ResNet block `<Block>_i` and transformer `block{i}` -> `blocks.i`.  Every
+leaf on either side must be used exactly once.
+
+A bundle's taps (`layer_names`) and its input dtype (`input_dtype`:
+int32 token ids for the LM, float32 otherwise) come from its module, as
+the JAX package's FlaxBundle takes them.
 """
 from __future__ import annotations
 
+import inspect
 import re
 import uuid
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
@@ -24,6 +32,8 @@ import torch
 from torch import nn
 
 from . import resnet as R
+from . import transformer as T
+from . import vit as V
 
 __all__ = ["TorchBundle", "register_builder", "get_builder",
            "from_flax_variables", "init_state_dict"]
@@ -46,12 +56,29 @@ def get_builder(name: str) -> Callable[..., nn.Module]:
 
 for _name in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152"):
     register_builder(_name, getattr(R, _name))
+register_builder("transformer_lm", T.transformer_lm)
+for _name in ("vit_tiny", "vit_small", "vit_base"):
+    register_builder(_name, getattr(V, _name))
+
+
+def _builder_kwargs(builder: str, kwargs: Optional[dict],
+                    input_shape: Optional[Sequence[int]]) -> dict:
+    """The builder's kwargs; a builder that takes an `image_size` (the
+    ViTs, whose position table depends on it) gets the input shape's
+    when none is given."""
+    kwargs = dict(kwargs or {})
+    if (input_shape and "image_size" not in kwargs and "image_size" in
+            inspect.signature(get_builder(builder)).parameters):
+        kwargs["image_size"] = tuple(int(s) for s in input_shape[:2])
+    return kwargs
 
 
 def init_state_dict(module: nn.Module, seed: int = 0,
                     random_bn: bool = False) -> Dict[str, np.ndarray]:
     """Random weights from a seeded torch.Generator, initialised like the
-    flax modules: convs and the dense head LeCun-normal (variance 1/fan_in),
+    flax modules: convs and dense layers LeCun-normal (variance 1/fan_in)
+    with zero biases, LayerNorm scale 1 / bias 0, embeddings normal with
+    variance 1/features, the ViT's position table normal(0.02), and
     BatchNorm scale 1 / bias 0 / mean 0 / var 1, except the last BatchNorm
     of every residual branch, whose scale starts at 0 (flax's
     `scale_init=zeros`).
@@ -76,8 +103,16 @@ def init_state_dict(module: nn.Module, seed: int = 0,
                         t.copy_(0.5 + torch.rand(t.shape, generator=gen))
                     for t in (m.bias, m.running_mean):
                         t.copy_(0.1 * torch.randn(t.shape, generator=gen))
-        if not random_bn:
-            for block in getattr(module, "blocks", ()):
+            elif isinstance(m, nn.LayerNorm):
+                m.reset_parameters()
+            elif isinstance(m, nn.Embedding):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               / m.embedding_dim ** 0.5)
+        if isinstance(module, V.VisionTransformer):
+            module.pos_embed.copy_(0.02 * torch.randn(
+                module.pos_embed.shape, generator=gen))
+        if isinstance(module, R.ResNet) and not random_bn:
+            for block in module.blocks:
                 n_branch = len(block.bns) - int(block.has_proj)
                 block.bns[n_branch - 1].weight.zero_()
     return {k: v.detach().cpu().numpy().copy()
@@ -101,14 +136,22 @@ class TorchBundle:
                  layer_names: Optional[List[str]] = None,
                  dtype: str = "bfloat16", seed: int = 0):
         self.builder = builder
-        self.builder_kwargs = dict(builder_kwargs or {})
+        self.builder_kwargs = _builder_kwargs(builder, builder_kwargs,
+                                              input_shape)
         self.input_shape = tuple(input_shape) if input_shape else None
         self.dtype = str(dtype)
         if state_dict is None:
-            state_dict = init_state_dict(self.build_module(), seed)
+            module = self.build_module()
+            state_dict = init_state_dict(module, seed)
+        else:
+            with torch.device("meta"):  # shapes and class attributes only
+                module = self.build_module()
         self.state_dict = {k: np.asarray(v) for k, v in state_dict.items()}
-        self.layer_names = list(layer_names if layer_names is not None
-                                else R.LAYER_NAMES)
+        if layer_names is None:
+            layer_names = getattr(module, "layer_names", None) or []
+        self.layer_names = list(layer_names)
+        # token models (embedding inputs) declare input_dtype "int32"
+        self.input_dtype = str(getattr(module, "input_dtype", "float32"))
 
     def build_module(self) -> nn.Module:
         return get_builder(self.builder)(**self.builder_kwargs)
@@ -139,6 +182,10 @@ class TorchBundle:
 # ---------------------------------------------------------------------------
 _BLOCK = re.compile(r"^(BasicBlock|BottleneckBlock)_(\d+)$")
 _LAYER = re.compile(r"^(Conv|BatchNorm)_(\d+)$")
+_TBLOCK = re.compile(r"^block(\d+)$")
+_TLAYERS = ("ln1", "ln2", "qkv", "q", "kv", "proj", "mlp_in", "mlp_out")
+_TOP = ("conv_init", "bn_init", "head", "patch_embed", "tok_embed",
+        "pos_embed", "ln_f")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
@@ -153,13 +200,16 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
 
 def _torch_prefix(path: Sequence[str]) -> str:
     """flax module path -> torch module path (one module, no leaf)."""
-    if len(path) == 1 and path[0] in ("conv_init", "bn_init", "head"):
+    if len(path) == 1 and path[0] in _TOP:
         return path[0]
     if len(path) == 2:
         mb, ml = _BLOCK.match(path[0]), _LAYER.match(path[1])
         if mb and ml:
             kind = "convs" if ml.group(1) == "Conv" else "bns"
             return f"blocks.{int(mb.group(2))}.{kind}.{int(ml.group(2))}"
+        mt = _TBLOCK.match(path[0])
+        if mt and path[1] in _TLAYERS:
+            return f"blocks.{int(mt.group(1))}.{path[1]}"
     raise KeyError(f"unrecognized flax module path {'/'.join(path)}")
 
 
@@ -167,7 +217,8 @@ def from_flax_variables(builder: str, variables: Mapping[str, Any],
                         builder_kwargs: Optional[dict] = None,
                         input_shape: Optional[Sequence[int]] = None,
                         dtype: str = "bfloat16") -> TorchBundle:
-    """A flax ResNet's {'params', 'batch_stats'} numpy tree -> TorchBundle.
+    """A flax ResNet's {'params', 'batch_stats'}, or a flax ViT's or
+    TransformerLM's {'params'}, numpy tree -> TorchBundle.
 
     Raises KeyError on any flax leaf that maps nowhere and on any module
     weight no leaf fills, and ValueError on a shape mismatch."""
@@ -175,26 +226,33 @@ def from_flax_variables(builder: str, variables: Mapping[str, Any],
     if extra:
         raise KeyError(f"unexpected flax collections {sorted(extra)}")
     rename = {"kernel": None, "bias": "bias", "scale": "weight",
-              "mean": "running_mean", "var": "running_var"}
+              "embedding": "weight", "mean": "running_mean",
+              "var": "running_var"}
     out: Dict[str, np.ndarray] = {}
     for coll in ("params", "batch_stats"):
         for path, v in _flatten(variables.get(coll, {})).items():
             *mod, leaf = path
-            prefix = _torch_prefix(mod)
-            if leaf not in rename or (coll == "batch_stats") != (leaf in ("mean", "var")):
-                raise KeyError(f"unexpected flax leaf {coll}/{'/'.join(path)}")
-            if leaf == "kernel":
-                # conv HWIO -> OIHW; dense [in, out] -> [out, in]
-                v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
-                name = f"{prefix}.weight"
+            if not mod and leaf == "pos_embed" and coll == "params":
+                name = "pos_embed"  # the ViT's [1, S, E] param
             else:
-                name = f"{prefix}.{rename[leaf]}"
+                prefix = _torch_prefix(mod)
+                if leaf not in rename or (coll == "batch_stats") != (
+                        leaf in ("mean", "var")):
+                    raise KeyError(
+                        f"unexpected flax leaf {coll}/{'/'.join(path)}")
+                if leaf == "kernel":
+                    # conv HWIO -> OIHW; dense [in, out] -> [out, in]
+                    v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+                    name = f"{prefix}.weight"
+                else:
+                    name = f"{prefix}.{rename[leaf]}"
             if name in out:
                 raise KeyError(f"flax leaf {coll}/{'/'.join(path)} maps to "
                                f"{name} twice")
             out[name] = np.ascontiguousarray(v, np.float32)
-    bundle_kwargs = dict(builder_kwargs or {})
-    want = get_builder(builder)(**bundle_kwargs).state_dict()
+    bundle_kwargs = _builder_kwargs(builder, builder_kwargs, input_shape)
+    with torch.device("meta"):
+        want = get_builder(builder)(**bundle_kwargs).state_dict()
     for name, t in want.items():
         if name.endswith("num_batches_tracked"):
             out[name] = np.zeros((), np.int64)

@@ -6,7 +6,10 @@ output node as `layerNames(cutOutputLayers)`, auto-resizes inputs to the
 model's input shape, drops NA rows, delegates to CNTKModel.  Here the
 host decodes, and per shape group the device runs the fused
 resize+normalize kernel and the backbone forward (ImagePreprocess +
-TorchModel), fed as uint8.
+TorchModel), fed as uint8.  Any bundle with image taps serves as the
+backbone: a ResNet, or a ViT, whose attention runs the flash-attention
+kernel on the card; the output node is the bundle's
+`layer_names[cut_output_layers]`, taken from its module.
 
 The JAX package's JPEG-bytes fast path (native libjpeg decode into chunk
 buffers) is not ported yet: a mostly-JPEG bytes column raises

@@ -98,6 +98,8 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNet(nn.Module):
+    layer_names = LAYER_NAMES
+
     def __init__(self, stage_sizes: Sequence[int],
                  block_cls: Type[nn.Module], num_classes: int = 1000):
         super().__init__()

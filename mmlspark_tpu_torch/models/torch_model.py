@@ -6,7 +6,9 @@ weights move to the device once per (bundle, fetch, preprocess, device)
 and inputs stream through minibatch -> pad-to-chunk-shape -> pinned
 host->device copy -> ONE forward per chunk.  Feed/fetch-node addressing
 (:229-371) maps to the bundle's named taps; input coercion (:450-466)
-and output coercion (:468-493) are handled host-side.
+and output coercion (:468-493) are handled host-side.  Token models
+(TransformerLM) take int32 rows of shape (S,) with `feed_dtype="int32"`,
+as the JAX package's TPUModel does.
 
 Chunk sizing, padding and grouping (`chunk_plan`, `chunk_sizes`,
 `pad_to_batch`, `run_grouped`) keep the JAX package's semantics exactly,

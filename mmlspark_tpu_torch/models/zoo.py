@@ -5,7 +5,8 @@ cache root of its own.  Reference: deep-learning/.../downloader/
 ModelDownloader.scala:26-263 — a repository abstraction with a JSON
 MANIFEST and sha-verified transfer with retry; `ModelSchema` carries
 layerNames/inputNode for ImageFeaturizer.  Models are pickled bundles;
-offline, the zoo seeds random-initialised ResNets from a seed.
+offline, the zoo seeds random-initialised models of any registered
+builder (the ResNets, the ViTs, `transformer_lm`) from a seed.
 """
 from __future__ import annotations
 
@@ -134,8 +135,9 @@ def get_or_create_resnet(name: str = "resnet50", input_shape=(224, 224, 3),
                          num_classes: int = 1000,
                          repo: Optional[ModelRepo] = None,
                          seed: int = 0) -> TorchBundle:
-    """The repo's `name` ResNet, random-initialised from `seed` and
-    published on first use."""
+    """The repo's `name` model (any registered builder, despite the name),
+    random-initialised from `seed` and published on first use.  A ViT is
+    built for `input_shape`'s image size."""
     repo = repo or default_repo()
     key = f"{name}_{input_shape[0]}x{input_shape[1]}_{num_classes}"
     try:
