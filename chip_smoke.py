@@ -12,8 +12,10 @@ exit, no result line) if anything in it fails:
    nvcc per source, all at once) into `mmlspark_tpu_torch/csrc/build/`;
    each one's register and spill report is printed.
 3. kernel check: each kernel's wrapper runs on the card at the shapes the
-   main paths give it (plus ragged ones) and is held against its plain
-   PyTorch version on the same inputs; kernel, plain and library times
+   main paths give it (plus ragged ones; B4 also at the batcher's
+   admission prefill buckets, 8x1024 and 1x16; B7/B8 also with f32 pools,
+   a GQA pool and D 32) and is held against its plain PyTorch version on the
+   same inputs; kernel, plain and library times
    (CUDA events) are printed beside the least time the card could take.
 4. ResNet path: `ImageFeaturizer.transform` with the zoo's random-init
    ResNet-50 at 224x224, batch 64, on a table of 192 uint8 BGR images in
@@ -38,7 +40,32 @@ exit, no result line) if anything in it fails:
    are checked against a plain-attention prefill on the card and against
    an f32 CPU prefill of a 128-token prompt; prefill ms and decode
    tokens/s.
-7. record: a `{"kernels": [...]}` JSON line, the nvidia-smi line, and
+7. decode serving: `ContinuousBatcher(paged=True)` (64-row pages).
+   (a) f32 at GPT-small width with 2 layers, 4 slots, 8 requests of
+   16..900-token prompts and 32 new tokens plus 2 over a registered
+   256-token prefix, with plain and int8 pools, and the same requests over
+   HTTP (`read_stream().continuous_server().generate_stream()`, 4
+   concurrent clients): every stream equals `generate()` on the card (a
+   mismatch passes only as a tie: top-2 logit gap under 1e-4).  With
+   int8 pools the two shared-prefix requests are held against
+   `generate`'s machinery with the prefix prefilled alone and the suffix
+   fed one step at a time: their suffix attends over the quantized
+   prefix rows, where `generate`'s single prefill does not quantize
+   (tests/test_torch_batcher.py holds these streams against the JAX
+   package's own paged int8 batcher on the CPU).
+   (b) the serving configuration: the GPT-small LM of phase 6 (bf16),
+   8 slots, the default 129-page pool, 16 requests of 16..900-token
+   prompts and 64 new tokens, with bf16 pools (B7) and int8 pools (B8):
+   the paged kernel launches exactly 12 times per tick, B4 12 times per
+   admission prefill, B1 never; B4's output on every admission prefill
+   against its plain version on that launch's own q/k/v; stream lengths,
+   first tokens against the prefill's argmax, and teacher-forced
+   agreement; B7/B8 against their plain versions on one tick's live
+   pools (their recorded times);
+   tokens/s, ms per tick and the kernels' share over 3 rounds each.
+   Streams are read with a deadline, so a dead batcher loop fails the run
+   instead of hanging it.
+8. record: a `{"kernels": [...]}` JSON line, the nvidia-smi line, and
    last the `{"ok": true, "device": ...}` line.
 
 Imports nothing of JAX or of the JAX package, and no PIL: the images,
@@ -89,6 +116,42 @@ LM = dict(vocab_size=8192, embed_dim=768, num_layers=12, num_heads=12,
           max_len=1024)
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 1000, 24
 LM_CPU_PROMPT = 128
+
+# decode serving (phase 7): the paged page size of the JAX package's
+# serving default, and the f32 exactness configuration (GPT-small width,
+# 2 layers) beside the bf16 serving one (chip_smoke's LM at 12 layers)
+PAGE = 64
+PAGED_ATOL = 1e-4        # B7/B8 vs plain: both f32 from the same stored values
+TIE_GAP = 1e-4           # a token mismatch is a tie only below this top-2 gap
+EXACT_LM = dict(LM, num_layers=2)
+EXACT_SLOTS, EXACT_REQUESTS, EXACT_NEW, PREFIX_LEN = 4, 8, 32, 256
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 8, 16, 64
+STREAM_WAIT_S = 300      # no token for this long fails the run, never hangs it
+
+
+# every kernel's wrapper counter, by the name the record line gives it
+KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
+           "paged_decode_attention_int8")
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from mmlspark_tpu_torch.ops import attention_kernels as A
+    from mmlspark_tpu_torch.ops import image_kernels as K
+    from mmlspark_tpu_torch.ops import paged_attention as PA
+
+    K.LAUNCHES = A.LAUNCHES = PA.LAUNCHES = PA.LAUNCHES_INT8 = 0
+
+
+def read_launches() -> dict:
+    """{kernel name: launches since zero_launches()}."""
+    from mmlspark_tpu_torch.ops import attention_kernels as A
+    from mmlspark_tpu_torch.ops import image_kernels as K
+    from mmlspark_tpu_torch.ops import paged_attention as PA
+
+    return dict(zip(KERNELS, (K.LAUNCHES, A.LAUNCHES, PA.LAUNCHES,
+                              PA.LAUNCHES_INT8)))
 
 
 def fail(msg: str) -> None:
@@ -386,15 +449,15 @@ def resnet_path(K, A, images, table, repo, n_chunks, card):
     log(f"[resnet] zoo resnet50 ready in {time.perf_counter() - t0:.2f} s")
     featurizer = ImageFeaturizer(bundle=bundle, batch_size=BATCH)
 
-    K.LAUNCHES = A.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     out = featurizer.transform(table)
     first_s = time.perf_counter() - t0
-    launches = {"affine_resample": K.LAUNCHES, "flash_attention_fwd": A.LAUNCHES}
+    launches = read_launches()
     feats = out["features"]
     log(f"[resnet] first transform {first_s:.3f} s; launches {launches} "
         f"(chunks={n_chunks})")
-    if launches != {"affine_resample": n_chunks, "flash_attention_fwd": 0}:
+    if launches != dict(NO_LAUNCHES, affine_resample=n_chunks):
         fail(f"the ResNet path launched the kernels {launches} times, "
              f"expected affine_resample once per chunk ({n_chunks})")
     if feats.shape != (N_IMAGES, 2048) or not np.isfinite(feats).all():
@@ -477,16 +540,16 @@ def vit_path(K, A, images, table, repo, n_chunks, card):
     featurizer = ImageFeaturizer(bundle=bundle, batch_size=BATCH)
     layers = 12
 
-    K.LAUNCHES = A.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     out = featurizer.transform(table)
     first_s = time.perf_counter() - t0
-    launches = {"affine_resample": K.LAUNCHES, "flash_attention_fwd": A.LAUNCHES}
+    launches = read_launches()
     feats = out["features"]
     log(f"[vit] first transform {first_s:.3f} s; launches {launches} "
         f"(chunks={n_chunks}, layers={layers})")
-    want = {"affine_resample": n_chunks,
-            "flash_attention_fwd": layers * n_chunks}
+    want = dict(NO_LAUNCHES, affine_resample=n_chunks,
+                flash_attention_fwd=layers * n_chunks)
     if launches != want:
         fail(f"the ViT path launched the kernels {launches} times, "
              f"expected {want}")
@@ -552,16 +615,16 @@ def lm_path(K, A, card):
     prompt = np.random.default_rng(0).integers(
         0, LM["vocab_size"], (LM_BATCH, LM_PROMPT)).astype(np.int32)
 
-    K.LAUNCHES = A.LAUNCHES = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = G.generate(bundle, prompt, LM_NEW)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"affine_resample": K.LAUNCHES, "flash_attention_fwd": A.LAUNCHES}
+    launches = read_launches()
     log(f"[lm] first generate (batch {LM_BATCH}, prompt {LM_PROMPT}, "
         f"{LM_NEW} new tokens) {first_s:.3f} s; launches {launches}")
-    want = {"affine_resample": 0, "flash_attention_fwd": LM["num_layers"]}
+    want = dict(NO_LAUNCHES, flash_attention_fwd=LM["num_layers"])
     if launches != want:
         fail(f"the LM path launched the kernels {launches} times, expected "
              f"{want} (the prefill once per layer; no decode step)")
@@ -641,6 +704,537 @@ def lm_path(K, A, card):
     return launches
 
 
+def paged_inputs(b, h, hkv, d, page, mp, dtype, positions, seed, n_pages=None):
+    """q and K/V pools full of random values (the trash page 0 included);
+    slot i owns distinct pages for its live positions 0..positions[i], the
+    rest of its table row is 0."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    live = [p // page + 1 for p in positions]
+    n_pages = n_pages or 1 + sum(live)
+    q = torch.randn((b, h, d), device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn((n_pages, page, hkv, d), device="cuda",
+                        generator=gen).to(dtype) for _ in range(2))
+    table = np.zeros((b, mp), np.int32)
+    order = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
+    nxt = 0
+    for i, n in enumerate(live):
+        table[i, :n] = order[nxt:nxt + n]
+        nxt += n
+    return (q, k, v, torch.from_numpy(table).cuda(),
+            torch.tensor(positions, dtype=torch.int32, device="cuda"))
+
+
+def paged_bound(q, pools, pos, int8: bool) -> tuple:
+    """(bound_ms, bound_by) of one paged decode attention: each live K/V
+    row read once (sum_b (pos_b + 1) * Hkv * D * itemsize * 2, plus the
+    f32 scales for B8), q read and the f32 output written once, at the HBM
+    rate; against 4 * sum_b (pos_b + 1) * H * D operations (QK and PV) at
+    the f32 rate (the kernels use FMAs, no tensor cores)."""
+    rows = int((pos.long() + 1).sum())
+    _np, _page, hkv, d = pools[0].shape
+    h = q.shape[1]
+    nbytes = rows * hkv * d * pools[0].element_size() * 2
+    if int8:
+        nbytes += rows * hkv * 4 * 2
+    nbytes += q.numel() * q.element_size() + q.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * rows * h * d / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_paged(PA, label, q, pools, table, pos, timed: bool):
+    """B7 (pools (k, v)) or B8 (pools (kq, ks, vq, vs)) against its plain
+    version on the same inputs; with `timed`, kernel, plain and library
+    times (CUDA events) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    int8 = len(pools) == 4
+    kernel = PA.paged_decode_attention_int8 if int8 else \
+        PA.paged_decode_attention
+    plain = PA.paged_decode_attention_int8_plain if int8 else \
+        PA.paged_decode_attention_plain
+    got = kernel(q, *pools, table, pos)
+    ref = plain(q, *pools, table, pos)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"{label}: bad output {tuple(got.shape)}")
+    err = float((got - ref).abs().max())
+    b, h, d = q.shape
+    np_, page, hkv, _ = pools[0].shape
+    shape = (f"q{list(q.shape)} {str(q.dtype)[6:]} pools{list(pools[0].shape)}"
+             f" {str(pools[0].dtype)[6:]} MP {table.shape[1]} pos "
+             f"{pos.min().item()}..{pos.max().item()}")
+    if err > PAGED_ATOL:
+        fail(f"{label} {shape}: kernel disagrees with plain version "
+             f"(max abs err {err:.3e} > {PAGED_ATOL})")
+    if not timed:
+        log(f"[kernel] {label} {shape}: max_abs_err={err:.3e} "
+            f"(limit {PAGED_ATOL})")
+        return {"err": err}
+    mp = table.shape[1]
+    mask = (torch.arange(mp * page, device="cuda")[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    idx = table.long()
+
+    def library():
+        # the gather and SDPA (B8: and the dequantization) as separate calls
+        if int8:
+            kq, ks, vq, vs = (t[idx] for t in pools)
+            k_log = (kq.to(q.dtype) * ks[..., None].to(q.dtype))
+            v_log = (vq.to(q.dtype) * vs[..., None].to(q.dtype))
+        else:
+            k_log, v_log = (t[idx] for t in pools)
+        k_log, v_log = (x.reshape(b, mp * page, hkv, d).transpose(1, 2)
+                        .repeat_interleave(h // hkv, dim=1)
+                        for x in (k_log, v_log))
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], k_log, v_log, attn_mask=mask)
+
+    lib_err = float((library()[:, :, 0].float() - ref).abs().max())
+    kernel_ms = cuda_ms(lambda: kernel(q, *pools, table, pos), 50)
+    plain_ms = cuda_ms(lambda: plain(q, *pools, table, pos), 5)
+    library_ms = cuda_ms(library, 20)
+    bound_ms, bound_by = paged_bound(q, pools, pos, int8)
+    calls = "gather+dequant+SDPA, 3 calls" if int8 else "gather+SDPA, 2 calls"
+    log(f"[kernel] {label} {shape}: max_abs_err={err:.3e} (limit "
+        f"{PAGED_ATOL}) kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} ({calls}, max_abs_err vs plain "
+        f"{lib_err:.3e}) bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"roofline_share={bound_ms / kernel_ms:.3f}")
+    return {"err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def paged_kernel_checks(PA):
+    """Phase 3's B7/B8 cases: the serving shape (q [8, 12, 64] bf16, a
+    129-page pool of 64-row pages, MP 16, positions from a seed with 0, 63,
+    64 and 1023), f32 pools, a GQA pool (Hkv 4), D 32 with 16-row pages,
+    and B8 over int8 pools from quantize_kv_row; returns {kernel: its
+    largest error}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.ops.quant import quantize_kv_row
+
+    rng = np.random.default_rng(30)
+    main_pos = [0, 63, 64, 1023] + rng.integers(0, 1024, 4).tolist()
+    cases = [("main", 8, 12, 12, 64, PAGE, 16, torch.bfloat16, main_pos, 129),
+             ("f32", 8, 12, 12, 64, PAGE, 16, torch.float32, main_pos, 129),
+             ("gqa", 8, 12, 4, 64, PAGE, 16, torch.bfloat16, main_pos, 129),
+             ("d32", 5, 4, 4, 32, 16, 8, torch.float32,
+              [0, 15, 16, 127, 77], None)]
+    errs = {"paged_decode_attention": 0.0, "paged_decode_attention_int8": 0.0}
+    for name, b, h, hkv, d, page, mp, dtype, positions, n_pages in cases:
+        q, k, v, table, pos = paged_inputs(b, h, hkv, d, page, mp, dtype,
+                                           positions, seed=31, n_pages=n_pages)
+        kq, ks = quantize_kv_row(k)
+        vq, vs = quantize_kv_row(v)
+        for key, pools in (("paged_decode_attention", (k, v)),
+                           ("paged_decode_attention_int8", (kq, ks, vq, vs))):
+            err = check_paged(PA, f"{key}[{name}]", q, pools, table, pos,
+                              timed=False)["err"]
+            errs[key] = max(errs[key], err)
+    return errs
+
+
+def _prefill_then_steps(module, prompt, split, kv_cache_dtype):
+    """`generate`'s machinery: prefill prompt[:split], then one decode
+    step per remaining prompt token; returns (next logits, cache, pos)."""
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+
+    p = torch.as_tensor(prompt[:split], dtype=torch.int32, device="cuda")
+    logits, cache = G._prefill_cache(module, p[None], kv_cache_dtype)
+    cur, pos = logits[0, -1], split
+    for t in prompt[split:]:
+        cur, cache, pos = _step(module, int(t), cache, pos)
+    return cur, cache, pos
+
+
+def _step(module, tok, cache, pos):
+    import torch
+
+    lg, cache = module.decode_step(
+        torch.tensor([[tok]], dtype=torch.int32, device="cuda"), cache, pos)
+    return lg[0, 0], cache, pos + 1
+
+
+def step_logits(module, prompt, toks, kv_cache_dtype, split=None):
+    """The logits the reference reads before emitting toks[len(toks)]:
+    `generate`'s prefill over the prompt (over prompt[:split] and then one
+    decode step per remaining prompt token, with `split`), then one
+    decode step per token of `toks`."""
+    import torch
+
+    with torch.inference_mode():
+        cur, cache, pos = _prefill_then_steps(
+            module, prompt, split or len(prompt), kv_cache_dtype)
+        for t in toks:
+            cur, cache, pos = _step(module, t, cache, pos)
+    return cur
+
+
+def split_generate(module, prompt, split, n, kv_cache_dtype):
+    """Greedy tokens of a shared-prefix request as the batcher computes
+    it with int8 pools: the prefix prefilled on its own, and the suffix
+    attending over the QUANTIZED prefix rows (the JAX package's
+    semantics; `generate`'s one prefill attends over them unquantized),
+    fed here one decode step per token."""
+    import torch
+
+    toks = []
+    with torch.inference_mode():
+        cur, cache, pos = _prefill_then_steps(module, prompt, split,
+                                              kv_cache_dtype)
+        for i in range(n):
+            toks.append(int(cur.argmax()))
+            if i < n - 1:
+                cur, cache, pos = _step(module, toks[-1], cache, pos)
+    return toks
+
+
+def compare_streams(label, module, prompts, got, refs, kv_cache_dtype,
+                    splits=None):
+    """Each stream against its reference tokens (`generate`'s, or
+    `split_generate`'s where `splits` gives the prefix length).  A
+    mismatch is a tie (printed, not failed) only where the reference's
+    top-2 logit gap at the first differing step is under TIE_GAP."""
+    splits = splits or [None] * len(prompts)
+    for i, (prompt, g, r) in enumerate(zip(prompts, got, refs)):
+        if g == r:
+            continue
+        step = next((j for j, (a, b) in enumerate(zip(g, r)) if a != b),
+                    min(len(g), len(r)))
+        if step >= len(r) or step >= len(g):
+            fail(f"{label}: stream {i} has {len(g)} tokens, generate "
+                 f"{len(r)}")
+        top2 = step_logits(module, prompt, r[:step], kv_cache_dtype,
+                           splits[i]).float().topk(2).values
+        gap = float(top2[0] - top2[1])
+        if gap >= TIE_GAP:
+            fail(f"{label}: stream {i} (prompt {len(prompt)}) differs from "
+                 f"generate at step {step} where the top-2 logit gap is "
+                 f"{gap:.3e}")
+        log(f"[serve] {label}: stream {i} ties generate at step {step} "
+            f"(top-2 gap {gap:.2e} < {TIE_GAP})")
+    log(f"[serve] {label}: {len(got)} streams of {len(got[0])} tokens equal "
+        f"their references on the card (generate(); int8 shared-prefix "
+        f"requests split_generate()), ties aside")
+
+
+def batch_fill_count() -> int:
+    """Ticks so far: one `serving.batcher.batch_fill` observation each."""
+    from mmlspark_tpu_torch.core import telemetry
+
+    return telemetry.histogram("serving.batcher.batch_fill").snapshot()["count"]
+
+
+def serve_exactness(card):
+    """Phase 7a: f32 paged serving at GPT-small width (2 layers), plain
+    and int8 pools, with a shared prefix, and over HTTP: every stream
+    equals `generate()` on the card."""
+    import threading
+    import http.client
+
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+    from mmlspark_tpu_torch.models.bundle import TorchBundle
+    from mmlspark_tpu_torch.serving import read_stream
+    from mmlspark_tpu_torch.serving.batcher import ContinuousBatcher
+
+    bundle = TorchBundle("transformer_lm", EXACT_LM, input_shape=(16,),
+                         dtype="float32", seed=0)
+    module = G._module_for(bundle, torch.device("cuda"))
+    vocab = EXACT_LM["vocab_size"]
+    rng = np.random.default_rng(1)
+    lens = [16, 900] + rng.integers(16, 901, EXACT_REQUESTS - 2).tolist()
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+    prefix = rng.integers(0, vocab, PREFIX_LEN).astype(np.int32)
+    suffixes = [rng.integers(0, vocab, n).astype(np.int32) for n in (1, 100)]
+    full = prompts + [np.concatenate([prefix, sfx]) for sfx in suffixes]
+    refs = {}
+    for kvd in (None, "int8"):
+        label = f"f32 paged serving, {kvd or 'f32'} pools"
+        refs[kvd] = [G.generate(bundle, p[None], EXACT_NEW,
+                                kv_cache_dtype=kvd)[0, len(p):].cpu().tolist()
+                     for p in full]
+        # int8 pools: the shared-prefix requests' own semantics
+        splits = [None] * len(prompts) + [PREFIX_LEN if kvd else None] * 2
+        for i, split in enumerate(splits):
+            if split is not None:
+                refs[kvd][i] = split_generate(module, full[i], split,
+                                              EXACT_NEW, kvd)
+        batcher = ContinuousBatcher(bundle, max_slots=EXACT_SLOTS, paged=True,
+                                    page_size=PAGE, kv_cache_dtype=kvd)
+        handle = batcher.register_prefix(prefix)
+        batcher.start()
+        try:
+            zero_launches()
+            ticks0 = batch_fill_count()
+            t0 = time.perf_counter()
+            streams = ([batcher.submit(p, EXACT_NEW) for p in prompts]
+                       + [batcher.submit(sfx, EXACT_NEW, prefix=handle)
+                          for sfx in suffixes])
+            got = [st.tokens(timeout=STREAM_WAIT_S) for st in streams]
+            wall = time.perf_counter() - t0
+            launches, ticks = read_launches(), batch_fill_count() - ticks0
+        finally:
+            batcher.stop()
+        key = "paged_decode_attention_int8" if kvd else "paged_decode_attention"
+        log(f"[serve] {label}: {len(full)} requests (prompts {min(lens)}.."
+            f"{max(lens)}, one {PREFIX_LEN}-token shared prefix with 2 "
+            f"suffixes), {EXACT_NEW} new tokens each, {EXACT_SLOTS} slots: "
+            f"{wall:.3f} s, {ticks} ticks, launches {launches}")
+        if launches[key] != EXACT_LM["num_layers"] * ticks or ticks == 0:
+            fail(f"{label}: {key} launched {launches[key]} times in "
+                 f"{ticks} ticks of {EXACT_LM['num_layers']} layers")
+        compare_streams(label, module, full, got, refs[kvd], kvd, splits)
+
+    # the same requests over HTTP, from 4 concurrent clients
+    query = (read_stream()
+             .continuous_server(name="lm", path="/lm")
+             .parse_request(schema=["prompt"])
+             .generate_stream(bundle, max_new_tokens=EXACT_NEW,
+                              max_slots=EXACT_SLOTS, paged=True,
+                              page_size=PAGE)
+             .options(batch_timeout_ms=5.0)
+             .start())
+    results = [None] * len(full)
+    errors = []
+
+    def client(c):
+        try:
+            conn = http.client.HTTPConnection(
+                query.service_info.host, query.service_info.port,
+                timeout=STREAM_WAIT_S)
+            for i in range(c, len(full), 4):
+                conn.request("POST", "/lm", body=json.dumps(
+                    {"prompt": full[i].tolist()}).encode())
+                resp = conn.getresponse()
+                body = resp.read().decode()
+                if resp.status != 200:
+                    raise RuntimeError(f"HTTP {resp.status}: {body[:200]}")
+                results[i] = [int(t) for t in body.split()]
+            conn.close()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=STREAM_WAIT_S)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or errors:
+            fail(f"HTTP clients failed or hung: {errors}")
+    finally:
+        query.stop()
+    log(f"[serve] HTTP: {len(full)} requests from 4 concurrent clients "
+        f"through read_stream().continuous_server().generate_stream("
+        f"paged=True) in {wall:.3f} s")
+    compare_streams("HTTP f32 paged serving", module, full, results,
+                    refs[None], None)
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+
+
+def serving_path(A, PA, card):
+    """Phase 7b, the serving configuration: ContinuousBatcher, paged, over
+    chip_smoke's GPT-small LM (12 layers, bf16), 8 slots, 64-row pages (the
+    default 129-page pool), 16 requests of 16..900-token prompts and 64 new
+    tokens; once with bf16 pools (B7) and once with int8 pools (B8).
+    Returns ({kernel: launches}, {kernel: timing row from the live pools},
+    B4's largest error on the admission prefills' own q/k/v)."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+    from mmlspark_tpu_torch.models.bundle import TorchBundle
+    from mmlspark_tpu_torch.serving import batcher as SB
+
+    layers = LM["num_layers"]
+    bundle = TorchBundle("transformer_lm", LM, input_shape=(16,), seed=0)
+    module = G._module_for(bundle, torch.device("cuda"))
+    rng = np.random.default_rng(2)
+    lens = rng.integers(16, 901, SERVE_REQUESTS)
+    prompts = [rng.integers(0, LM["vocab_size"], n).astype(np.int32)
+               for n in lens]
+    total = {k: 0 for k in KERNELS}
+    rows = {}
+    flash_err = 0.0
+    for kvd in (None, "int8"):
+        key = "paged_decode_attention_int8" if kvd else "paged_decode_attention"
+        label = f"serving {kvd or 'bf16'} pools"
+        batcher = SB.ContinuousBatcher(bundle, max_slots=SERVE_SLOTS,
+                                       paged=True, page_size=PAGE,
+                                       kv_cache_dtype=kvd).start()
+        # spies for the counted run: prefill forwards (with each row's
+        # argmax), one tick's live attention inputs, pages in use per tick
+        prefills, captured, pages_used, flash_checks = [], {}, [], []
+        real_prefill, real_step = SB._prefill_kv, batcher._step
+        real_kernel, real_flash = getattr(PA, key), A.flash_attention_fwd
+
+        def prefill_spy(module_, toks, kv_cache_dtype=None):
+            logits, kv = real_prefill(module_, toks, kv_cache_dtype)
+            prefills.append((toks.cpu().numpy(),
+                             logits.argmax(-1).cpu().numpy()))
+            return logits, kv
+
+        def step_spy(tok, pos, table):
+            pages_used.append(batcher._np - 1 - len(batcher._free))
+            return real_step(tok, pos, table)
+
+        def kernel_spy(q, *rest):
+            # layer 0 of the 40th tick: slots are full and recycled
+            if "args" not in captured and len(pages_used) == 40:
+                captured["args"] = tuple(t.clone() for t in (q, *rest))
+            return real_kernel(q, *rest)
+
+        def flash_spy(q, k, v, causal):
+            # every admission prefill's B4 launch (its kp rows at its
+            # bucket) held against the plain version on the same q/k/v
+            out, lse = real_flash(q, k, v, causal)
+            ref, ref_lse = A.flash_attention_fwd_plain(q, k, v, causal)
+            flash_checks.append((tuple(q.shape), float((out - ref).abs().max()),
+                                 float((lse - ref_lse).abs().max())))
+            return out, lse
+
+        SB._prefill_kv, batcher._step = prefill_spy, step_spy
+        setattr(PA, key, kernel_spy)
+        A.flash_attention_fwd = flash_spy
+        try:
+            zero_launches()
+            ticks0 = batch_fill_count()
+            t0 = time.perf_counter()
+            streams = [batcher.submit(p, SERVE_NEW) for p in prompts]
+            got = [st.tokens(timeout=STREAM_WAIT_S) for st in streams]
+            first_s = time.perf_counter() - t0
+            launches, ticks = read_launches(), batch_fill_count() - ticks0
+        finally:
+            SB._prefill_kv = real_prefill
+            batcher._step = real_step
+            setattr(PA, key, real_kernel)
+            A.flash_attention_fwd = real_flash
+        want = dict(NO_LAUNCHES, flash_attention_fwd=layers * len(prefills))
+        want[key] = layers * ticks
+        log(f"[serve] {label}: {SERVE_REQUESTS} requests (prompts "
+            f"{lens.min()}..{lens.max()}), {SERVE_NEW} new tokens each, "
+            f"{SERVE_SLOTS} slots, 12 layers bf16: first round {first_s:.3f}"
+            f" s, {ticks} ticks, {len(prefills)} admission prefill "
+            f"forwards, launches {launches}")
+        if launches != want or ticks == 0:
+            fail(f"{label}: launches {launches}, expected {want} ({key} "
+                 f"once per layer per tick, B4 once per layer per admission "
+                 f"prefill, B1 never)")
+        err = max(e for _s, e, _l in flash_checks)
+        lse_err = max(e for _s, _e, e in flash_checks)
+        log(f"[serve] {label}: B4 on its {len(flash_checks)} admission "
+            f"prefill launches' own q/k/v (shapes "
+            f"{sorted(set(s for s, _e, _l in flash_checks))}): max_abs_err="
+            f"{err:.3e} (limit {ATTN_ATOL['bfloat16']}) lse_err={lse_err:.3e}"
+            f" (limit {LSE_ATOL}) against the plain version")
+        if err > ATTN_ATOL["bfloat16"] or lse_err > LSE_ATOL:
+            fail(f"{label}: B4 disagrees with its plain version on an "
+                 f"admission prefill (max abs err {err:.3e}, lse "
+                 f"{lse_err:.3e})")
+        flash_err = max(flash_err, err)
+        if any(len(t) != SERVE_NEW for t in got) or \
+                min(min(t) for t in got) < 0 or \
+                max(max(t) for t in got) >= LM["vocab_size"]:
+            fail(f"{label}: stream lengths {[len(t) for t in got]} or "
+                 f"tokens outside the vocabulary")
+        for i, (p, toks) in enumerate(zip(prompts, got)):
+            hit = [am[r, len(p) - 1] for tk, am in prefills
+                   for r in range(tk.shape[0])
+                   if tk.shape[1] >= len(p) and (tk[r, :len(p)] == p).all()]
+            if not hit or hit[0] != toks[0]:
+                fail(f"{label}: stream {i}'s first token {toks[0]} is not "
+                     f"the argmax of its prefill logits ({hit[:1]})")
+        agree = []
+        with torch.inference_mode():
+            for p, toks in zip(prompts, got):
+                seq = torch.as_tensor(np.concatenate([p, toks[:-1]]),
+                                      device="cuda")[None]
+                pred = module(seq)[0][0, len(p) - 1:].argmax(-1).cpu()
+                agree.append(float((pred.numpy() == np.asarray(toks)).mean()))
+        log(f"[serve] {label}: first tokens equal the argmax of their "
+            f"prefill logits; teacher-forced agreement with a prefill "
+            f"forward over prompt + tokens: mean {np.mean(agree):.4f}, min "
+            f"{min(agree):.4f} (bf16, informational)")
+        rows[key] = check_paged(PA, f"{key}[live pools, tick 40, layer 0]",
+                                captured["args"][0], captured["args"][1:-2],
+                                captured["args"][-2], captured["args"][-1],
+                                timed=True)
+        del captured
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for layer in batcher._cache for t in layer)
+        page_bytes = pool_bytes // batcher._np
+        dense_bytes = (pool_bytes // batcher._np) * SERVE_SLOTS * \
+            (LM["max_len"] // PAGE)
+        log(f"[serve] {label}: KV pools {pool_bytes / 2**20:.1f} MiB for "
+            f"{batcher._np} pages; dense max_slots x max_len cache "
+            f"{dense_bytes / 2**20:.1f} MiB; pages in use at most "
+            f"{max(pages_used)} = {max(pages_used) * page_bytes / 2**20:.1f} "
+            f"MiB")
+        walls, tick_counts = [], []
+        for _ in range(3):
+            ticks0 = batch_fill_count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for st in [batcher.submit(p, SERVE_NEW) for p in prompts]:
+                st.tokens(timeout=STREAM_WAIT_S)
+            walls.append(time.perf_counter() - t0)
+            tick_counts.append(batch_fill_count() - ticks0)
+        tps = [SERVE_REQUESTS * SERVE_NEW / w for w in walls]
+        host_ms = [w * 1e3 / n for w, n in zip(walls, tick_counts)]
+        log(f"[serve] {label}: 3 rounds: {min(tps):.0f}..{max(tps):.0f} "
+            f"tokens/s aggregate; {min(host_ms):.3f}..{max(host_ms):.3f} ms "
+            f"per tick on the host clock (admission prefills included; "
+            f"ticks {tick_counts}) on {card}")
+        kern = []
+        for _ in range(3):
+            ticks0 = batch_fill_count()
+
+            def one_round():
+                for st in [batcher.submit(p, SERVE_NEW) for p in prompts]:
+                    st.tokens(timeout=STREAM_WAIT_S)
+
+            busy = profiled_kernel_ms(one_round, ["paged_decode_kernel",
+                                                  "flash_fwd"])
+            n = batch_fill_count() - ticks0
+            if busy is not None:
+                kern.append((busy[0] / n, busy[1]["paged_decode_kernel"]
+                             / busy[0], busy[1]["flash_fwd"] / busy[0],
+                             busy[2] / n))
+        if kern:
+            log(f"[serve] {label}: 3 profiled rounds: kernel time "
+                f"{min(k[0] for k in kern):.3f}..{max(k[0] for k in kern):.3f}"
+                f" ms per tick against {min(k[3] for k in kern):.3f}.."
+                f"{max(k[3] for k in kern):.3f} ms of profiled wall per tick;"
+                f" the paged kernel's share of kernel time "
+                f"{min(k[1] for k in kern):.4f}..{max(k[1] for k in kern):.4f}"
+                f", B4's {min(k[2] for k in kern):.4f}.."
+                f"{max(k[2] for k in kern):.4f}")
+        else:
+            log(f"[serve] {label}: the profiler saw no device time "
+                "(kernel time per tick not measured)")
+        batcher.stop()
+        for k in KERNELS:
+            total[k] += launches[k]
+        del batcher
+        torch.cuda.empty_cache()
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+    return total, rows, flash_err
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -657,6 +1251,7 @@ def main() -> None:
     from mmlspark_tpu_torch.ops import _build
     from mmlspark_tpu_torch.ops import attention_kernels as A
     from mmlspark_tpu_torch.ops import image_kernels as K
+    from mmlspark_tpu_torch.ops import paged_attention as PA
 
     # ---- 1. device -----------------------------------------------------
     smi = subprocess.run(
@@ -696,7 +1291,14 @@ def main() -> None:
                         seed=11)]
     attn_extra = [
         check_attention(A, (3, 77, 5, 64), "float32", True, seed=12),
-        check_attention(A, (8, 128, 4, 32), "bfloat16", True, seed=13)]
+        check_attention(A, (8, 128, 4, 32), "bfloat16", True, seed=13),
+        # the batcher's admission prefills: kp rows at a power-of-two bucket
+        check_attention(A, (SERVE_SLOTS, 1024, 12, 64), "bfloat16", True,
+                        seed=14),
+        check_attention(A, (1, 16, 12, 64), "bfloat16", True, seed=15)]
+    # B7/B8 at the serving shape and beside it (their times are taken on
+    # the serving run's live pools, phase 7b)
+    paged_err = paged_kernel_checks(PA)
 
     # ---- 4-6. the paths --------------------------------------------------
     rng = np.random.default_rng(0)
@@ -708,9 +1310,14 @@ def main() -> None:
     paths = [resnet_path(K, A, images, table, repo, n_chunks, card),
              vit_path(K, A, images, table, repo, n_chunks, card),
              lm_path(K, A, card)]
-    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
-    # ---- 7. record -----------------------------------------------------
+    # ---- 7. decode serving -----------------------------------------------
+    serve_exactness(card)
+    serve_launches, live, serve_flash_err = serving_path(A, PA, card)
+    paths.append(serve_launches)
+    launches = {k: sum(p[k] for p in paths) for k in KERNELS}
+
+    # ---- 8. record -----------------------------------------------------
     def summed(rows, key):
         vals = [r[key] for r in rows]
         return sum(vals) if None not in vals else None
@@ -738,14 +1345,29 @@ def main() -> None:
         "source": "mmlspark_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "mmlspark_tpu/ops/attention_kernels.py:196",
         "launches": launches["flash_attention_fwd"],
-        "max_abs_err": max(c["err"] for c in attn_main + attn_extra),
+        "max_abs_err": max([c["err"] for c in attn_main + attn_extra]
+                           + [serve_flash_err]),
         # one ViT-B/16 chunk layer plus one LM prefill layer, summed
         "ms": summed(attn_main, "ms"),
         "plain_ms": summed(attn_main, "plain_ms"),
         "bound_ms": summed(attn_main, "bound_ms"),
         "bound_by": bound_by(attn_main),
         "library_ms": summed(attn_main, "library_ms"),
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/paged_attention.cu",
+        "replaces": f"mmlspark_tpu/ops/paged_attention.py:{line}",
+        "launches": launches[name],
+        "max_abs_err": max(paged_err[name], live[name]["err"]),
+        # one launch on the serving run's live pools (tick 40, layer 0)
+        "ms": live[name]["ms"],
+        "plain_ms": live[name]["plain_ms"],
+        "bound_ms": live[name]["bound_ms"],
+        "bound_by": live[name]["bound_by"],
+        "library_ms": live[name]["library_ms"],
+    } for name, line in (("paged_decode_attention", 167),
+                         ("paged_decode_attention_int8", 250))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 A copy of the JAX package's `core/flow.py` for this package, holding the
 parts the host input pipeline runs on (HostPipeline, io/pipeline.py, and
-the DeviceFeed transfer retry ladder, io/feed.py):
+the DeviceFeed transfer retry ladder, io/feed.py) and the serving
+intake (`AdmissionStage`, which ContinuousBatcher rides):
 
   * **Stages with credit budgets.**  A `FlowGraph` is an ordered list of
     `Stage`s, each with a named worker pool and a bounded CREDIT budget
@@ -41,8 +42,10 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from collections import deque
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+from ..utils.fault_tolerance import Overloaded
 from ..utils.faults import fault_point
 from ..utils.faults import monotonic as _clock_monotonic
 from ..utils.faults import sleep as _clock_sleep
@@ -50,7 +53,8 @@ from ..utils.sync import make_lock
 from . import telemetry as core_telemetry
 
 __all__ = ["Stage", "StagePolicy", "FlowGraph", "FlowItem", "Expired",
-           "deadline_expired", "flow_fault_points"]
+           "AdmissionStage", "deadline_from_ms", "deadline_expired",
+           "flow_fault_points"]
 
 _POLL_S = 0.05  # cancel-aware queue/credit wait quantum
 
@@ -76,8 +80,22 @@ def flow_fault_points() -> Tuple[str, ...]:
 
 
 # ---------------------------------------------------------------------------
-# The deadline model.
+# The deadline model (shared with serving: X-Deadline-Ms -> monotonic).
 # ---------------------------------------------------------------------------
+def deadline_from_ms(dl_ms) -> Optional[float]:
+    """Parse a deadline budget in milliseconds (the `X-Deadline-Ms`
+    header value) into an absolute monotonic deadline; malformed or
+    missing values mean no deadline — a bad header must not fail a
+    request that never asked for a budget."""
+    if dl_ms is None:
+        return None
+    try:
+        budget_ms = float(dl_ms)
+    except (TypeError, ValueError):
+        return None
+    return _clock_monotonic() + budget_ms / 1000.0
+
+
 def deadline_expired(deadline: Optional[float],
                      now: Optional[float] = None) -> bool:
     """True when an absolute monotonic `deadline` has lapsed."""
@@ -526,3 +544,131 @@ class FlowGraph:
         finally:
             # an abandoned/broken consumer must not strand the workers
             self.cancel()
+
+
+class AdmissionStage(Stage):
+    """The serving intake as a flow stage: credit-bounded admission with
+    shed, expired-deadline reaping, and graceful drain as ONE code path
+    (ContinuousBatcher rides this; WorkerServer shares the deadline
+    helpers and counters).
+
+    The intake is two-phase like the batcher always was: client threads
+    `offer()`/`put()` into the pending queue; the single loop thread
+    moves it into the loop-owned `buffer` FIFO (`drain_to_buffer`),
+    reaps lapsed deadlines (`reap_expired`) and admits from the head.
+    `max_pending=None` keeps the seed's unbounded never-shedding intake
+    while the class still declares a bounded default budget."""
+
+    name = "admission"
+    credits = 64  # bounded default intake budget
+
+    def __init__(self, max_pending: Optional[int] = None,
+                 label: str = "admission",
+                 shed_counter: Optional[str] = None,
+                 expired_counter: Optional[str] = None,
+                 depth_gauge: Optional[str] = None):
+        super().__init__()
+        self.max_pending = (None if max_pending is None
+                            else int(max_pending))
+        self._intake_label = label
+        self._shed_counter = shed_counter
+        self._expired_counter = expired_counter
+        self._depth_gauge = depth_gauge
+        # intake is bounded at offer(): past max_pending it sheds with
+        # Overloaded/503 instead of blocking the client thread on a full
+        # put
+        self._pending: "queue.Queue" = queue.Queue()  # graftlint: disable=G403
+        # loop-thread-only FIFO between intake and admission (the owner
+        # may defer the head, e.g. paged mode waiting for pages)
+        self.buffer: deque = deque()
+        _register_fault_point("flow.admission")
+
+    # ---- depth ---------------------------------------------------------
+    def depth(self) -> int:
+        return self._pending.qsize() + len(self.buffer)
+
+    def _note_depth(self) -> int:
+        d = self.depth()
+        core_telemetry.gauge("flow.queue.depth.admission").set(d)
+        if self._depth_gauge is not None:
+            core_telemetry.gauge(self._depth_gauge).set(d)
+        return d
+
+    # ---- client side ---------------------------------------------------
+    def shed_check(self) -> None:
+        """Raise Overloaded when the bounded intake is full (the caller
+        maps it to 503 + Retry-After).  Also the stage's fault point: a
+        chaos plan can shed or stall admissions on demand."""
+        fault_point("flow.admission")
+        if self.max_pending is not None and self.depth() >= self.max_pending:
+            core_telemetry.incr("flow.shed")
+            core_telemetry.incr("flow.shed.admission")
+            if self._shed_counter is not None:
+                core_telemetry.incr(self._shed_counter)
+            raise Overloaded(
+                f"{self._intake_label} intake full "
+                f"({self.max_pending} pending)")
+
+    def put(self, item: Any) -> None:
+        """Enqueue after a passed shed_check (the caller may validate in
+        between — the batcher holds its submit lock across the gap)."""
+        self._pending.put(item)
+        self._note_depth()
+
+    def offer(self, item: Any) -> None:
+        """shed_check + put in one step, for callers with no validation
+        between the two."""
+        self.shed_check()
+        self.put(item)
+
+    # ---- loop side -----------------------------------------------------
+    def get(self, timeout: Optional[float] = None) -> Any:
+        """Blocking pop from the raw intake (the idle-loop path); raises
+        queue.Empty on timeout."""
+        return self._pending.get(timeout=timeout)
+
+    def drain_to_buffer(self) -> None:
+        """Move everything pending into the loop-owned buffer FIFO."""
+        while True:
+            try:
+                self.buffer.append(self._pending.get_nowait())
+            except queue.Empty:
+                break
+        self._note_depth()
+
+    def reap_expired(self, deadline_of: Callable[[Any], Optional[float]],
+                     on_expired: Callable[[Any], None],
+                     now: Optional[float] = None) -> int:
+        """Fail-fast pass over the buffered FIFO: an expired item must
+        not consume admission work — its client has already given up.
+        `on_expired` settles each dropped item (504 / TimeoutError on
+        its stream); returns the number reaped."""
+        now = _clock_monotonic() if now is None else now
+        kept = [item for item in self.buffer
+                if not deadline_expired(deadline_of(item), now)]
+        reaped = [item for item in self.buffer
+                  if deadline_expired(deadline_of(item), now)]
+        if reaped:
+            self.buffer.clear()
+            self.buffer.extend(kept)
+            for item in reaped:
+                core_telemetry.incr("flow.expired")
+                core_telemetry.incr("flow.expired.admission")
+                if self._expired_counter is not None:
+                    core_telemetry.incr(self._expired_counter)
+                on_expired(item)
+            self._note_depth()
+        return len(reaped)
+
+    def drain_all(self, on_item: Callable[[Any], None]) -> None:
+        """Graceful drain: hand every queued item (buffer then pending)
+        to `on_item` so stop() paths settle them consistently."""
+        for item in self.buffer:
+            on_item(item)
+        self.buffer.clear()
+        while True:
+            try:
+                on_item(self._pending.get_nowait())
+            except queue.Empty:
+                break
+        self._note_depth()

@@ -2,9 +2,12 @@
 histograms and spans behind one process registry.
 
 A small copy of the JAX package's `core/telemetry`, holding what the
-ported slice records: ``log_verb`` (stage verbs), ``incr`` / ``gauge`` /
-``histogram`` (the feed, flow and pipeline instruments) and ``span`` /
-``record_span`` (worker-thread spans attached to the caller's trace).
+ported slices record: ``log_verb`` (stage verbs), ``incr`` / ``gauge`` /
+``histogram`` (the feed, flow, pipeline, batcher and server
+instruments), ``span`` / ``record_span`` (worker-thread spans attached
+to the caller's trace), and what the serving endpoints expose
+(``render_prometheus`` at ``/metrics``, ``export_snapshot`` at
+``/metrics.json``, ``render_chrome_trace`` at ``/trace.json``).
 """
 from __future__ import annotations
 
@@ -18,14 +21,17 @@ from .metrics import (
     REGISTRY,
     is_declared,
 )
+from .exposition import export_snapshot, render_chrome_trace, render_prometheus
 from .records import clear_records, log_verb, recent_records
 from .spans import (
     clear_spans,
     current_context,
+    extract_trace,
     get_trace,
     recent_spans,
     record_span,
     span,
+    span_tree,
     use_trace,
 )
 
@@ -35,7 +41,8 @@ __all__ = [
     "is_declared",
     "log_verb", "recent_records", "clear_records",
     "span", "record_span", "use_trace", "current_context", "get_trace",
-    "recent_spans", "clear_spans",
+    "extract_trace", "span_tree", "recent_spans", "clear_spans",
+    "render_prometheus", "export_snapshot", "render_chrome_trace",
 ]
 
 

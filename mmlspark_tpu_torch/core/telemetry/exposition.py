@@ -1,0 +1,179 @@
+"""Render the registry for the serving endpoints: Prometheus text, JSON
+snapshots and Chrome trace-event JSON.
+
+A copy of the JAX package's `core/telemetry/exposition.py` for this
+package, without the goodput and time-series planes and the ascii
+report renderers.
+
+Prometheus exposition convention (text format 0.0.4): dotted internal
+names (`serving.request.latency`) sanitize to underscore names
+(`serving_request_latency`); histograms expose CUMULATIVE
+`_bucket{le="..."}` series ending in `le="+Inf"`, plus `_sum`/`_count`.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import time
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+from . import spans as _spans
+from .metrics import REGISTRY, MetricsRegistry
+
+__all__ = ["render_prometheus", "export_snapshot", "render_chrome_trace",
+           "sanitize_name"]
+
+# process uptime baseline: first telemetry import ~ process start
+_T0_MONOTONIC = time.monotonic()
+
+_NAME_BAD = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def sanitize_name(name: str) -> str:
+    out = _NAME_BAD.sub("_", name)
+    if out and out[0].isdigit():
+        out = "_" + out
+    return out
+
+
+def _fmt_value(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    f = float(v)
+    return str(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
+
+
+def _escape(v: str) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace(
+        "\n", "\\n")
+
+
+def _fmt_labels(labels: Tuple[Tuple[str, str], ...],
+                extra: Optional[Tuple[Tuple[str, str], ...]] = None) -> str:
+    items = list(labels) + list(extra or ())
+    if not items:
+        return ""
+    body = ",".join(f'{sanitize_name(k)}="{_escape(v)}"' for k, v in items)
+    return "{" + body + "}"
+
+
+def render_prometheus(registry: MetricsRegistry = REGISTRY) -> str:
+    """The full registry in Prometheus text format (what `/metrics`
+    serves)."""
+    lines: List[str] = []
+    for name, val in sorted(registry.counter_values().items()):
+        pn = sanitize_name(name)
+        lines.append(f"# TYPE {pn} counter")
+        lines.append(f"{pn} {val}")
+    for name, val in sorted(registry.gauge_values().items()):
+        pn = sanitize_name(name)
+        lines.append(f"# TYPE {pn} gauge")
+        lines.append(f"{pn} {_fmt_value(val)}")
+    typed = set()
+    for (name, labels), h in sorted(registry.histograms().items(),
+                                    key=lambda kv: (kv[0][0], kv[0][1])):
+        pn = sanitize_name(name)
+        if pn not in typed:
+            lines.append(f"# TYPE {pn} histogram")
+            typed.add(pn)
+        snap = h.snapshot()
+        for le, cum in snap["buckets"]:
+            lines.append(
+                f"{pn}_bucket"
+                f"{_fmt_labels(labels, (('le', _fmt_value(le)),))} {cum}")
+        lines.append(f"{pn}_sum{_fmt_labels(labels)} "
+                     f"{_fmt_value(snap['sum'])}")
+        lines.append(f"{pn}_count{_fmt_labels(labels)} {snap['count']}")
+    return "\n".join(lines) + "\n"
+
+
+def _hist_key(name: str, labels: Tuple[Tuple[str, str], ...]) -> str:
+    if not labels:
+        return name
+    return name + "{" + ",".join(f'{k}="{v}"' for k, v in labels) + "}"
+
+
+def _json_safe(v: Any) -> Any:
+    """`v` if json can carry it, else its repr() — span attrs are
+    free-form and a stray tensor/dtype must degrade to a string."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    try:
+        json.dumps(v)
+        return v
+    except (TypeError, ValueError, OverflowError):
+        return repr(v)
+
+
+def _safe_span(rec: Dict[str, Any]) -> Dict[str, Any]:
+    attrs = rec.get("attrs")
+    if not attrs:
+        return rec
+    return dict(rec, attrs={k: _json_safe(v) for k, v in attrs.items()})
+
+
+def export_snapshot(registry: MetricsRegistry = REGISTRY,
+                    include_spans: bool = True,
+                    timestamp: Optional[str] = None) -> Dict[str, Any]:
+    """One JSON-serializable dict of everything the process has observed:
+    a `meta` header (caller-supplied timestamp, pid, process uptime),
+    counters, gauges, histogram snapshots (keyed `name` or
+    `name{k="v"}`), and (optionally) the recent-span ring with
+    non-serializable attrs degraded to repr()."""
+    hists: Dict[str, Any] = {}
+    for (name, labels), h in registry.histograms().items():
+        snap = h.snapshot()
+        snap["buckets"] = [["+Inf" if le == math.inf else le, cum]
+                           for le, cum in snap["buckets"]]
+        hists[_hist_key(name, labels)] = snap
+    out: Dict[str, Any] = {
+        "meta": {"timestamp": timestamp, "pid": os.getpid(),
+                 "uptime_s": round(time.monotonic() - _T0_MONOTONIC, 3)},
+        "counters": registry.counter_values(),
+        "gauges": registry.gauge_values(),
+        "histograms": hists,
+    }
+    if include_spans:
+        out["spans"] = [_safe_span(r) for r in _spans.recent_spans()]
+    return out
+
+
+def render_chrome_trace(span_records: Optional[Iterable[Dict[str, Any]]]
+                        = None) -> Dict[str, Any]:
+    """The span ring as Chrome/Perfetto trace-event JSON: each span a
+    `ph:"X"` complete event (ts/dur in microseconds, tid = the recording
+    thread) with trace/span/parent ids and attrs under `args`.  Served
+    at `GET /trace.json`."""
+    if span_records is None:
+        span_records = _spans.recent_spans()
+    pid = os.getpid()
+    events: List[Dict[str, Any]] = [{
+        "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+        "args": {"name": f"mmlspark_tpu_torch[{pid}]"},
+    }]
+    for rec in span_records:
+        name = str(rec.get("name", "?"))
+        args: Dict[str, Any] = {
+            "trace_id": rec.get("trace_id"),
+            "span_id": rec.get("span_id"),
+            "parent_id": rec.get("parent_id"),
+        }
+        for k, v in (rec.get("attrs") or {}).items():
+            args[k] = _json_safe(v)
+        if rec.get("error"):
+            args["error"] = rec["error"]
+        events.append({
+            "name": name,
+            "cat": name.split(".", 1)[0],
+            "ph": "X",
+            "ts": round(float(rec.get("t_start", 0.0)) * 1e6, 3),
+            "dur": round(max(0.0, float(rec.get("wall_s", 0.0))) * 1e6, 3),
+            "pid": pid,
+            "tid": int(rec.get("tid", 0)),
+            "args": args,
+        })
+    return {"traceEvents": events, "displayTimeUnit": "ms"}

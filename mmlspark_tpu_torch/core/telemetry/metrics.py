@@ -40,15 +40,25 @@ DECLARED_METRICS: Dict[str, str] = {
     "io.pipeline.items": "counter",       # + .<stage> variants
     "flow.items": "counter",              # + .<stage> variants
     "flow.expired": "counter",            # + .<stage> variants
+    "flow.shed": "counter",               # + .<stage> variants
+    "serving.shed": "counter",
+    "serving.deadline_expired": "counter",
+    "batcher.shed": "counter",
+    "batcher.deadline_expired": "counter",
     # -- histograms
     "io.feed.transfer.latency": "histogram",
     "io.feed.transfer.bytes": "histogram",
     "io.pipeline.stage.latency": "histogram",   # labeled {stage=...}
     "flow.stage.latency": "histogram",          # labeled {stage=...}
+    "serving.request.latency": "histogram",     # labeled {endpoint, outcome}
+    "serving.batch.fill": "histogram",
+    "serving.batcher.batch_fill": "histogram",  # one observation per tick
     # -- gauges
     "io.feed.queue.depth": "gauge",
     "io.pipeline.queue.depth": "gauge",   # + .<stage> variants
     "flow.queue.depth": "gauge",          # + .<stage> variants
+    "serving.queue.depth": "gauge",
+    "serving.batcher.queue_depth": "gauge",
 }
 
 
@@ -90,6 +100,9 @@ HISTOGRAM_FAMILY: Dict[str, str] = {
     "io.feed.transfer.bytes": "bytes",
     "io.pipeline.stage.latency": "latency",
     "flow.stage.latency": "latency",
+    "serving.request.latency": "latency",
+    "serving.batch.fill": "fill",
+    "serving.batcher.batch_fill": "fill",
 }
 
 

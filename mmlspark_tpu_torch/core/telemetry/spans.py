@@ -1,7 +1,7 @@
 """Dapper-style spans: trace-id / span-id / parent-id wall-time records.
 
 A copy of the JAX package's `core/telemetry/spans.py` for this package,
-without the HTTP propagation and device-annotation hooks.
+without the device-annotation hooks.
 
 A **trace** is one logical request's causal tree; a **span** is one
 timed operation inside it.  The current (trace_id, span_id) pair lives
@@ -26,7 +26,8 @@ import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["span", "record_span", "use_trace", "current_context",
-           "current_trace_id", "get_trace", "recent_spans", "clear_spans",
+           "current_trace_id", "extract_trace", "get_trace", "span_tree",
+           "recent_spans", "clear_spans",
            "MAX_SPANS", "MAX_TRACES", "MAX_SPANS_PER_TRACE"]
 
 MAX_SPANS = 8192          # global recent-span ring
@@ -161,12 +162,47 @@ def use_trace(ctx: Optional[Tuple[str, str]]):
         _CTX.reset(token)
 
 
+# ---- HTTP propagation ----------------------------------------------------
+
+def extract_trace(headers) -> Optional[Tuple[str, str]]:
+    """(trace_id, span_id) from request headers (`X-Trace-Id`,
+    `X-Span-Id`), case-insensitively.  A trace id without a span id is
+    continued with an empty parent — the upstream did not tell us which
+    span sent it."""
+    tid = sid = None
+    for k in headers.keys():
+        lk = k.lower()
+        if lk == "x-trace-id":
+            tid = str(headers[k])
+        elif lk == "x-span-id":
+            sid = str(headers[k])
+    if not tid:
+        return None
+    return (tid, sid or "")
+
+
 # ---- read side -----------------------------------------------------------
 
 def get_trace(trace_id: str) -> List[Dict[str, Any]]:
     """Every recorded span of one trace, in completion order."""
     with _LOCK:
         return list(_TRACES.get(trace_id, ()))
+
+
+def span_tree(trace_id: str) -> List[Dict[str, Any]]:
+    """The trace's spans nested parent->children (roots returned; a span
+    whose parent was sent by a remote upstream roots locally)."""
+    spans = get_trace(trace_id)
+    nodes = {s["span_id"]: dict(s, children=[]) for s in spans}
+    roots: List[Dict[str, Any]] = []
+    # children finish before parents: sort siblings by start time
+    for s in sorted(nodes.values(), key=lambda r: r["t_start"]):
+        parent = nodes.get(s["parent_id"]) if s["parent_id"] else None
+        if parent is not None:
+            parent["children"].append(s)
+        else:
+            roots.append(s)
+    return roots
 
 
 def recent_spans(n: Optional[int] = None) -> List[Dict[str, Any]]:

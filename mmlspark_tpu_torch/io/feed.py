@@ -29,11 +29,19 @@ it, and its result is fetched back asynchronously:
     `feed.device_put` fault point with a bounded retry
     (`core.flow.StagePolicy`, tiny backoff).
 
-On a CPU device the same loop runs with `torch.from_numpy` in place of
+`put_group` is the decode tick's upload: several small host arrays
+(token, positions, page table) byte-pack into ONE pinned ring slot at
+the JAX package's 128-byte alignment, move in one copy, and are sliced
+and bitcast apart on the device.  Unlike the JAX package it never
+degrades to per-array puts: a copy that still fails after the retry
+ladder raises.
+
+On a CPU device the same code runs with `torch.from_numpy` in place of
 the copies (the path the CPU tests drive).  The JAX package's coalescing
 of several chunks into one transfer, its sharded multi-device puts and
-its compressed wire are not ported: on one card a pinned copy per chunk
-costs microseconds, and the compressed wire is not on this path.
+its compressed (RLE) wire are not ported: on one card a pinned copy per
+chunk costs microseconds, and the compressed wire waits for its decode
+kernel (B3, ROADMAP slice 5).
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +64,8 @@ __all__ = ["DeviceFeed", "FeedTelemetry", "FEED_TELEMETRY", "FeedSource",
 
 # terminal marker a FeedSource returns once its stream is exhausted
 FEED_END = object()
+
+_ALIGN = 128  # put_group's byte-pack offset alignment (the JAX package's)
 
 
 class FeedSource:
@@ -144,6 +154,10 @@ class FeedTelemetry:
 FEED_TELEMETRY = FeedTelemetry()
 
 
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
 class _Slot:
     """One pinned staging buffer and the event that fences its reuse."""
 
@@ -184,15 +198,14 @@ class DeviceFeed:
             core_telemetry.record_span("feed.transfer", ctx, dt,
                                        bytes=int(nbytes))
 
-    def _acquire_slot(self, chunk: np.ndarray) -> _Slot:
-        """The next ring slot for this chunk shape: `depth + 1` slots,
+    def _acquire_slot(self, shape: Tuple[int, ...], dtype: np.dtype) -> _Slot:
+        """The next ring slot for this shape and dtype: `depth + 1` slots,
         reused round robin; a slot's host buffer is rewritten only after
         its previous copy has finished."""
-        key = (chunk.shape, chunk.dtype.str)
+        key = (tuple(shape), np.dtype(dtype).str)
         ring = self._rings.get(key)
         if ring is None:
-            dtype = torch.from_numpy(chunk[:0]).dtype
-            ring = self._rings[key] = [_Slot(chunk.shape, dtype)
+            ring = self._rings[key] = [_Slot(shape, _torch_dtype(dtype))
                                        for _ in range(self.depth + 1)]
         pos = self._ring_pos.get(key, 0)
         self._ring_pos[key] = (pos + 1) % len(ring)
@@ -215,29 +228,76 @@ class DeviceFeed:
 
             x = self._put_policy.run(attempt, None)
         else:
-            slot = self._acquire_slot(chunk)
+            slot = self._acquire_slot(chunk.shape, chunk.dtype)
             np.copyto(slot.host.numpy(), chunk)
-
-            def attempt(_):
-                fault_point("feed.device_put")
-                with torch.cuda.stream(self._stream):
-                    dev = torch.empty(chunk.shape, dtype=slot.host.dtype,
-                                      device=self.device)
-                    dev.copy_(slot.host, non_blocking=True)
-                    fence = torch.cuda.Event()
-                    fence.record(self._stream)
-                return dev, fence
-
-            x, slot.fence = self._put_policy.run(attempt, None)
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(slot.fence)
-            # allocated on the side stream, used on the compute stream
-            x.record_stream(compute)
+            x = self._copy_in(slot)
         dt = time.perf_counter() - t0
         self.telemetry.add(bytes_moved=chunk.nbytes, transfer_calls=1,
                            transfer_s=dt, chunks_fed=1)
         self._obs_transfer(chunk.nbytes, dt)
         return x
+
+    def _copy_in(self, slot: _Slot) -> torch.Tensor:
+        """The slot's host buffer -> a new device tensor: one non-blocking
+        copy on the side stream (retried by the transfer policy), fenced
+        so the compute stream waits for it and the slot is rewritten only
+        after it."""
+        def attempt(_):
+            fault_point("feed.device_put")
+            with torch.cuda.stream(self._stream):
+                dev = torch.empty(slot.host.shape, dtype=slot.host.dtype,
+                                  device=self.device)
+                dev.copy_(slot.host, non_blocking=True)
+                fence = torch.cuda.Event()
+                fence.record(self._stream)
+            return dev, fence
+
+        x, slot.fence = self._put_policy.run(attempt, None)
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(slot.fence)
+        # allocated on the side stream, used on the compute stream
+        x.record_stream(compute)
+        return x
+
+    def put_group(self, arrays: Sequence[np.ndarray]
+                  ) -> Tuple[torch.Tensor, ...]:
+        """Several host arrays -> device tensors in ONE transfer.
+
+        The arrays byte-pack into one uint8 buffer (each at an offset
+        aligned to 128 bytes) — on the card a pinned ring slot — which
+        moves in one copy and is sliced and `.view(dtype)`'d apart on the
+        device.  The arrays are copied into the buffer before the call
+        returns, so the caller may mutate them right after."""
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        layout = []
+        off = 0
+        for a in arrays:
+            layout.append((off, a))
+            off += -(-a.nbytes // _ALIGN) * _ALIGN
+        total = max(off, _ALIGN)
+        t0 = time.perf_counter()
+        if self._cuda:
+            slot = self._acquire_slot((total,), np.uint8)
+            host = slot.host.numpy()
+        else:
+            host = np.zeros(total, np.uint8)
+        for o, a in layout:
+            host[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+        if self._cuda:
+            packed = self._copy_in(slot)
+        else:
+            def attempt(_):
+                fault_point("feed.device_put")
+                return torch.from_numpy(host)
+
+            packed = self._put_policy.run(attempt, None)
+        outs = tuple(packed[o:o + a.nbytes].view(_torch_dtype(a.dtype))
+                     .reshape(a.shape) for o, a in layout)
+        dt = time.perf_counter() - t0
+        self.telemetry.add(bytes_moved=total, transfer_calls=1,
+                           transfer_s=dt, chunks_fed=len(arrays))
+        self._obs_transfer(total, dt)
+        return outs
 
     def run(self, chunk_iter, compute_fn: Callable[[torch.Tensor], torch.Tensor]
             ) -> List[np.ndarray]:

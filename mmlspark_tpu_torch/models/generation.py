@@ -16,14 +16,16 @@ with the bundle in place of the JAX (model, variables) pair:
 Sampling semantics follow the JAX package: greedy at temperature 0;
 otherwise temperature first, then top-k / top-p, then a categorical draw
 from an explicit `torch.Generator` (its numbers differ from
-`jax.random`'s); `eos_id` freezes a row once emitted.  `beam_search`,
-`speculative_generate` and `kv_cache_dtype="int8"` are not ported yet
-(ROADMAP A14).
+`jax.random`'s); `eos_id` freezes a row once emitted.
+`kv_cache_dtype="int8"` keeps the cache as int8 rows with f32
+per-(position, head) scales (`ops.quant.quantize_kv_row`).
+`beam_search` and `speculative_generate` are not ported yet (ROADMAP
+A14).
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,26 +76,38 @@ def _filter_logits(lg: torch.Tensor, top_k: Optional[int],
     return lg
 
 
+def _prefill_kv(module: TransformerLM, prompt: torch.Tensor,
+                kv_cache_dtype: Optional[str] = None
+                ) -> Tuple[torch.Tensor, List[tuple]]:
+    """One prefill forward; returns (logits, per-layer cache rows of the
+    prompt [B, S_p, Hkv, ...]: (k, v), or int8 (kq, ks, vq, vs) with
+    kv_cache_dtype="int8")."""
+    kv: list = []
+    logits, _taps = module(prompt, kvcache=kv)
+    if kv_cache_dtype == "int8":
+        from ..ops.quant import quantize_kv_row
+
+        kv = [(*quantize_kv_row(k), *quantize_kv_row(v)) for k, v in kv]
+    return logits, kv
+
+
 def _prefill_cache(module: TransformerLM, prompt: torch.Tensor,
                    kv_cache_dtype: Optional[str] = None
                    ) -> Tuple[torch.Tensor, tuple]:
-    """One prefill forward; returns (logits, per-layer (k, v) caches,
-    each [B, max_len, Hkv, D] with the prompt's K/V at the front)."""
-    if kv_cache_dtype is not None:
-        raise NotImplementedError(
-            "kv_cache_dtype='int8' is not ported to mmlspark_tpu_torch yet "
-            "(ROADMAP A14)")
+    """One prefill forward; returns (logits, per-layer caches, each
+    [B, max_len, Hkv, ...] with the prompt's rows at the front and zeros
+    after: (k, v), or (kq, ks, vq, vs) with kv_cache_dtype="int8")."""
     b, s_p = prompt.shape
-    kv = []
-    logits, _taps = module(prompt, kvcache=kv)
+    logits, kv = _prefill_kv(module, prompt, kv_cache_dtype)
     cache = []
-    for k, v in kv:
-        shape = (b, module.max_len) + tuple(k.shape[2:])
-        kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
-        vc = torch.zeros(shape, dtype=v.dtype, device=v.device)
-        kc[:, :s_p] = k
-        vc[:, :s_p] = v
-        cache.append((kc, vc))
+    for rows in kv:
+        layer = []
+        for r in rows:
+            c = torch.zeros((b, module.max_len) + tuple(r.shape[2:]),
+                            dtype=r.dtype, device=r.device)
+            c[:, :s_p] = r
+            layer.append(c)
+        cache.append(tuple(layer))
     return logits, tuple(cache)
 
 

@@ -1,8 +1,9 @@
-"""Generic retry with exponential backoff.
+"""Generic retry with exponential backoff, and the load-shedding error.
 
-A copy of `retry_with_backoff` from the JAX package's
+A copy of `retry_with_backoff` and `Overloaded` from the JAX package's
 `utils/fault_tolerance.py` for this package (the model zoo's
-sha-verified load retries through it).  Reference:
+sha-verified load retries through the first; the batcher's bounded
+intake raises the second).  Reference:
 core/utils/FaultToleranceUtils.scala:9 and the retry idioms in
 io/http/HTTPClients.scala:74-121.
 """
@@ -15,7 +16,13 @@ from .faults import sleep as _clock_sleep
 
 T = TypeVar("T")
 
-__all__ = ["retry_with_backoff"]
+__all__ = ["retry_with_backoff", "Overloaded"]
+
+
+class Overloaded(RuntimeError):
+    """Raised by bounded intake paths (ContinuousBatcher.submit) when load
+    shedding rejects a request; the serving layer maps it to 503 +
+    Retry-After."""
 
 
 def retry_with_backoff(

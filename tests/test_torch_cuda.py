@@ -1,6 +1,7 @@
 """Tests of mmlspark_tpu_torch that need a CUDA card: each kernel against
 its plain PyTorch version on the card, and the card paths that run them
-(the featurizer over a ResNet and a ViT, `generate` over a TransformerLM).
+(the featurizer over a ResNet and a ViT, `generate` over a TransformerLM,
+the ContinuousBatcher's paged decode).
 They skip without a card (the kernels have no CPU mode).  This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -10,7 +11,9 @@ Tolerances: the resize kernel atol=1e-3, rtol=1e-4 in normalized units,
 as for its CPU parity test against the JAX package
 (test_torch_image_kernels.py); the attention kernel 1e-4 abs for f32
 inputs and 2e-2 for bf16 (it rounds the probabilities to bf16
-unnormalized, the plain version normalized), its logsumexp 1e-4.
+unnormalized, the plain version normalized), its logsumexp 1e-4; the
+paged attention kernels 1e-4 abs (both sides compute in f32 from the same
+stored values).
 """
 import numpy as np
 import pytest
@@ -23,6 +26,9 @@ from mmlspark_tpu_torch.models.generation import generate
 from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
 from mmlspark_tpu_torch.ops import attention_kernels as A
 from mmlspark_tpu_torch.ops import image_kernels as K
+from mmlspark_tpu_torch.ops import paged_attention as PA
+from mmlspark_tpu_torch.ops.quant import quantize_kv_row
+from mmlspark_tpu_torch.serving.batcher import ContinuousBatcher
 
 torch.set_num_threads(2)
 
@@ -105,6 +111,9 @@ def test_featurizer_on_card_launches_the_kernel_per_chunk(cuda_device):
     ((2, 130, 3, 32), torch.bfloat16, True),
     ((2, 65, 2, 256), torch.float32, False),
     ((1, 100, 2, 40), torch.bfloat16, False),
+    # the batcher's admission prefills: kp rows at a power-of-two bucket
+    ((8, 1024, 12, 64), torch.bfloat16, True),
+    ((1, 16, 12, 64), torch.bfloat16, True),
 ])
 def test_attention_kernel_matches_plain_on_card(cuda_device, shape, dtype,
                                                 causal):
@@ -184,3 +193,97 @@ def test_vit_featurizer_on_card_matches_cpu(cuda_device):
     assert got.shape == ref.shape == (3, 192)
     scale = float(np.abs(ref).max())
     np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3 * scale)
+
+
+def _paged_inputs(device, b, h, hkv, d, page, mp, dtype, positions, seed):
+    """q and garbage-filled pools (trash page 0 included); each slot owns
+    distinct pages for its live positions, the rest of its table is 0."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    live = [p // page + 1 for p in positions]
+    n_pages = 1 + sum(live)
+    q = torch.randn((b, h, d), device=device, generator=gen).to(dtype)
+    k, v = (torch.randn((n_pages, page, hkv, d), device=device,
+                        generator=gen).to(dtype) for _ in range(2))
+    table = np.zeros((b, mp), np.int32)
+    nxt = 1
+    for i, n in enumerate(live):
+        table[i, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    return (q, k, v, torch.from_numpy(table).to(device),
+            torch.tensor(positions, dtype=torch.int32, device=device))
+
+
+PAGED_CASES = [  # (b, h, hkv, d, page, mp, dtype, positions)
+    (8, 12, 12, 64, 64, 16, torch.bfloat16,
+     [0, 63, 64, 1023, 500, 129, 900, 7]),
+    (8, 12, 12, 64, 64, 16, torch.float32,
+     [0, 63, 64, 1023, 500, 129, 900, 7]),
+    (4, 12, 4, 64, 64, 16, torch.bfloat16, [5, 700, 64, 1000]),
+    (3, 4, 4, 32, 16, 8, torch.float32, [0, 17, 127]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_kernels_match_plain_on_card(cuda_device, case):
+    b, h, hkv, d, page, mp, dtype, positions = case
+    q, k, v, table, pos = _paged_inputs(cuda_device, b, h, hkv, d, page, mp,
+                                        dtype, positions, seed=5)
+    before = PA.LAUNCHES
+    got = PA.paged_decode_attention(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES == before + 1
+    ref = PA.paged_decode_attention_plain(q, k, v, table, pos)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    kq, ks = quantize_kv_row(k)
+    vq, vs = quantize_kv_row(v)
+    before = PA.LAUNCHES_INT8
+    got8 = PA.paged_decode_attention_int8(q, kq, ks, vq, vs, table, pos)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES_INT8 == before + 1
+    ref8 = PA.paged_decode_attention_int8_plain(q, kq, ks, vq, vs, table, pos)
+    np.testing.assert_allclose(got8.cpu().numpy(), ref8.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_reject_what_they_cannot_take(cuda_device):
+    q, k, v, table, pos = _paged_inputs(cuda_device, 2, 4, 4, 64, 16, 4,
+                                        torch.float32, [3, 40], seed=6)
+    with pytest.raises(TypeError):
+        PA.paged_decode_attention(q.to(torch.int32), k, v, table, pos)
+    with pytest.raises(TypeError):
+        PA.paged_decode_attention(q, k, v, table.long(), pos)
+    with pytest.raises(TypeError):
+        PA.paged_decode_attention(q.bfloat16(), k, v, table, pos)
+    wide = torch.zeros(2, 4, 260, device=cuda_device)
+    pool = torch.zeros(4, 16, 4, 260, device=cuda_device)
+    with pytest.raises(ValueError):
+        PA.paged_decode_attention(wide, pool, pool, table, pos)
+    with pytest.raises(ValueError):
+        PA.paged_decode_attention(q, k.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), v, table, pos)
+
+
+@pytest.mark.cuda
+def test_paged_batcher_on_card_matches_generate(cuda_device):
+    kw = dict(vocab_size=256, embed_dim=128, num_layers=2, num_heads=2,
+              max_len=128)
+    bundle = TorchBundle("transformer_lm", kw, input_shape=(16,),
+                         dtype="float32", seed=4)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, n).astype(np.int32).tolist()
+               for n in (5, 40, 17, 70, 1, 33)]
+    PA.LAUNCHES = 0
+    batcher = ContinuousBatcher(bundle, max_slots=3, paged=True,
+                                page_size=16).start()
+    try:
+        streams = [batcher.submit(p, max_new_tokens=12) for p in prompts]
+        got = [s.tokens(timeout=300) for s in streams]
+    finally:
+        batcher.stop()
+    assert PA.LAUNCHES > 0
+    for p, toks in zip(prompts, got):
+        want = generate(bundle, np.asarray(p, np.int32)[None], 12)
+        assert toks == want[0, len(p):].cpu().tolist(), p

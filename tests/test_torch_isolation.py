@@ -85,3 +85,16 @@ print("ok")
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), \
         proc.stdout + proc.stderr
+
+
+def test_the_scan_covers_the_serving_slice():
+    """The checks above walk the whole package; the decode-serving slice's
+    modules are among what they check."""
+    mods = set(_modules())
+    for m in ("mmlspark_tpu_torch.serving", "mmlspark_tpu_torch.serving.batcher",
+              "mmlspark_tpu_torch.serving.dsl", "mmlspark_tpu_torch.serving.server",
+              "mmlspark_tpu_torch.serving.journal", "mmlspark_tpu_torch.io.http",
+              "mmlspark_tpu_torch.io.http.schema",
+              "mmlspark_tpu_torch.ops.paged_attention",
+              "mmlspark_tpu_torch.ops.quant"):
+        assert m in mods, m

@@ -36,6 +36,7 @@ from mmlspark_tpu_torch.models import transformer as PT
 from mmlspark_tpu_torch.models.bundle import from_flax_variables
 from mmlspark_tpu_torch.models.torch_model import TorchModel
 from mmlspark_tpu_torch.parallel.ring_attention import full_attention
+from mmlspark_tpu_torch.serving.batcher import ContinuousBatcher
 
 from torch_port_util import random_transformer_params, to_dicts
 
@@ -197,13 +198,17 @@ def test_unported_options_raise():
         PT.transformer_lm(moe_experts=2)
     m = PT.transformer_lm(vocab_size=8, embed_dim=16, num_layers=1,
                           num_heads=2, max_len=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ContinuousBatcher(_bundle_of(m), draft_model=m, device="cpu")
+    # slot decode (per-slot pos) and the int8 cache are ported: they run
     cache = G._prefill_cache(m, torch.zeros(1, 2, dtype=torch.int32))[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.decode_step(torch.zeros(1, 1, dtype=torch.int32), cache,
-                      torch.tensor([2]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        G.generate(_bundle_of(m), np.zeros((1, 2), np.int32), 2,
-                   kv_cache_dtype="int8", device="cpu")
+    with torch.inference_mode():
+        lg, _ = m.decode_step(torch.zeros(1, 1, dtype=torch.int32), cache,
+                              torch.tensor([2]))
+    assert lg.shape == (1, 1, 8)
+    out = G.generate(_bundle_of(m), np.zeros((1, 2), np.int32), 2,
+                     kv_cache_dtype="int8", device="cpu")
+    assert out.shape == (1, 4)
 
 
 def _bundle_of(module):
