@@ -65,7 +65,29 @@ exit, no result line) if anything in it fails:
    tokens/s, ms per tick and the kernels' share over 3 rounds each.
    Streams are read with a deadline, so a dead batcher loop fails the run
    instead of hanging it.
-8. record: a `{"kernels": [...]}` JSON line, the nvidia-smi line, and
+8. training (the flash backward, B5/B6, is checked in phase 3 against its
+   plain version and, through `fused_attention`'s autograd, against
+   autograd through `full_attention`, at the LM train layer, a ViT-B/16
+   chunk, a ragged f32, a D 32 and a D 128 shape; kernel, plain and SDPA
+   backward times beside the bound):
+   (a) GPT-small LM training at `bench.py` `_measure_transformer`'s shape
+   (vocab 8192, embed 768, 12 layers, 12 heads, max_len 1024, bf16
+   compute over f32 state, Adam 3e-4, batch 16, seq 1024): one warm-up
+   and 8 timed steps of `make_lm_train_epoch` on one repeated batch; B4,
+   B5 and B6 launch exactly 12 times a step; every loss finite and the
+   last below the first; every parameter's first-step gradient against
+   the same step through `full_attention`; a 2-layer f32 step on the card
+   against the same step on the CPU; ms a step, tokens/s, the profiler's
+   kernel ms a step with the B4/B5/B6 shares, peak memory, FLOPs a step
+   and MFU.
+   (b) ResNet-18 CIFAR training at `_measure_train`'s shape (bf16, SGD
+   0.1 / 0.9, batch 256, 40 steps of `make_train_epoch` on device data
+   from a seed): samples/s; finite losses; no ported kernel launches.
+   (c) `DeepVisionClassifier(resnet18).fit` on 2,048 uint8 32x32 images
+   of 10 classes learnable from their colours, batch 256, 2 epochs, then
+   `DeepVisionModel.transform`: B1 launches once a step and once a
+   scoring chunk, exactly; the loss falls; accuracy on the table.
+9. record: a `{"kernels": [...]}` JSON line, the nvidia-smi line, and
    last the `{"ok": true, "device": ...}` line.
 
 Imports nothing of JAX or of the JAX package, and no PIL: the images,
@@ -102,6 +124,28 @@ VIT_CPU_RTOL = 5e-2
 LM_PLAIN_RTOL = 2e-2
 LM_CPU_RTOL = 5e-2
 
+# the flash backward (B5/B6) vs its plain version: f32 inputs at f32
+# rounding; bf16 inputs round p and ds to bf16 at the same points on both
+# sides, but the kernel's p differs in its last f32 bits (exp2, another
+# summation order), which can move an element's rounding by one bf16 step
+BWD_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# ... and each output within this relative L2 of the plain version's: the
+# max-abs limit is set by the few large entries near the first keys, so a
+# kernel off by ~10% on later tiles would pass it alone (observed rel_l2
+# ~5e-5 at the LM shape)
+BWD_RTOL = 1e-3
+# fused_attention's gradients against autograd through full_attention:
+# f32 within the JAX package's off-TPU GRAD_TOL; bf16 as relative L2, the
+# forwards differing by B4's bf16 rounding of P (unnormalised against
+# normalised), under the JAX package's on-chip bf16 GRAD_TOL, 7.5e-2
+AUTOGRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the LM train step: every parameter's first-step gradient through the
+# kernels against the one through full_attention, relative L2 (bf16 both)
+TRAIN_GRAD_RTOL = 5e-2
+# a 2-layer f32 LM step on the card against the same step on the CPU
+TRAIN_CPU_LOSS_RTOL = 1e-5
+TRAIN_CPU_GRAD_RTOL = 1e-4
+
 TIMED_RUNS = 5
 
 IMG = 224
@@ -128,10 +172,17 @@ EXACT_SLOTS, EXACT_REQUESTS, EXACT_NEW, PREFIX_LEN = 4, 8, 32, 256
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 8, 16, 64
 STREAM_WAIT_S = 300      # no token for this long fails the run, never hangs it
 
+# training (phase 8): bench.py `_measure_transformer` (bench.py:515-549)
+# and `_measure_train` (bench.py:129-169)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 16, 1024, 8, 3e-4
+CIFAR_BATCH, CIFAR_STEPS = 256, 40
+DV_ROWS, DV_CLASSES, DV_BATCH, DV_EPOCHS = 2048, 10, 256, 2
+
 
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
-           "paged_decode_attention_int8")
+           "paged_decode_attention_int8", "flash_attention_bwd_dkdv",
+           "flash_attention_bwd_dq")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -142,6 +193,7 @@ def zero_launches() -> None:
     from mmlspark_tpu_torch.ops import paged_attention as PA
 
     K.LAUNCHES = A.LAUNCHES = PA.LAUNCHES = PA.LAUNCHES_INT8 = 0
+    A.LAUNCHES_BWD_DKDV = A.LAUNCHES_BWD_DQ = 0
 
 
 def read_launches() -> dict:
@@ -151,7 +203,8 @@ def read_launches() -> dict:
     from mmlspark_tpu_torch.ops import paged_attention as PA
 
     return dict(zip(KERNELS, (K.LAUNCHES, A.LAUNCHES, PA.LAUNCHES,
-                              PA.LAUNCHES_INT8)))
+                              PA.LAUNCHES_INT8, A.LAUNCHES_BWD_DKDV,
+                              A.LAUNCHES_BWD_DQ)))
 
 
 def fail(msg: str) -> None:
@@ -203,8 +256,9 @@ def resample_bound(plan, batch) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_resample(K, shape, dtype, seed):
-    """Kernel vs plain (and the library call) at one shape."""
+def check_resample(K, shape, dtype, seed, out_hw=(IMG, IMG)):
+    """Kernel vs plain (and the library call) at one shape, resized to
+    out_hw and normalised with the ImageNet BGR mean/std."""
     import torch
     import torch.nn.functional as F
 
@@ -216,7 +270,7 @@ def check_resample(K, shape, dtype, seed):
         x = torch.rand(shape, device="cuda", generator=gen) * 255.0
     c = shape[3]
     mean, std = MEAN_BGR[:c], STD_BGR[:c]
-    plan = K.resize_plan(shape[1], shape[2], c, IMG, IMG, mean, std)
+    plan = K.resize_plan(shape[1], shape[2], c, *out_hw, mean, std)
     got = K.affine_resample(x, plan)
     ref = K.affine_resample_plain(x, plan)
     torch.cuda.synchronize()
@@ -227,7 +281,7 @@ def check_resample(K, shape, dtype, seed):
     inv_t = 1.0 / torch.tensor(std, device="cuda").view(1, c, 1, 1)
 
     def library():
-        y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(IMG, IMG),
+        y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=out_hw,
                           mode="bilinear", align_corners=False, antialias=True)
         return (y - mean_t) * inv_t
 
@@ -236,7 +290,8 @@ def check_resample(K, shape, dtype, seed):
     plain_ms = cuda_ms(lambda: K.affine_resample_plain(x, plan), 5)
     library_ms = cuda_ms(library, 20)
     bound_ms, bound_by = resample_bound(plan, x)
-    log(f"[kernel] affine_resample {dtype}{list(shape)} -> {IMG}x{IMG}: "
+    log(f"[kernel] affine_resample {dtype}{list(shape)} -> "
+        f"{out_hw[0]}x{out_hw[1]}: "
         f"max_abs_err={err:.3e} kernel_ms={kernel_ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"(library agrees: {lib_err <= ATOL}, max_abs_err={lib_err:.3e}) "
@@ -302,6 +357,128 @@ def check_attention(A, shape, dtype: str, causal: bool, seed: int):
     return {"err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def attention_bwd_bound(shape, dtype: str, causal: bool, which: str
+                        ) -> tuple:
+    """(bound_ms, bound_by) of one flash-backward kernel: q, k, v and dO
+    read once in their dtype, lse and delta (f32) read once, and its f32
+    outputs (B5: dK and dV; B6: dQ) written once, at the HBM rate, against
+    its operations on the visible (query, key) pairs — B5 8*D a pair (QK,
+    dO V, P dO, dS Q), B6 6*D (QK, dO V, dS K) — at the peak rate of the
+    inputs' type."""
+    b, s, h, d = shape
+    item = 2 if dtype == "bfloat16" else 4
+    n_out = 2 if which == "dkdv" else 1
+    nbytes = (4 * b * s * h * d * item + 2 * b * h * s * 4
+              + n_out * b * s * h * d * 4)
+    pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
+    ops = (8.0 if which == "dkdv" else 6.0) * d * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_attention_bwd(A, shape, dtype: str, causal: bool, seed: int,
+                        timed: bool = False):
+    """B5 and B6 against their plain versions on one shape's q, k, v, dO
+    and the forward's lse and delta; `fused_attention`'s autograd
+    gradients against autograd through `full_attention`; with `timed`,
+    kernel, plain and SDPA-backward times (CUDA events) and the bounds.
+    Returns {"dkdv": row, "dq": row}."""
+    import torch
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.parallel.ring_attention import full_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(tdt)
+                   for _ in range(4))
+    b, s, h, d = shape
+    out, lse = A.flash_attention_fwd(q, k, v, causal)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), out).reshape(
+        b * h, s).contiguous()
+    got = A.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal) + (
+        A.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),)
+    ref = A.flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal) + (
+        A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal),)
+    torch.cuda.synchronize()
+    errs, rels = {}, {}
+    for name, g, r in zip(("dk", "dv", "dq"), got, ref):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            fail(f"attention backward {shape}: bad {name} {tuple(g.shape)}")
+        errs[name] = float((g - r).abs().max())
+        # relative L2 over a norm of at least 1: a gradient that is ~0
+        # (dK and dQ at S = 1) is held in absolute terms
+        rels[name] = float((g - r).norm() / r.norm().clamp(min=1.0))
+    del got, ref
+    # autograd: fused_attention (B4 forward, B5/B6 backward) against
+    # autograd through the dense full_attention, same inputs and dO
+    grads = []
+    for fn in (A.fused_attention, full_attention):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, causal), leaves,
+                                         do.float()))
+    if dtype == "float32":
+        ag_err = max(float((x - y).abs().max()) for x, y in zip(*grads))
+    else:
+        ag_err = max(float((x.float() - y.float()).norm() / y.float().norm())
+                     for x, y in zip(*grads))
+    del grads
+    kind = "max_abs" if dtype == "float32" else "rel_l2"
+    err = max(errs.values())
+    log(f"[kernel] flash_attention_bwd {dtype}{list(shape)} causal={causal}: "
+        f"B5 dk max_abs_err={errs['dk']:.3e} dv={errs['dv']:.3e}, B6 dq "
+        f"max_abs_err={errs['dq']:.3e} (limit {BWD_ATOL[dtype]}); rel_l2 "
+        f"dk={rels['dk']:.3e} dv={rels['dv']:.3e} dq={rels['dq']:.3e} "
+        f"(limit {BWD_RTOL}); "
+        f"fused_attention grads vs autograd through full_attention "
+        f"{kind}={ag_err:.3e} (limit {AUTOGRAD_TOL[dtype]})")
+    if err > BWD_ATOL[dtype] or max(rels.values()) > BWD_RTOL:
+        fail(f"attention backward {shape}: kernels disagree with the plain "
+             f"versions (max abs {errs}, rel_l2 {rels})")
+    if ag_err > AUTOGRAD_TOL[dtype]:
+        fail(f"attention backward {shape}: fused_attention's gradients "
+             f"disagree with full_attention's ({kind} {ag_err:.3e})")
+    rows = {"dkdv": {"err": max(errs["dk"], errs["dv"])},
+            "dq": {"err": errs["dq"]}}
+    if not timed:
+        return rows
+    qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    g_lib = do.transpose(1, 2)
+
+    def library():
+        # dQ, dK and dV together: the work of B5 and B6
+        return torch.autograd.grad(lib_out, (qt, kt, vt), g_lib,
+                                   retain_graph=True)
+
+    library_ms = cuda_ms(library, 20)
+    kernels = {
+        "dkdv": (lambda: A.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                    causal),
+                 lambda: A.flash_attention_bwd_dkdv_plain(q, k, v, do, lse,
+                                                          delta, causal)),
+        "dq": (lambda: A.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                causal),
+               lambda: A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                      causal))}
+    for which, (kern, plain) in kernels.items():
+        kernel_ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 5)
+        bound_ms, bound_by = attention_bwd_bound(shape, dtype, causal, which)
+        rows[which].update(ms=kernel_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        log(f"[kernel] flash_attention_bwd_{which} {dtype}{list(shape)} "
+            f"causal={causal}: kernel_ms={kernel_ms:.4f} plain_ms="
+            f"{plain_ms:.4f} library_ms={library_ms:.4f} (the backward of "
+            f"SDPA: dQ, dK and dV together) bound_ms={bound_ms:.4f} "
+            f"({bound_by}) roofline_share={bound_ms / kernel_ms:.3f}")
+    del lib_out, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
 
 
 def graph_ms(forward, x, iters: int) -> tuple:
@@ -1235,6 +1412,263 @@ def serving_path(A, PA, card):
     return total, rows, flash_err
 
 
+def lm_train_flops(batch, seq, e, layers, vocab, mlp=4) -> float:
+    """FLOPs of one LM train step as tools/roofline.py `analyze_lm_train`
+    counts them (a copy of its formula): the forward's matmuls — qkv,
+    attention (4 B S^2 e, no causal halving), proj and the MLP per layer,
+    and the LM head — times 3 for forward plus backward."""
+    per_layer = (2.0 * batch * seq * e * 3 * e + 4.0 * batch * seq * seq * e
+                 + 2.0 * batch * seq * e * e
+                 + 4.0 * batch * seq * e * mlp * e)
+    return 3.0 * (layers * per_layer + 2.0 * batch * seq * e * vocab)
+
+
+def rel_err(a, b) -> float:
+    """Relative L2 error of tensor a against tensor b, in f32."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def lm_grads(module, toks):
+    """{name: f32 gradient or None} of one next-token loss.backward()."""
+    from mmlspark_tpu_torch.models.training import lm_loss
+
+    logits, _taps = module(toks)
+    lm_loss(logits, toks).backward()
+    grads = {n: None if p.grad is None else p.grad.float()
+             for n, p in module.named_parameters()}
+    for p in module.parameters():
+        p.grad = None
+    return grads
+
+
+def lm_train_path(card):
+    """Phase 8a; returns {kernel: launches} of the counted run."""
+    import functools
+
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import training as TR
+    from mmlspark_tpu_torch.models.bundle import get_builder, init_state_dict
+    from mmlspark_tpu_torch.parallel.ring_attention import full_attention
+
+    cfg = dict(LM, max_len=TRAIN_SEQ)
+    layers = cfg["num_layers"]
+    builder = get_builder("transformer_lm")
+    t0 = time.perf_counter()
+    state = TR.init_train_state(builder(**cfg), TR.adam(TRAIN_LR), seed=0,
+                                compute_dtype="bfloat16")
+    n_params = sum(p.numel() for p in state.module.parameters())
+    log(f"[train] GPT-small TransformerLM {cfg}, {n_params / 1e6:.1f} M f32 "
+        f"parameters, bf16 working copy, Adam {TRAIN_LR}: ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ)).astype(
+            np.int32)).cuda()
+
+    # first-step gradients through the kernels against the same step
+    # through full_attention, on the same weights and tokens (not counted)
+    ref_module = builder(**cfg, attn_fn=functools.partial(full_attention,
+                                                          causal=True))
+    ref_module.load_state_dict(state.module.state_dict())
+    ref_module = ref_module.to("cuda", torch.bfloat16)
+    got = lm_grads(state.work, toks)
+    ref = lm_grads(ref_module, toks)
+    del ref_module
+    missing = sorted(n for n, g in got.items() if g is None)
+    if missing or sorted(got) != sorted(ref):
+        fail(f"LM train step: parameters without a gradient: {missing}")
+    rels = {n: rel_err(g, ref[n]) for n, g in got.items()}
+    worst = max(rels, key=rels.get)
+    log(f"[train] first-step gradients of all {len(rels)} parameters through "
+        f"B4/B5/B6 vs through full_attention (bf16 both): worst rel_l2="
+        f"{rels[worst]:.3e} ({worst}), median "
+        f"{float(np.median(list(rels.values()))):.3e} (limit "
+        f"{TRAIN_GRAD_RTOL})")
+    if rels[worst] > TRAIN_GRAD_RTOL:
+        fail(f"LM train step: {worst}'s gradient disagrees with the "
+             f"full_attention step (rel_l2 {rels[worst]:.3e})")
+    del got, ref
+    torch.cuda.empty_cache()
+
+    # a 2-layer f32 step on the card against the same step on the CPU
+    small = dict(LM, num_layers=2, max_len=128)
+    weights = {k: torch.from_numpy(v) for k, v in init_state_dict(
+        builder(**small), seed=5).items()}
+    small_toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, small["vocab_size"], (2, 128)).astype(np.int32))
+    side = {}
+    for dev in ("cuda", "cpu"):
+        module = builder(**small)
+        module.load_state_dict(weights)
+        module = module.to(dev)
+        logits, _taps = module(small_toks.to(dev))
+        loss = TR.lm_loss(logits, small_toks.to(dev))
+        loss.backward()
+        side[dev] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                   module.named_parameters()})
+    loss_rel = abs(side["cuda"][0] - side["cpu"][0]) / abs(side["cpu"][0])
+    grad_rel = max(rel_err(g, side["cpu"][1][n])
+                   for n, g in side["cuda"][1].items())
+    log(f"[train] 2-layer f32 LM step (batch 2 x 128) on the card vs the "
+        f"CPU: loss rel {loss_rel:.3e} (limit {TRAIN_CPU_LOSS_RTOL}), worst "
+        f"gradient rel_l2 {grad_rel:.3e} (limit {TRAIN_CPU_GRAD_RTOL})")
+    if loss_rel > TRAIN_CPU_LOSS_RTOL or grad_rel > TRAIN_CPU_GRAD_RTOL:
+        fail("the f32 LM step on the card disagrees with the CPU's")
+    del side
+
+    # the counted run: one warm-up step and TRAIN_STEPS timed steps of
+    # make_lm_train_epoch on one repeated batch
+    epoch = TR.make_lm_train_epoch()
+    batch = toks[None]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    state, loss0 = epoch(state, batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    losses, step_s = [loss0], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = epoch(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = TRAIN_STEPS + 1
+    want = dict(NO_LAUNCHES, flash_attention_fwd=layers * steps,
+                flash_attention_bwd_dkdv=layers * steps,
+                flash_attention_bwd_dq=layers * steps)
+    losses = torch.cat(losses).cpu().numpy()
+    log(f"[train] {steps} steps (1 warm-up, {warm_s * 1e3:.1f} ms): launches "
+        f"{launches}; losses {np.array2string(losses, precision=4)}")
+    if launches != want:
+        fail(f"the LM train path launched the kernels {launches} times, "
+             f"expected {want} (B4, B5 and B6 once per layer per step)")
+    if not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+        fail(f"LM train losses not finite or not falling: {losses}")
+    med = float(np.median(step_s))
+    flops = lm_train_flops(TRAIN_BATCH, TRAIN_SEQ, cfg["embed_dim"], layers,
+                           cfg["vocab_size"])
+    log(f"[train] LM step (batch {TRAIN_BATCH} x {TRAIN_SEQ}, fwd + bwd + "
+        f"Adam, CUDA-synchronised host clock): {min(step_s) * 1e3:.3f}.."
+        f"{max(step_s) * 1e3:.3f} ms over {TRAIN_STEPS} steps, median "
+        f"{med * 1e3:.3f} ms = {TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s; "
+        f"{flops / 1e12:.3f} TFLOP a step (tools/roofline.py's count) = "
+        f"MFU {flops / med / BF16_FLOPS:.4f} against {BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s; peak memory {peak_gib:.2f} GiB on {card}")
+    busy = profiled_kernel_ms(lambda: epoch(state, batch),
+                              ["flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"])
+    if busy is None:
+        log("[train] profiled step: the profiler saw no device time (kernel "
+            "time a step not measured)")
+    else:
+        total_ms, by_name, wall_ms = busy
+        log(f"[train] profiled step: compute kernels {total_ms:.3f} ms on the "
+            f"device (a step's wall {wall_ms:.3f} ms, busy share "
+            f"{total_ms / wall_ms:.3f}), of which " + " ".join(
+                f"{n} {ms:.3f} ms ({ms / total_ms:.4f})"
+                for n, ms in by_name.items()))
+    del state, epoch, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cifar_train_path(card):
+    """Phase 8b; returns {kernel: launches} of the counted run."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import training as TR
+    from mmlspark_tpu_torch.models.resnet import resnet18
+
+    state = TR.init_train_state(resnet18(num_classes=10), TR.sgd(0.1, 0.9),
+                                seed=0, compute_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randn((CIFAR_STEPS, CIFAR_BATCH, 32, 32, 3),
+                         device="cuda", generator=gen)
+    labels = torch.randint(0, 10, (CIFAR_STEPS, CIFAR_BATCH), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    epoch = TR.make_train_epoch(10)
+    state, _m = epoch(state, images[:3], labels[:3])  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    state, ms = epoch(state, images, labels)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    losses = ms["loss"].cpu().numpy()
+    log(f"[cifar] ResNet-18 (bf16, SGD 0.1 / 0.9) {CIFAR_STEPS} steps of "
+        f"batch {CIFAR_BATCH} at 32x32 in {dt:.3f} s = "
+        f"{CIFAR_STEPS * CIFAR_BATCH / dt:.0f} samples/s on {card}; launches "
+        f"{launches}; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if launches != NO_LAUNCHES:
+        fail(f"the CIFAR train path launched ported kernels: {launches}")
+    if not np.isfinite(losses).all():
+        fail(f"CIFAR train losses not finite: {losses}")
+    busy = profiled_kernel_ms(lambda: epoch(state, images[:5], labels[:5]),
+                              [])
+    if busy is not None:
+        log(f"[cifar] profiled 5 steps: compute kernels {busy[0] / 5:.3f} ms "
+            f"a step on the device against {busy[2] / 5:.3f} ms of wall "
+            f"(busy share {busy[0] / busy[2]:.3f})")
+    del state, images, labels
+    torch.cuda.empty_cache()
+    return launches
+
+
+def deep_vision_path(card):
+    """Phase 8c; returns {kernel: launches} of the counted run."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.deep_vision import DeepVisionClassifier
+
+    rng = np.random.default_rng(7)
+    palette = rng.integers(0, 256, (DV_CLASSES, 3))
+    labels = rng.integers(0, DV_CLASSES, DV_ROWS)
+    noise = rng.normal(0, 20, (DV_ROWS, 32, 32, 3))
+    images = np.clip(palette[labels][:, None, None, :] + noise, 0,
+                     255).astype(np.uint8)
+    table = Table({"image": list(images), "label": labels})
+    zero_launches()
+    t0 = time.perf_counter()
+    model = DeepVisionClassifier(backbone="resnet18", batch_size=DV_BATCH,
+                                 epochs=DV_EPOCHS, seed=0).fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = read_launches()
+    t0 = time.perf_counter()
+    out = model.transform(table)
+    score_s = time.perf_counter() - t0
+    launches = read_launches()
+    steps = DV_EPOCHS * math.ceil(DV_ROWS / DV_BATCH)
+    chunks = math.ceil(DV_ROWS / 64)
+    hist = np.asarray(model.loss_history)
+    acc = float((np.asarray(out["prediction"]) == labels).mean())
+    log(f"[deep_vision] DeepVisionClassifier(resnet18).fit: {DV_ROWS} uint8 "
+        f"32x32 images, {DV_CLASSES} classes, batch {DV_BATCH}, {DV_EPOCHS} "
+        f"epochs ({steps} steps) in {fit_s:.3f} s = "
+        f"{steps * DV_BATCH / fit_s:.0f} samples/s; loss_history "
+        f"{np.array2string(hist, precision=4)}; transform {score_s:.3f} s, "
+        f"accuracy on the table {acc:.4f}; launches fit {fit_launches}, "
+        f"fit + transform {launches} on {card}")
+    if fit_launches != dict(NO_LAUNCHES, affine_resample=steps) or \
+            launches != dict(NO_LAUNCHES, affine_resample=steps + chunks):
+        fail(f"DeepVisionClassifier: B1 launched {fit_launches} / "
+             f"{launches}, expected once a step ({steps}) and once a "
+             f"scoring chunk ({chunks})")
+    if not np.isfinite(hist).all() or hist[-1] >= hist[0]:
+        fail(f"DeepVisionClassifier loss_history not finite or not "
+             f"falling: {hist}")
+    probs = np.asarray(out["probability"])
+    if probs.shape != (DV_ROWS, DV_CLASSES) or not np.isfinite(probs).all():
+        fail(f"DeepVisionModel probabilities {probs.shape}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1282,7 +1716,13 @@ def main() -> None:
     checks = [check_resample(K, s, "uint8", seed=i)
               for i, s in enumerate(main_shapes)]
     extra = [check_resample(K, (7, 333, 517, 3), "uint8", seed=7),
-             check_resample(K, (5, 97, 131, 1), "float32", seed=8)]
+             check_resample(K, (5, 97, 131, 1), "float32", seed=8),
+             # DeepVisionClassifier (phase 8c): a fit step's batch and a
+             # scoring chunk, 32x32 uint8 kept at 32x32
+             check_resample(K, (DV_BATCH, 32, 32, 3), "uint8", seed=9,
+                            out_hw=(32, 32)),
+             check_resample(K, (64, 32, 32, 3), "uint8", seed=17,
+                            out_hw=(32, 32))]
     # B4 at the ViT-B/16 chunk and the LM prefill (the main paths'
     # shapes), then a ragged causal f32 and a D = 32 shape
     attn_main = [
@@ -1295,10 +1735,23 @@ def main() -> None:
         # the batcher's admission prefills: kp rows at a power-of-two bucket
         check_attention(A, (SERVE_SLOTS, 1024, 12, 64), "bfloat16", True,
                         seed=14),
-        check_attention(A, (1, 16, 12, 64), "bfloat16", True, seed=15)]
+        check_attention(A, (1, 16, 12, 64), "bfloat16", True, seed=15),
+        # the LM train forward (phase 8a)
+        check_attention(A, (TRAIN_BATCH, TRAIN_SEQ, 12, 64), "bfloat16",
+                        True, seed=16)]
     # B7/B8 at the serving shape and beside it (their times are taken on
     # the serving run's live pools, phase 7b)
     paged_err = paged_kernel_checks(PA)
+    # B5/B6 at the LM train layer (timed), a ViT-B/16 chunk, a ragged f32,
+    # a D 32 and a D 128 shape
+    bwd_main = check_attention_bwd(A, (TRAIN_BATCH, TRAIN_SEQ, 12, 64),
+                                   "bfloat16", True, seed=20, timed=True)
+    bwd_extra = [
+        check_attention_bwd(A, (BATCH, 196, 12, 64), "bfloat16", False,
+                            seed=21),
+        check_attention_bwd(A, (3, 77, 5, 64), "float32", True, seed=22),
+        check_attention_bwd(A, (2, 128, 4, 32), "float32", False, seed=23),
+        check_attention_bwd(A, (4, 256, 4, 128), "bfloat16", True, seed=24)]
 
     # ---- 4-6. the paths --------------------------------------------------
     rng = np.random.default_rng(0)
@@ -1315,9 +1768,13 @@ def main() -> None:
     serve_exactness(card)
     serve_launches, live, serve_flash_err = serving_path(A, PA, card)
     paths.append(serve_launches)
+
+    # ---- 8. training -----------------------------------------------------
+    paths += [lm_train_path(card), cifar_train_path(card),
+              deep_vision_path(card)]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
-    # ---- 8. record -----------------------------------------------------
+    # ---- 9. record -----------------------------------------------------
     def summed(rows, key):
         vals = [r[key] for r in rows]
         return sum(vals) if None not in vals else None
@@ -1367,7 +1824,21 @@ def main() -> None:
         "bound_by": live[name]["bound_by"],
         "library_ms": live[name]["library_ms"],
     } for name, line in (("paged_decode_attention", 167),
-                         ("paged_decode_attention_int8", 250))]
+                         ("paged_decode_attention_int8", 250))] + [{
+        "name": f"flash_attention_bwd_{which}",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": f"mmlspark_tpu/ops/attention_kernels.py:{line}",
+        "launches": launches[f"flash_attention_bwd_{which}"],
+        "max_abs_err": max(r[which]["err"] for r in [bwd_main] + bwd_extra),
+        # one launch at the LM train layer (16, 1024, 12, 64) bf16 causal;
+        # library_ms: SDPA's whole backward (dQ, dK and dV together)
+        "ms": bwd_main[which]["ms"],
+        "plain_ms": bwd_main[which]["plain_ms"],
+        "bound_ms": bwd_main[which]["bound_ms"],
+        "bound_by": bwd_main[which]["bound_by"],
+        "library_ms": bwd_main[which]["library_ms"],
+    } for which, line in (("dkdv", 278), ("dq", 348))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -53,12 +53,14 @@ DECLARED_METRICS: Dict[str, str] = {
     "serving.request.latency": "histogram",     # labeled {endpoint, outcome}
     "serving.batch.fill": "histogram",
     "serving.batcher.batch_fill": "histogram",  # one observation per tick
+    "models.training.step_latency": "histogram",  # seconds per optimizer step
     # -- gauges
     "io.feed.queue.depth": "gauge",
     "io.pipeline.queue.depth": "gauge",   # + .<stage> variants
     "flow.queue.depth": "gauge",          # + .<stage> variants
     "serving.queue.depth": "gauge",
     "serving.batcher.queue_depth": "gauge",
+    "models.training.examples_per_sec": "gauge",
 }
 
 
@@ -103,6 +105,7 @@ HISTOGRAM_FAMILY: Dict[str, str] = {
     "serving.request.latency": "latency",
     "serving.batch.fill": "fill",
     "serving.batcher.batch_fill": "fill",
+    "models.training.step_latency": "latency",
 }
 
 

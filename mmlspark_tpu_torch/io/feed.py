@@ -34,7 +34,9 @@ it, and its result is fetched back asynchronously:
 the JAX package's 128-byte alignment, move in one copy, and are sliced
 and bitcast apart on the device.  Unlike the JAX package it never
 degrades to per-array puts: a copy that still fails after the retry
-ladder raises.
+ladder raises.  `stream` is the train loops' feed: one `put_group` per
+item (a slice of stacked minibatches and their labels), `depth` items
+ahead of the consumer.
 
 On a CPU device the same code runs with `torch.from_numpy` in place of
 the copies (the path the CPU tests drive).  The JAX package's coalescing
@@ -298,6 +300,22 @@ class DeviceFeed:
                            transfer_s=dt, chunks_fed=len(arrays))
         self._obs_transfer(total, dt)
         return outs
+
+    def stream(self, items: Iterable[Sequence[np.ndarray]]):
+        """Prefetching transfer stream for sequential consumers (train
+        loops): yields each item's device tensors (one `put_group`
+        transfer per item, a tuple) while up to `depth` later items'
+        copies are already enqueued — slice t+1 moves while the steps of
+        slice t compute."""
+        buf: deque = deque()
+        t0 = time.perf_counter()
+        for item in items:
+            buf.append(self.put_group(tuple(item)))
+            while len(buf) > self.depth:
+                yield buf.popleft()
+        while buf:
+            yield buf.popleft()
+        self.telemetry.add(wall_s=time.perf_counter() - t0)
 
     def run(self, chunk_iter, compute_fn: Callable[[torch.Tensor], torch.Tensor]
             ) -> List[np.ndarray]:

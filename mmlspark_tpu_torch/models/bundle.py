@@ -16,6 +16,9 @@ mean/var from `batch_stats`, LayerNorm scale/bias -> weight/bias, Embed
 ResNet block `<Block>_i` and transformer `block{i}` -> `blocks.i`.  Every
 leaf on either side must be used exactly once.
 
+`TorchBundle.from_module` takes a trained module's weights (what
+`DeepVisionClassifier.fit` hands to its `DeepVisionModel`).
+
 A bundle's taps (`layer_names`) and its input dtype (`input_dtype`:
 int32 token ids for the LM, float32 otherwise) come from its module, as
 the JAX package's FlaxBundle takes them.
@@ -152,6 +155,21 @@ class TorchBundle:
         self.layer_names = list(layer_names)
         # token models (embedding inputs) declare input_dtype "int32"
         self.input_dtype = str(getattr(module, "input_dtype", "float32"))
+
+    @classmethod
+    def from_module(cls, builder: str, module: nn.Module,
+                    builder_kwargs: Optional[dict] = None,
+                    input_shape: Optional[Sequence[int]] = None,
+                    dtype: str = "bfloat16") -> "TorchBundle":
+        """A bundle of a trained module's weights (the f32 master of a
+        TrainState: parameters and running statistics), as host numpy
+        arrays in f32 (integer buffers keep their dtype)."""
+        state = {}
+        for k, v in module.state_dict().items():
+            v = v.detach().cpu().contiguous()
+            state[k] = (v.float() if v.is_floating_point() else v).numpy()
+        return cls(builder, builder_kwargs, state_dict=state,
+                   input_shape=input_shape, dtype=dtype)
 
     def build_module(self) -> nn.Module:
         return get_builder(self.builder)(**self.builder_kwargs)

@@ -7,7 +7,9 @@ architecture, tap names and numerics:
   max-pool with padding 1 (PyTorch pads max-pool with -inf, as flax does);
 * 3x3 convs pad (1, 1); 1x1 convs pad 0 (what flax's 'SAME' gives a 1x1
   kernel at any stride); the stride of a bottleneck sits on its 3x3 conv;
-* BatchNorm uses eps 1e-5 and its running statistics (inference);
+* BatchNorm uses eps 1e-5 and its running statistics in eval mode; in
+  train mode (`module.train()`) it normalises with the batch's statistics
+  and updates the running ones by flax's rule (`BatchNorm` below);
 * a block's projection shortcut exists where its shape changes.
 
 Inputs and taps keep the JAX package's NHWC layout at the module's
@@ -15,7 +17,9 @@ boundary: an NHWC tensor permuted to NCHW is already `channels_last` in
 memory, so no copy is made.  `forward` returns `(logits, taps)` with
 taps ordered output-backwards like `LAYER_NAMES`; `pool` and `logits`
 are f32.  The compute dtype is the dtype of the module's parameters
-(`module.to(dtype)`): bf16 on the card, as the JAX package runs it.
+(`module.to(dtype)`): bf16 on the card, as the JAX package runs it.  The
+trainer's bf16 working copy (models/training.py) casts the parameters
+only, so the running statistics stay f32, as flax keeps its batch_stats.
 
 Module names mirror flax's so the weight bridge (bundle.py) is a rename:
 `blocks[i]` is flax's `<Block>_i`, and `blocks[i].convs[j]` /
@@ -27,14 +31,55 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple, Type
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "LAYER_NAMES",
-           "resnet18", "resnet34", "resnet50", "resnet101", "resnet152"]
+__all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "BatchNorm",
+           "LAYER_NAMES", "resnet18", "resnet34", "resnet50", "resnet101", "resnet152"]
 
 LAYER_NAMES = ["logits", "pool", "res5", "res4", "res3", "res2", "stem"]
 
 _EPS = 1e-5
+_MOMENTUM = 0.9  # flax: running = 0.9 * running + 0.1 * batch
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` with flax's train-mode rule (resnet.py:37-38 of the
+    JAX package: `momentum=0.9`, eps 1e-5).
+
+    Train mode normalises with the batch's mean and BIASED variance over
+    (N, H, W), as `nn.BatchNorm2d` does, but updates the running
+    statistics with the biased variance too — `running = 0.9 * running +
+    0.1 * batch` — where `nn.BatchNorm2d` would take the unbiased one
+    (n / (n - 1) off: 8/7 at a 1x1 map with batch 8).  The batch
+    statistics of the update are f32 and the running statistics keep
+    their own dtype.  The momentum is fixed, so `num_batches_tracked` is
+    not counted.  Eval mode uses the running statistics, cast to the
+    input's dtype where they differ (a bf16 working copy over f32
+    statistics)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            rm, rv = self.running_mean, self.running_var
+            if rm.dtype != x.dtype:
+                rm, rv = rm.to(x.dtype), rv.to(x.dtype)
+            return F.batch_norm(x, rm, rv, self.weight, self.bias, False, 0.0,
+                                self.eps)
+        # one reduction: the normalisation saves the batch's mean and
+        # 1/sqrt(biased var + eps), in f32 on the card
+        out, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            if mean.dtype == torch.float32:
+                var = invstd.pow(-2).sub_(self.eps)
+            else:  # the CPU keeps a bf16 input's statistics in bf16
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           correction=0)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    1.0 - _MOMENTUM)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   1.0 - _MOMENTUM)
+        return out
 
 
 def _conv(c_in: int, c_out: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -42,8 +87,8 @@ def _conv(c_in: int, c_out: int, k: int, stride: int = 1) -> nn.Conv2d:
                      bias=False)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=_EPS)
+def _bn(c: int) -> BatchNorm:
+    return BatchNorm(c, eps=_EPS)
 
 
 class BasicBlock(nn.Module):

@@ -19,11 +19,14 @@ same parameter names, taps and numerics:
   dtype before `proj`.
 
 The compute dtype is the dtype of the module's parameters
-(`module.to(dtype)`): bf16 on the card, as the JAX package runs it.
+(`module.to(dtype)`): bf16 on the card, as the JAX package runs it.  To
+train as the JAX package does (bf16 compute over f32 parameters), the
+trainer runs a bf16 working copy over f32 masters (models/training.py).
 
 Attention: `default_attn` gives the flash-attention kernel
-(`ops.attention_kernels.fused_attention`) for CUDA tensors and the plain
-`full_attention` for CPU tensors.  Decode attends over the KV cache:
+(`ops.attention_kernels.fused_attention`, differentiable through the
+flash backward kernels) for CUDA tensors and its plain version, dense
+`full_attention`, for CPU tensors.  Decode attends over the KV cache:
 
 * the dense cache (a 2-tuple (k, v) [B, max_len, Hkv, D], or the int8
   4-tuple (kq, ks, vq, vs) with per-(position, head) scales), with a

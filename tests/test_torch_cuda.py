@@ -1,7 +1,8 @@
 """Tests of mmlspark_tpu_torch that need a CUDA card: each kernel against
 its plain PyTorch version on the card, and the card paths that run them
 (the featurizer over a ResNet and a ViT, `generate` over a TransformerLM,
-the ContinuousBatcher's paged decode).
+the ContinuousBatcher's paged decode, and the flash backward under a
+TransformerLM's `loss.backward()`).
 They skip without a card (the kernels have no CPU mode).  This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -13,8 +14,21 @@ as for its CPU parity test against the JAX package
 inputs and 2e-2 for bf16 (it rounds the probabilities to bf16
 unnormalized, the plain version normalized), its logsumexp 1e-4; the
 paged attention kernels 1e-4 abs (both sides compute in f32 from the same
-stored values).
+stored values); the backward kernels 1e-4 abs for f32 inputs and 1e-2 for
+bf16 (both sides round p and ds to bf16 at the same points, but the
+kernel's p differs from the plain version's in its last f32 bits — exp2,
+another summation order — which can move an element's bf16 rounding by
+one step; observed 2.8e-3 on the H100), and each of their outputs within
+1e-3 relative L2 of the plain version's (the max-abs limit is set by the
+few large entries near the first keys and would pass a kernel ~10% off
+on later tiles; observed ~5e-5); a bf16 TransformerLM's
+gradients through the kernels within 5e-2 relative L2 of each
+parameter's gradient through `full_attention` (the forwards differ by
+B4's bf16 rounding of P, unnormalised against normalised; observed
+1.5e-2 at 2 layers).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -23,11 +37,13 @@ from mmlspark_tpu_torch import Table
 from mmlspark_tpu_torch.models.bundle import (TorchBundle, get_builder,
                                               init_state_dict)
 from mmlspark_tpu_torch.models.generation import generate
+from mmlspark_tpu_torch.models.training import lm_loss
 from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
 from mmlspark_tpu_torch.ops import attention_kernels as A
 from mmlspark_tpu_torch.ops import image_kernels as K
 from mmlspark_tpu_torch.ops import paged_attention as PA
 from mmlspark_tpu_torch.ops.quant import quantize_kv_row
+from mmlspark_tpu_torch.parallel.ring_attention import full_attention
 from mmlspark_tpu_torch.serving.batcher import ContinuousBatcher
 
 torch.set_num_threads(2)
@@ -287,3 +303,130 @@ def test_paged_batcher_on_card_matches_generate(cuda_device):
     for p, toks in zip(prompts, got):
         want = generate(bundle, np.asarray(p, np.int32)[None], 12)
         assert toks == want[0, len(p):].cpu().tolist(), p
+
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BWD_RTOL = 1e-3
+GRAD_RTOL = 5e-2
+
+
+def _bwd_inputs(device, shape, dtype, causal, seed):
+    """q, k, v, dO and the forward's lse and delta = rowsum(dO * O)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device, dtype) for _ in range(4))
+    out, lse = A.flash_attention_fwd(q, k, v, causal)
+    b, s, h, _d = shape
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), out).reshape(
+        b * h, s).contiguous()
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,causal", [
+    ((16, 1024, 12, 64), torch.bfloat16, True),   # the LM train layer
+    ((64, 196, 12, 64), torch.bfloat16, False),   # a ViT-B/16 chunk
+    ((3, 77, 5, 64), torch.float32, True),        # ragged S
+    ((2, 128, 4, 32), torch.float32, False),      # D 32
+    ((4, 256, 4, 128), torch.bfloat16, True),     # D 128: two column chunks
+    ((2, 130, 2, 256), torch.bfloat16, True),
+    ((2, 100, 2, 256), torch.float32, False),     # 32-row f32 tiles
+    ((2, 70, 3, 32), torch.bfloat16, False),
+    ((2, 1, 2, 64), torch.bfloat16, True),
+])
+def test_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype, causal):
+    q, k, v, do, lse, delta = _bwd_inputs(cuda_device, shape, dtype, causal,
+                                          seed=5)
+    before = (A.LAUNCHES_BWD_DKDV, A.LAUNCHES_BWD_DQ)
+    dk, dv = A.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    dq = A.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (A.LAUNCHES_BWD_DKDV, A.LAUNCHES_BWD_DQ) == (before[0] + 1,
+                                                        before[1] + 1)
+    rk, rv = A.flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal)
+    rq = A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    for name, got, ref in (("dk", dk, rk), ("dv", dv, rv), ("dq", dq, rq)):
+        assert got.dtype == torch.float32 and got.shape == shape
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=BWD_TOL[dtype], rtol=0, err_msg=name)
+        # relative L2 over a norm of at least 1: dK and dQ at S = 1 are ~0
+        rel = float((got - ref).norm() / ref.norm().clamp(min=1.0))
+        assert rel <= BWD_RTOL, (name, rel)
+
+
+@pytest.mark.cuda
+def test_bwd_kernels_read_strided_views_and_grad_outputs(cuda_device):
+    """q/k/v as the transformer hands them over (head-axis slices of one
+    projection) and a grad_output autograd makes with stride 0."""
+    qkv = torch.randn(2, 196, 3 * 4, 64, device=cuda_device).bfloat16()
+    leaf = qkv.clone().requires_grad_()
+    g = torch.randn(1, 196, 4, 64, device=cuda_device).expand(2, -1, -1, -1)
+    grads = []
+    for cont in (False, True):
+        q, k, v = leaf.split(4, dim=2)
+        if cont:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = A.fused_attention(q, k, v, True)
+        grads.append(torch.autograd.grad(out, leaf, g if not cont
+                                         else g.contiguous())[0])
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_bwd_kernels_reject_what_they_cannot_take(cuda_device):
+    q, k, v, do, lse, delta = _bwd_inputs(cuda_device, (1, 16, 2, 64),
+                                          torch.bfloat16, True, seed=6)
+    with pytest.raises(ValueError):
+        A.flash_attention_bwd_dq(q, k, v, do.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), lse, delta, True)
+    with pytest.raises(ValueError):
+        A.flash_attention_bwd_dkdv(q, k, v, do, lse[:, :8], delta, True)
+    half = [x.half() for x in (q, k, v, do)]
+    with pytest.raises(TypeError):
+        A.flash_attention_bwd_dkdv(*half, lse, delta, True)
+
+
+def _lm_grads(cuda_device, attn_fn, kv_heads, state, tokens):
+    kw = dict(vocab_size=1024, embed_dim=768, num_layers=2, num_heads=12,
+              max_len=256, num_kv_heads=kv_heads)
+    if attn_fn is not None:
+        kw["attn_fn"] = attn_fn
+    module = get_builder("transformer_lm")(**kw)
+    module.load_state_dict(state)
+    module = module.to(cuda_device, torch.bfloat16)
+    logits, _ = module(tokens)
+    lm_loss(logits, tokens).backward()
+    return {n: p.grad for n, p in module.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_heads", [None, 4])
+def test_every_lm_parameter_gets_the_full_attention_gradient(cuda_device,
+                                                             kv_heads):
+    """A bf16 TransformerLM's loss.backward() on the card: every parameter
+    gets a gradient (with an output of the kernel that autograd could not
+    see, qkv / q / kv and ln1 would get none), equal within GRAD_RTOL to
+    the one through `full_attention`; with kv_heads 4 the GQA heads'
+    gradients flow back through `_gqa_expand`."""
+    builder = get_builder("transformer_lm")
+    state = {k: torch.from_numpy(v) for k, v in init_state_dict(
+        builder(vocab_size=1024, embed_dim=768, num_layers=2, num_heads=12,
+                max_len=256, num_kv_heads=kv_heads), seed=3).items()}
+    tokens = torch.randint(0, 1024, (2, 256), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(4))
+    before = (A.LAUNCHES, A.LAUNCHES_BWD_DKDV, A.LAUNCHES_BWD_DQ)
+    got = _lm_grads(cuda_device, None, kv_heads, state, tokens)
+    torch.cuda.synchronize()
+    assert (A.LAUNCHES, A.LAUNCHES_BWD_DKDV, A.LAUNCHES_BWD_DQ) == tuple(
+        n + 2 for n in before)
+    ref = _lm_grads(cuda_device, functools.partial(full_attention,
+                                                   causal=True),
+                    kv_heads, state, tokens)
+    assert sorted(got) == sorted(ref)
+    for name, g in got.items():
+        assert g is not None, name
+        rel = float((g.float() - ref[name].float()).norm()
+                    / ref[name].float().norm())
+        assert rel <= GRAD_RTOL, (name, rel)

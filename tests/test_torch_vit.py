@@ -184,3 +184,49 @@ def test_bridge_raises_on_leftover_and_missing_leaves(weights):
         from_flax_variables(BUILDER, missing, kw, input_shape=(HW, HW, 3))
     with pytest.raises(ValueError):
         from_flax_variables(BUILDER, variables, kw, input_shape=(160, 160, 3))
+
+
+# ViT-tiny's width (embed 192, 3 heads -> D 64) with 2 layers at 64x64:
+# S = 16, which the JAX package's kernels take natively
+TINY = "vit_test_tiny_two_layers"
+TINY_LAYERS = dict(patch_size=16, embed_dim=192, num_layers=2, num_heads=3)
+TINY_HW = 64
+
+j_register(TINY, lambda num_classes=CLASSES, dtype=jnp.float32:
+           JViT(num_classes=num_classes, dtype=dtype, **TINY_LAYERS))
+register_builder(TINY, lambda num_classes=CLASSES, image_size=TINY_HW,
+                 attn_fn=None: PV.VisionTransformer(
+                     num_classes=num_classes, image_size=image_size,
+                     attn_fn=attn_fn, **TINY_LAYERS))
+
+
+def test_vit_tiny_backward_matches_jax(kernel_path):
+    """Gradients of every parameter of a ViT-tiny-width model (mean squared
+    logits) through the port's autograd — fused_attention's flash
+    backward, plain on the CPU — against `jax.grad` with the JAX model on
+    its Pallas forward and backward kernels (interpret mode).  Within 1e-4
+    of each gradient's scale, the JAX suite's off-TPU GRAD_TOL
+    (test_attention_kernels.py:27): f32 on both sides."""
+    x = np.random.default_rng(12).standard_normal(
+        (2, TINY_HW, TINY_HW, 3)).astype(np.float32)
+    model = JViT(num_classes=CLASSES, dtype=jnp.float32, **TINY_LAYERS)
+    variables = random_transformer_params(model, jnp.asarray(x[:1]), seed=13)
+
+    def loss(params):
+        logits, _ = model.apply({"params": params}, jnp.asarray(x))
+        return jnp.mean(logits ** 2)
+
+    kw = {"num_classes": CLASSES}
+    ref = from_flax_variables(
+        TINY, {"params": to_dicts(jax.grad(loss)(variables["params"]))}, kw,
+        input_shape=(TINY_HW, TINY_HW, 3), dtype="float32").state_dict
+    module = from_flax_variables(TINY, variables, kw,
+                                 input_shape=(TINY_HW, TINY_HW, 3),
+                                 dtype="float32").module(torch.device("cpu"))
+    logits, _ = module(torch.from_numpy(x))
+    (logits ** 2).mean().backward()
+    for name, p in module.named_parameters():
+        assert p.grad is not None, name
+        scale = max(1.0, float(np.abs(ref[name]).max()))
+        np.testing.assert_allclose(p.grad.numpy(), ref[name], err_msg=name,
+                                   atol=1e-4 * scale, rtol=0)
