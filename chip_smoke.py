@@ -87,8 +87,33 @@ exit, no result line) if anything in it fails:
    of 10 classes learnable from their colours, batch 256, 2 epochs, then
    `DeepVisionModel.transform`: B1 launches once a step and once a
    scoring chunk, exactly; the loss falls; accuracy on the table.
-9. record: a `{"kernels": [...]}` JSON line, the nvidia-smi line, and
-   last the `{"ok": true, "device": ...}` line.
+10. image stages and compressed wire (after phase 8, before the record),
+   on phase 4's table:
+   (a) `Pipeline([ImageTransformer().resize(256, 256).center_crop(224,
+   224).blur(2.0, 2.0).flip(), UnrollImage(output_col="features",
+   mean/std ImageNet BGR), TorchModel(zoo ResNet-50, fetch_node="pool",
+   batch_size=64)])` — example 19's chain at the featurizer's size, the
+   ImageNet eval crop: B1 launches exactly 3 times (one per input shape
+   group), B2 once (one 224x224 group), nothing else; the kernel rows
+   against the `fuse=False` composition on the card within 1 LSB (the
+   share of differing pixel values printed); the UnrollImage vectors
+   within 1e-6 of B2's plain version; the pooled features finite, (192,
+   2048), and within 3e-2 relative L2 of an f32 CPU run of the whole
+   pipeline on 4 images (random-BatchNorm weights, as phase 4); images/s
+   over 3 runs and the B1 / B2 / rest shares of the profiler's kernel time.
+   (b) B2 against its plain version at (192, 224, 224, 3) f32 (timed,
+   beside its bound and a stock-op composition) and at a ragged (5, 37,
+   53, 1) and (3, 24, 24, 3) with a length-1 mean.
+   (c) `DeviceFeed.put_group([rle_encode(c)])` over `tools/feed_bench.py`'s
+   default chunks (16 chunks of 16 images, side 224, flat gray 8-pixel
+   blocks, seed 0): B3 launches exactly 16 times, every decoded chunk
+   equals its raw chunk byte for byte and its f32 mean the plain `put`
+   path's; the wire ratio and the host's encode time.  B3 exact to the
+   byte on phase 4's 64 uniform-random 224x224 images as one chunk (the
+   worst case) and on the JAX package's codec test cases; timed at a
+   feed_bench chunk beside its bound and `torch.repeat_interleave`.
+9. record: a `{"kernels": [...]}` JSON line (all eight kernels), the
+   nvidia-smi line, and last the `{"ok": true, "device": ...}` line.
 
 Imports nothing of JAX or of the JAX package, and no PIL: the images,
 tokens and weights are made from seeds.
@@ -179,10 +204,20 @@ CIFAR_BATCH, CIFAR_STEPS = 256, 40
 DV_ROWS, DV_CLASSES, DV_BATCH, DV_EPOCHS = 2048, 10, 256, 2
 
 
+# image stages and the compressed wire (phase 10): UnrollImage's B2
+# against its plain version at the JAX package's own limit (both round
+# the same two f32 ops); `tools/feed_bench.py`'s default chunks
+UNROLL_ATOL = 1e-6
+RLE_CHUNKS, RLE_CHUNK, RLE_SIDE = 16, 16, 224
+# timing of B2/B3 (queued_ms): ~10 ms of spin at the H100's ~1.98 GHz
+# boost clock, and the idle lead of phase 10's profiled run
+SPIN_CYCLES = 20_000_000
+PROFILE_LEAD_S = 0.5
+
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
            "paged_decode_attention_int8", "flash_attention_bwd_dkdv",
-           "flash_attention_bwd_dq")
+           "flash_attention_bwd_dq", "fused_normalize_unroll", "rle_decode")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -191,9 +226,11 @@ def zero_launches() -> None:
     from mmlspark_tpu_torch.ops import attention_kernels as A
     from mmlspark_tpu_torch.ops import image_kernels as K
     from mmlspark_tpu_torch.ops import paged_attention as PA
+    from mmlspark_tpu_torch.ops import wire_codec as W
 
     K.LAUNCHES = A.LAUNCHES = PA.LAUNCHES = PA.LAUNCHES_INT8 = 0
     A.LAUNCHES_BWD_DKDV = A.LAUNCHES_BWD_DQ = 0
+    K.LAUNCHES_UNROLL = W.LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -201,10 +238,12 @@ def read_launches() -> dict:
     from mmlspark_tpu_torch.ops import attention_kernels as A
     from mmlspark_tpu_torch.ops import image_kernels as K
     from mmlspark_tpu_torch.ops import paged_attention as PA
+    from mmlspark_tpu_torch.ops import wire_codec as W
 
     return dict(zip(KERNELS, (K.LAUNCHES, A.LAUNCHES, PA.LAUNCHES,
                               PA.LAUNCHES_INT8, A.LAUNCHES_BWD_DKDV,
-                              A.LAUNCHES_BWD_DQ)))
+                              A.LAUNCHES_BWD_DQ, K.LAUNCHES_UNROLL,
+                              W.LAUNCHES)))
 
 
 def fail(msg: str) -> None:
@@ -535,6 +574,59 @@ def profiled_kernel_ms(fn, names):
     if total_us <= 0:
         return None
     return total_us / 1e3, {n: us / 1e3 for n, us in by_name.items()}, wall_ms
+
+
+def device_events_us(prof, names, copies: bool):
+    """(device us, {name: (us, count) of the kernels whose name holds
+    it}) summed over a profile's raw device events; copies and memsets
+    only with `copies`."""
+    from torch.autograd import DeviceType
+
+    total_us = 0.0
+    by_name = {n: [0.0, 0] for n in names}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or (
+                not copies and ev.name.startswith(("Memcpy", "Memset"))):
+            continue
+        us = ev.time_range.elapsed_us()
+        total_us += us
+        for n in names:
+            if n in ev.name:
+                by_name[n][0] += us
+                by_name[n][1] += 1
+    return total_us, by_name
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Device time of one fn() call: CUDA events around `iters` calls that
+    the host enqueues while a spin kernel (~10 ms) holds the card, so the
+    card runs them back to back.  Plain back-to-back events (cuda_ms) also
+    count the host's launch cost when a call's host work outlasts its
+    kernels — a microsecond kernel behind a Python wrapper."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin_end = torch.cuda.Event(enable_timing=True)
+    spin_start = torch.cuda.Event(enable_timing=True)
+    spin_start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    spin_end.record()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = spin_start.elapsed_time(spin_end)
+    if host_ms >= spin_ms:
+        log(f"[timing] the host took {host_ms:.3f} ms to enqueue {iters} "
+            f"calls, past the {spin_ms:.3f} ms spin: the time below "
+            f"includes host gaps")
+    return start.elapsed_time(end) / iters
 
 
 def rel_l2(a, b) -> float:
@@ -1669,6 +1761,339 @@ def deep_vision_path(card):
     return launches
 
 
+def unroll_bound(x) -> tuple:
+    """(bound_ms, bound_by) of one normalize+unroll: the f32 batch read
+    once and the f32 rows written once, against a subtract and a multiply
+    an element at the f32 peak."""
+    n = x.numel()
+    t_bytes = 2 * n * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_unroll(K, shape, mean, std, seed, timed=False):
+    """B2 against its plain version at one shape; with `timed`, also the
+    kernel, plain and library times beside the bound."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(shape, device="cuda", generator=gen) * 255.0
+    got = K.fused_normalize_unroll(x, mean, std)
+    ref = K.fused_normalize_unroll_plain(x, mean, std)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"unroll {shape}: bad output {tuple(got.shape)}")
+    err = float((got - ref).abs().max())
+    log(f"[kernel] fused_normalize_unroll f32{list(shape)}: "
+        f"max_abs_err={err:.3e} (bound {UNROLL_ATOL})")
+    if err > UNROLL_ATOL:
+        fail(f"unroll {shape}: kernel disagrees with plain version "
+             f"(max abs err {err:.3e} > {UNROLL_ATOL})")
+    if not timed:
+        return {"err": err}
+    b, c = shape[0], shape[3]
+    mean4 = torch.tensor(mean, device="cuda").expand(c).view(1, c, 1, 1)
+    inv4 = (1.0 / torch.tensor(std, dtype=torch.float64, device="cuda")
+            ).float().expand(c).view(1, c, 1, 1)
+    lib_out = torch.empty((b, c, shape[1], shape[2]), device="cuda")
+
+    def library():
+        # stock ops: the subtract reads the permuted view and writes the
+        # CHW planes, then an in-place multiply
+        torch.sub(x.permute(0, 3, 1, 2), mean4, out=lib_out)
+        return lib_out.mul_(inv4).view(b, -1)
+
+    lib_err = float((library() - ref).abs().max())
+    calls = {"kernel": lambda: K.fused_normalize_unroll(x, mean, std),
+             "plain": lambda: K.fused_normalize_unroll_plain(x, mean, std),
+             "library": library}
+    ev = {k: cuda_ms(f, 20) for k, f in calls.items()}
+    kernel_ms, plain_ms, library_ms = (queued_ms(f) for f in calls.values())
+    bound_ms, bound_by = unroll_bound(x)
+    log(f"[kernel] fused_normalize_unroll f32{list(shape)}: device time "
+        f"(calls queued behind a spin) kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} (torch.sub(x.permute(0,3,1,2), mean, "
+        f"out=) + mul_(inv); agrees: {lib_err <= UNROLL_ATOL}, "
+        f"max_abs_err={lib_err:.3e}); CUDA events over back-to-back calls "
+        f"{ev['kernel']:.4f} / {ev['plain']:.4f} / {ev['library']:.4f}; "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"roofline_share={bound_ms / kernel_ms:.3f}")
+    return {"err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms if lib_err <= UNROLL_ATOL else None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def rle_cases(images):
+    """The byte-exactness cases of the decode: the worst case (phase 4's
+    64 uniform-random 224x224 images as one chunk) and the JAX package's
+    cases (tests/test_wire_codec.py:20-31)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return {
+        "uniform_64x224x224x3": np.stack(images[1::len(SIZES)]),
+        "zeros": np.zeros((4, 32, 32, 3), np.uint8),
+        "quantized": (rng.integers(0, 6, (3, 16, 16, 3)) * 40
+                      ).astype(np.uint8),
+        "noise": rng.integers(0, 255, (2, 17, 13)).astype(np.uint8),
+        "long_runs": np.repeat(np.arange(5, dtype=np.uint8),
+                               1000).reshape(10, 500),
+        "float32": rng.integers(0, 3, (64,)).astype(np.float32) * 0.5,
+        "single": np.array([7], np.uint8),
+    }
+
+
+def check_rle(W, name, arr, timed=False):
+    """B3 against its plain version and the raw chunk, exact to the byte;
+    with `timed`, also the kernel, plain and library times beside the
+    bound.  Returns the largest byte difference (0) and the times."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    p = W.rle_encode(arr)
+    enc_s = time.perf_counter() - t0
+    v = torch.from_numpy(p.values).cuda()
+    e = torch.from_numpy(p.ends).cuda()
+    got = W.decode_bytes(v, e, p.n_pad)
+    ref = W.decode_bytes_plain(v, e, p.n_pad)
+    raw = got.cpu().numpy()
+    err = int(np.abs(raw.astype(np.int16)
+                     - ref.cpu().numpy().astype(np.int16)).max())
+    exact = raw[:p.nbytes_raw].tobytes() == np.ascontiguousarray(arr).tobytes()
+    log(f"[kernel] rle_decode {name} {arr.dtype}{list(arr.shape)}: R={len(p.values)} "
+        f"n_pad={p.n_pad} ratio={W.rle_ratio(p):.3f} encode {enc_s:.3f} s; "
+        f"max_byte_diff vs plain={err}, equals the raw chunk: {exact}")
+    if err or not exact:
+        fail(f"rle_decode {name}: the decode is not exact to the byte")
+    if not timed:
+        return {"err": float(err)}
+    counts = torch.diff(e.long(), prepend=torch.zeros(1, dtype=torch.int64,
+                                                      device="cuda"))
+    calls = {"kernel": lambda: W.decode_bytes(v, e, p.n_pad),
+             "plain": lambda: W.decode_bytes_plain(v, e, p.n_pad),
+             "library": lambda: torch.repeat_interleave(
+                 v, counts, output_size=p.n_pad)}
+    ev = {k: cuda_ms(f, 20) for k, f in calls.items()}
+    kernel_ms, plain_ms, library_ms = (queued_ms(f) for f in calls.values())
+    nbytes = len(p.values) * 5 + p.n_pad
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[kernel] rle_decode {name}: device time (calls queued behind a "
+        f"spin) "
+        f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} (torch.repeat_interleave(values, "
+        f"counts, output_size=n_pad)); CUDA events over back-to-back calls "
+        f"{ev['kernel']:.4f} / {ev['plain']:.4f} / {ev['library']:.4f}; "
+        f"bound_ms={bound_ms:.4f} (bytes: R*5 + n_pad) "
+        f"roofline_share={bound_ms / kernel_ms:.3f}")
+    return {"err": float(err), "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes"}
+
+
+def image_stage_pipeline(S, TorchModel, bundle, device=None, fuse=None):
+    """Example 19's chain at the featurizer's size, the ImageNet eval crop:
+    ImageTransformer -> UnrollImage -> TorchModel (the `pool` tap)."""
+    from mmlspark_tpu_torch import Pipeline
+
+    chain = S.ImageTransformer(fuse=fuse, device=device).resize(
+        256, 256).center_crop(IMG, IMG).blur(2.0, 2.0).flip()
+    return Pipeline([
+        chain,
+        S.UnrollImage(output_col="features", mean=list(MEAN_BGR),
+                      std=list(STD_BGR), device=device),
+        TorchModel(bundle=bundle, input_col="features", fetch_node="pool",
+                   batch_size=BATCH, device=device)])
+
+
+def image_stage_path(K, images, table, repo, card):
+    """Phase 10 (a); returns {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.bundle import (TorchBundle, get_builder,
+                                                  init_state_dict)
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.models.zoo import get_or_create_resnet
+    from mmlspark_tpu_torch.ops import image_stages as S
+
+    bundle = get_or_create_resnet("resnet50", (IMG, IMG, 3), 1000, repo=repo)
+    t0 = time.perf_counter()
+    model = image_stage_pipeline(S, TorchModel, bundle).fit(table)
+    log(f"[stages] Pipeline.fit (runs the two image stages once) "
+        f"{time.perf_counter() - t0:.3f} s")
+    zero_launches()
+    t0 = time.perf_counter()
+    out = model.transform(table)
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    feats = np.asarray(out["output"])
+    log(f"[stages] transform {first_s:.3f} s; launches {launches}")
+    want = dict(NO_LAUNCHES, affine_resample=len(SIZES),
+                fused_normalize_unroll=1)
+    if launches != want:
+        fail(f"the image-stage path launched the kernels {launches} times, "
+             f"expected {want} (B1 once per input shape group, B2 once for "
+             f"the one 224x224 group, nothing inside TorchModel)")
+    if feats.shape != (N_IMAGES, 2048) or not np.isfinite(feats).all():
+        fail(f"image-stage features: shape {feats.shape}, "
+             f"finite={np.isfinite(feats).all()}")
+    if not (out["id"] == np.arange(N_IMAGES)).all():
+        fail("the image-stage path changed the row order")
+
+    # the ImageTransformer's kernel path against the plain composition on
+    # the card, at the JAX package's limits (test_fused_pipeline.py:65-71)
+    chain_k, unroll = model.stages[0], model.stages[1]
+    rows_k = chain_k.transform(table)["image"]
+    chain_p = image_stage_pipeline(S, TorchModel, bundle,
+                                   fuse=False).stages[0]
+    K.LAUNCHES = 0
+    rows_p = chain_p.transform(table)["image"]
+    if K.LAUNCHES:
+        fail("the fuse=False ImageTransformer launched the resample kernel")
+    diffs = [np.abs(a["data"].astype(np.int16) - b["data"].astype(np.int16))
+             for a, b in zip(rows_k, rows_p)]
+    lsb = max(int(d.max()) for d in diffs)
+    share = sum(int((d > 0).sum()) for d in diffs) / sum(d.size for d in diffs)
+    log(f"[stages] ImageTransformer kernel rows vs the plain composition "
+        f"on the card: max {lsb} LSB (bound 1), share of differing pixel "
+        f"values {share:.2e}")
+    if lsb > 1 or any(a["data"].shape != (IMG, IMG, 3) for a in rows_k):
+        fail("the ImageTransformer's kernel rows disagree with the plain "
+             "composition")
+
+    # UnrollImage against B2's plain version on the same rows
+    vecs = np.asarray(list(unroll.transform(Table({"image": rows_k}))[
+        "features"]))
+    batch = torch.from_numpy(np.stack([r["data"] for r in rows_k])).cuda()
+    plain = K.fused_normalize_unroll_plain(batch.float(), MEAN_BGR,
+                                           STD_BGR).cpu().numpy()
+    err_unroll = float(np.abs(vecs - plain).max())
+    log(f"[stages] UnrollImage vectors vs B2's plain version: "
+        f"max_abs_err={err_unroll:.3e} (bound {UNROLL_ATOL}); dtype "
+        f"{vecs.dtype}")
+    if err_unroll > UNROLL_ATOL or vecs.dtype != np.float64:
+        fail("UnrollImage's vectors disagree with B2's plain version")
+
+    # the whole pipeline, bf16 on the card against f32 on the CPU, on a
+    # ResNet-50 whose BatchNorms are all random (as phase 4)
+    few_table = Table({"image": [images[i] for i in range(4)]})
+    check_state = init_state_dict(get_builder("resnet50")(num_classes=1000),
+                                  seed=1, random_bn=True)
+    side = {}
+    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
+        check_bundle = TorchBundle("resnet50", {"num_classes": 1000},
+                                   state_dict=check_state,
+                                   input_shape=(IMG, IMG, 3), dtype=dtype)
+        pipe = image_stage_pipeline(S, TorchModel, check_bundle, device=dev)
+        side[dev] = np.asarray(pipe.fit(few_table).transform(few_table)[
+            "output"])
+    err_cpu = rel_l2(side["cuda"], side["cpu"])
+    log(f"[stages] features (random-BatchNorm ResNet-50, bf16 on the card) "
+        f"vs an f32 CPU run of the whole pipeline on 4 images: "
+        f"rel_l2={err_cpu:.3e} (bound {CPU_FEATURES_RTOL})")
+    if err_cpu > CPU_FEATURES_RTOL:
+        fail("image-stage features disagree with the f32 CPU run")
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.transform(table)
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    log(f"[stages] Pipeline(ImageTransformer -> UnrollImage -> TorchModel "
+        f"resnet50 pool), {N_IMAGES} images, 3 runs: images/s min "
+        f"{N_IMAGES / walls[-1]:.0f}, median {N_IMAGES / walls[1]:.0f}, "
+        f"max {N_IMAGES / walls[0]:.0f} (walls {walls[0]:.4f}-"
+        f"{walls[-1]:.4f} s) on {card}")
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the profiler dropped the kernels of the first milliseconds of a
+        # session late in this process (B1's 3 launches open the path)
+        time.sleep(PROFILE_LEAD_S)
+        t0 = time.perf_counter()
+        model.transform(table)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    total_us, by_us = device_events_us(
+        prof, ["affine_resample", "normalize_unroll"], copies=False)
+    copy_us = device_events_us(prof, [], copies=True)[0] - total_us
+    seen = {n: c for n, (_us, c) in by_us.items()}
+    if seen != {"affine_resample": len(SIZES), "normalize_unroll": 1}:
+        log(f"[stages] profiled run: the profiler saw {seen} of the path's "
+            f"kernel launches, not all (shares not measured)")
+    else:
+        b1, b2 = by_us["affine_resample"][0], by_us["normalize_unroll"][0]
+        rest = total_us - b1 - b2
+        log(f"[stages] profiled run: compute kernels {total_us / 1e3:.3f} ms "
+            f"on the device, of which B1 {b1 / 1e3:.4f} ms "
+            f"({b1 / total_us:.4f}), B2 {b2 / 1e3:.4f} ms "
+            f"({b2 / total_us:.4f}), the rest (the ResNet-50 forward and the "
+            f"stages' casts) {rest / 1e3:.3f} ms ({rest / total_us:.4f}); "
+            f"copies {copy_us / 1e3:.3f} ms; the profiled run's wall "
+            f"{wall_ms:.3f} ms; kernels / median unprofiled wall = "
+            f"{total_us / (walls[1] * 1e6):.3f}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, err_unroll
+
+
+def compressed_wire_path(W, card):
+    """Phase 10 (c); returns {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.io.feed import DeviceFeed, FeedTelemetry
+
+    rng = np.random.default_rng(0)
+    blk = 8
+    chunks = [(rng.integers(0, 6, (RLE_CHUNK, RLE_SIDE, RLE_SIDE // blk, 1))
+               * 40).astype(np.uint8).repeat(blk, axis=2).repeat(3, axis=3)
+              for _ in range(RLE_CHUNKS)]
+    t0 = time.perf_counter()
+    payloads = [W.rle_encode(c) for c in chunks]
+    enc_s = time.perf_counter() - t0
+    feed = DeviceFeed(torch.device("cuda"), telemetry=FeedTelemetry())
+    feed.put_group([payloads[0]])  # warm the ring slot
+    tel = feed.telemetry = FeedTelemetry()
+    zero_launches()
+    t0 = time.perf_counter()
+    outs, means = [], []
+    for p in payloads:
+        (x,) = feed.put_group([p])
+        outs.append(x)
+        means.append(x.float().mean(dim=(1, 2, 3)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    snap = tel.snapshot()
+    ratio = snap["wire_bytes_raw"] / snap["wire_bytes_sent"]
+    log(f"[wire] {RLE_CHUNKS} compressed groups of {RLE_CHUNK}x{RLE_SIDE}x"
+        f"{RLE_SIDE}x3 uint8: R={len(payloads[0].values)} runs a chunk, "
+        f"wire ratio {ratio:.3f} ({snap['wire_bytes_raw']:.0f} raw / "
+        f"{snap['wire_bytes_sent']:.0f} sent bytes), host encode "
+        f"{enc_s:.3f} s, put_group + decode + mean {wall:.4f} s; launches "
+        f"{launches} on {card}")
+    if launches != dict(NO_LAUNCHES, rle_decode=RLE_CHUNKS):
+        fail(f"the compressed wire launched the kernels {launches} times, "
+             f"expected rle_decode once per chunk ({RLE_CHUNKS})")
+    if snap["compressed_groups"] != RLE_CHUNKS:
+        fail(f"compressed_groups {snap['compressed_groups']}")
+    for c, x in zip(chunks, outs):
+        if x.dtype != torch.uint8 or tuple(x.shape) != c.shape or \
+                x.cpu().numpy().tobytes() != c.tobytes():
+            fail("a decoded chunk differs from its raw chunk")
+    plain_means = [feed.put(c).float().mean(dim=(1, 2, 3)) for c in chunks]
+    if not all(torch.equal(a, b) for a, b in zip(means, plain_means)):
+        fail("the compressed chunks' means differ from the plain put's")
+    log("[wire] every decoded chunk equals its raw chunk byte for byte; "
+        "the f32 means equal the plain put path's")
+    return launches, chunks[0]
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1686,6 +2111,7 @@ def main() -> None:
     from mmlspark_tpu_torch.ops import attention_kernels as A
     from mmlspark_tpu_torch.ops import image_kernels as K
     from mmlspark_tpu_torch.ops import paged_attention as PA
+    from mmlspark_tpu_torch.ops import wire_codec as W
 
     # ---- 1. device -----------------------------------------------------
     smi = subprocess.run(
@@ -1772,6 +2198,20 @@ def main() -> None:
     # ---- 8. training -----------------------------------------------------
     paths += [lm_train_path(card), cifar_train_path(card),
               deep_vision_path(card)]
+
+    # ---- 10. image stages and compressed wire ----------------------------
+    stage_launches, unroll_path_err = image_stage_path(K, images, table,
+                                                       repo, card)
+    unroll_checks = [
+        check_unroll(K, (N_IMAGES, IMG, IMG, 3), MEAN_BGR, STD_BGR, seed=30,
+                     timed=True),
+        check_unroll(K, (5, 37, 53, 1), (0.25,), (3.0,), seed=31),
+        check_unroll(K, (3, 24, 24, 3), (120.0,), (64.0,), seed=32)]
+    wire_launches, bench_chunk = compressed_wire_path(W, card)
+    rle_main = check_rle(W, "feed_bench", bench_chunk, timed=True)
+    rle_extra = [check_rle(W, name, arr)
+                 for name, arr in rle_cases(images).items()]
+    paths += [stage_launches, wire_launches]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------
@@ -1838,7 +2278,36 @@ def main() -> None:
         "bound_ms": bwd_main[which]["bound_ms"],
         "bound_by": bwd_main[which]["bound_by"],
         "library_ms": bwd_main[which]["library_ms"],
-    } for which, line in (("dkdv", 278), ("dq", 348))]
+    } for which, line in (("dkdv", 278), ("dq", 348))] + [{
+        "name": "fused_normalize_unroll",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/normalize_unroll.cu",
+        "replaces": "mmlspark_tpu/ops/pallas_kernels.py:56",
+        "launches": launches["fused_normalize_unroll"],
+        "max_abs_err": max([c["err"] for c in unroll_checks]
+                           + [unroll_path_err]),
+        # one launch at the image-stage path's (192, 224, 224, 3) f32
+        # group; library_ms: torch.sub over the permuted view + mul_
+        "ms": unroll_checks[0]["ms"],
+        "plain_ms": unroll_checks[0]["plain_ms"],
+        "bound_ms": unroll_checks[0]["bound_ms"],
+        "bound_by": unroll_checks[0]["bound_by"],
+        "library_ms": unroll_checks[0]["library_ms"],
+    }, {
+        "name": "rle_decode",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/rle_decode.cu",
+        "replaces": "mmlspark_tpu/ops/wire_codec.py:231",
+        "launches": launches["rle_decode"],
+        "max_abs_err": max(r["err"] for r in [rle_main] + rle_extra),
+        # one launch at a feed_bench chunk (16x224x224x3 uint8);
+        # library_ms: torch.repeat_interleave(values, counts, output_size)
+        "ms": rle_main["ms"],
+        "plain_ms": rle_main["plain_ms"],
+        "bound_ms": rle_main["bound_ms"],
+        "bound_by": rle_main["bound_by"],
+        "library_ms": rle_main["library_ms"],
+    }]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ STAGE_MODULES = [
     "mmlspark_tpu_torch.core.pipeline",
     "mmlspark_tpu_torch.models.torch_model",
     "mmlspark_tpu_torch.models.image_featurizer",
+    "mmlspark_tpu_torch.ops.image_stages",
 ]
 
 

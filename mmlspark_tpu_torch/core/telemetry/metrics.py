@@ -36,6 +36,7 @@ __all__ = ["DECLARED_METRICS", "is_declared", "Gauge", "Histogram",
 DECLARED_METRICS: Dict[str, str] = {
     # -- counters
     "feed.transfer_retry": "counter",
+    "io.feed.shard.compressed_groups": "counter",  # compressed put_groups
     "faults.injected": "counter",         # + .<fault-point> variants
     "io.pipeline.items": "counter",       # + .<stage> variants
     "flow.items": "counter",              # + .<stage> variants

@@ -38,12 +38,18 @@ ladder raises.  `stream` is the train loops' feed: one `put_group` per
 item (a slice of stacked minibatches and their labels), `depth` items
 ahead of the consumer.
 
+`put_group` also takes a group of `ops.wire_codec.RLEPayload`s, the
+compressed wire: the payloads' values and cumulative-ends tables pack
+into one slot and one copy, and kernel B3 decodes each chunk back to its
+raw bytes on the card (`compressed_groups`, `wire_bytes_raw` and
+`wire_bytes_sent` count it).  The JAX package's host-decode degrade rung
+is not ported: a compressed copy that still fails after its retries
+raises, like any other.
+
 On a CPU device the same code runs with `torch.from_numpy` in place of
 the copies (the path the CPU tests drive).  The JAX package's coalescing
-of several chunks into one transfer, its sharded multi-device puts and
-its compressed (RLE) wire are not ported: on one card a pinned copy per
-chunk costs microseconds, and the compressed wire waits for its decode
-kernel (B3, ROADMAP slice 5).
+of several chunks into one transfer and its sharded multi-device puts
+are not ported: on one card a pinned copy per chunk costs microseconds.
 """
 from __future__ import annotations
 
@@ -132,7 +138,8 @@ class FeedTelemetry:
     """Thread-safe monotonic counters for the feed engine."""
 
     _FIELDS = ("bytes_moved", "transfer_calls", "transfer_s", "chunks_fed",
-               "stall_decode_s", "stall_drain_s", "compute_s", "wall_s")
+               "stall_decode_s", "stall_drain_s", "compute_s", "wall_s",
+               "compressed_groups", "wire_bytes_raw", "wire_bytes_sent")
 
     def __init__(self):
         self._lock = make_lock("io.feed.telemetry")
@@ -261,29 +268,54 @@ class DeviceFeed:
         x.record_stream(compute)
         return x
 
-    def put_group(self, arrays: Sequence[np.ndarray]
-                  ) -> Tuple[torch.Tensor, ...]:
+    def put_group(self, arrays: Sequence[Any]) -> Tuple[torch.Tensor, ...]:
         """Several host arrays -> device tensors in ONE transfer.
 
         The arrays byte-pack into one uint8 buffer (each at an offset
         aligned to 128 bytes) — on the card a pinned ring slot — which
         moves in one copy and is sliced and `.view(dtype)`'d apart on the
         device.  The arrays are copied into the buffer before the call
-        returns, so the caller may mutate them right after."""
+        returns, so the caller may mutate them right after.
+
+        A group of `ops.wire_codec.RLEPayload`s (still-encoded chunks)
+        rides the compressed wire instead (`_put_compressed`); a group
+        that mixes payloads and arrays is a caller's error and raises."""
+        from ..ops.wire_codec import RLEPayload
+
+        n_rle = sum(isinstance(a, RLEPayload) for a in arrays)
+        if n_rle:
+            if n_rle != len(arrays):
+                raise TypeError("put_group: a group mixes RLEPayloads and "
+                                "arrays; encode all of them or none")
+            return self._put_compressed(list(arrays))
         arrays = [np.ascontiguousarray(a) for a in arrays]
-        layout = []
+        t0 = time.perf_counter()
+        packed, offsets, total = self._put_packed(arrays)
+        outs = tuple(packed[o:o + a.nbytes].view(_torch_dtype(a.dtype))
+                     .reshape(a.shape) for o, a in zip(offsets, arrays))
+        dt = time.perf_counter() - t0
+        self.telemetry.add(bytes_moved=total, transfer_calls=1,
+                           transfer_s=dt, chunks_fed=len(arrays))
+        self._obs_transfer(total, dt)
+        return outs
+
+    def _put_packed(self, arrays: Sequence[np.ndarray]
+                    ) -> Tuple[torch.Tensor, List[int], int]:
+        """Byte-pack contiguous arrays into one buffer at 128-byte aligned
+        offsets and move it in one copy: (device uint8 buffer, each
+        array's offset, the buffer's size)."""
+        offsets = []
         off = 0
         for a in arrays:
-            layout.append((off, a))
+            offsets.append(off)
             off += -(-a.nbytes // _ALIGN) * _ALIGN
         total = max(off, _ALIGN)
-        t0 = time.perf_counter()
         if self._cuda:
             slot = self._acquire_slot((total,), np.uint8)
             host = slot.host.numpy()
         else:
             host = np.zeros(total, np.uint8)
-        for o, a in layout:
+        for o, a in zip(offsets, arrays):
             host[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
         if self._cuda:
             packed = self._copy_in(slot)
@@ -293,13 +325,40 @@ class DeviceFeed:
                 return torch.from_numpy(host)
 
             packed = self._put_policy.run(attempt, None)
-        outs = tuple(packed[o:o + a.nbytes].view(_torch_dtype(a.dtype))
-                     .reshape(a.shape) for o, a in layout)
+        return packed, offsets, total
+
+    def _put_compressed(self, payloads) -> Tuple[torch.Tensor, ...]:
+        """RLE-encoded chunks over the compressed wire: every payload's
+        values and ends tables byte-pack into ONE buffer (`_put_packed`:
+        one pinned slot, one copy, the same retry ladder), then one
+        decode per payload rebuilds its raw bytes on the device
+        (`ops.wire_codec.decode_bytes`: kernel B3 on the card), viewed
+        back to the chunk's dtype and shape.  The wire is values + ends
+        only, byte for byte what the JAX package sends and counts."""
+        from ..ops import wire_codec
+
+        wire: List[np.ndarray] = []
+        for p in payloads:
+            wire += [p.values, p.ends]
+        t0 = time.perf_counter()
+        packed, offsets, total = self._put_packed(wire)
+        outs = []
+        for i, p in enumerate(payloads):
+            ov, oe = offsets[2 * i], offsets[2 * i + 1]
+            values = packed[ov:ov + p.values.nbytes]
+            ends = packed[oe:oe + p.ends.nbytes].view(torch.int32)
+            raw = wire_codec.decode_bytes(values, ends, p.n_pad)
+            outs.append(raw[:p.nbytes_raw].view(_torch_dtype(p.dtype))
+                        .reshape(p.shape))
         dt = time.perf_counter() - t0
         self.telemetry.add(bytes_moved=total, transfer_calls=1,
-                           transfer_s=dt, chunks_fed=len(arrays))
+                           transfer_s=dt, chunks_fed=len(payloads),
+                           compressed_groups=1,
+                           wire_bytes_raw=sum(p.nbytes_raw for p in payloads),
+                           wire_bytes_sent=total)
         self._obs_transfer(total, dt)
-        return outs
+        core_telemetry.incr("io.feed.shard.compressed_groups")
+        return tuple(outs)
 
     def stream(self, items: Iterable[Sequence[np.ndarray]]):
         """Prefetching transfer stream for sequential consumers (train

@@ -25,7 +25,9 @@ on later tiles; observed ~5e-5); a bf16 TransformerLM's
 gradients through the kernels within 5e-2 relative L2 of each
 parameter's gradient through `full_attention` (the forwards differ by
 B4's bf16 rounding of P, unnormalised against normalised; observed
-1.5e-2 at 2 layers).
+1.5e-2 at 2 layers); the normalize+unroll kernel 1e-6 abs (the JAX
+package's own limit; both sides round the same two f32 ops, so it is
+bit-exact); the RLE decode kernel exact to the byte.
 """
 import functools
 
@@ -39,9 +41,12 @@ from mmlspark_tpu_torch.models.bundle import (TorchBundle, get_builder,
 from mmlspark_tpu_torch.models.generation import generate
 from mmlspark_tpu_torch.models.training import lm_loss
 from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+from mmlspark_tpu_torch.io.feed import DeviceFeed, FeedTelemetry
 from mmlspark_tpu_torch.ops import attention_kernels as A
 from mmlspark_tpu_torch.ops import image_kernels as K
+from mmlspark_tpu_torch.ops import image_stages as S
 from mmlspark_tpu_torch.ops import paged_attention as PA
+from mmlspark_tpu_torch.ops import wire_codec as W
 from mmlspark_tpu_torch.ops.quant import quantize_kv_row
 from mmlspark_tpu_torch.parallel.ring_attention import full_attention
 from mmlspark_tpu_torch.serving.batcher import ContinuousBatcher
@@ -430,3 +435,126 @@ def test_every_lm_parameter_gets_the_full_attention_gradient(cuda_device,
         rel = float((g.float() - ref[name].float()).norm()
                     / ref[name].float().norm())
         assert rel <= GRAD_RTOL, (name, rel)
+
+
+IMAGENET_MEAN_BGR = (103.53, 116.28, 123.675)
+IMAGENET_STD_BGR = (57.375, 57.12, 58.395)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mean,std", [
+    ((192, 224, 224, 3), IMAGENET_MEAN_BGR, IMAGENET_STD_BGR),
+    ((5, 37, 53, 1), (0.25,), (3.0,)),
+    ((3, 24, 24, 3), (120.0,), (64.0,)),
+    ((2, 19, 23, 4), (1.0, 2.0, 3.0, 4.0), (5.0, 6.0, 7.0, 8.0)),
+])
+def test_unroll_kernel_matches_plain_on_card(cuda_device, shape, mean, std):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.rand(shape, device=cuda_device, generator=gen) * 255.0
+    before = K.LAUNCHES_UNROLL
+    got = K.fused_normalize_unroll(x, mean, std)
+    ref = K.fused_normalize_unroll_plain(x, mean, std)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES_UNROLL == before + 1
+    assert got.shape == ref.shape == (shape[0], int(np.prod(shape[1:])))
+    assert float((got - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_unroll_kernel_rejects_what_it_cannot_take(cuda_device):
+    x = torch.zeros(2, 8, 8, 4, device=cuda_device)
+    with pytest.raises(ValueError):
+        K.fused_normalize_unroll(x[..., :3])          # strided
+    with pytest.raises(TypeError):
+        K.fused_normalize_unroll(x.to(torch.uint8))   # not f32
+    with pytest.raises(ValueError):
+        K.fused_normalize_unroll(torch.zeros(1, 4, 4, 5, device=cuda_device))
+
+
+def _feed_bench_chunks(n_chunks=16, chunk=16, side=224):
+    """tools/feed_bench.py's default chunks: flat gray 8-pixel blocks."""
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, 6, (chunk, side, side // 8, 1)) * 40)
+            .astype(np.uint8).repeat(8, axis=2).repeat(3, axis=3)
+            for _ in range(n_chunks)]
+
+
+def _rle_cases():
+    rng = np.random.default_rng(0)
+    return {
+        "feed_bench": _feed_bench_chunks(1)[0],
+        "uniform": rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8),
+        "zeros": np.zeros((4, 32, 32, 3), np.uint8),
+        "quantized": (rng.integers(0, 6, (3, 16, 16, 3)) * 40).astype(np.uint8),
+        "noise": rng.integers(0, 255, (2, 17, 13)).astype(np.uint8),
+        "long_runs": np.repeat(np.arange(5, dtype=np.uint8), 1000).reshape(10, 500),
+        "float32": rng.integers(0, 3, (64,)).astype(np.float32) * 0.5,
+        "single": np.array([7], np.uint8),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_rle_cases()))
+def test_rle_decode_kernel_is_byte_exact_on_card(cuda_device, name):
+    arr = _rle_cases()[name]
+    p = W.rle_encode(arr)
+    v = torch.from_numpy(p.values).to(cuda_device)
+    e = torch.from_numpy(p.ends).to(cuda_device)
+    before = W.LAUNCHES
+    got = W.decode_bytes(v, e, p.n_pad)
+    ref = W.decode_bytes_plain(v, e, p.n_pad)
+    torch.cuda.synchronize()
+    assert W.LAUNCHES == before + 1
+    assert torch.equal(got, ref)
+    raw = got.cpu().numpy()[:p.nbytes_raw].view(arr.dtype).reshape(arr.shape)
+    np.testing.assert_array_equal(raw, arr)
+
+
+@pytest.mark.cuda
+def test_rle_decode_kernel_rejects_what_it_cannot_take(cuda_device):
+    p = W.rle_encode(np.zeros(300, np.uint8))
+    v = torch.from_numpy(p.values).to(cuda_device)
+    e = torch.from_numpy(p.ends).to(cuda_device)
+    with pytest.raises(TypeError):
+        W.decode_bytes(v, e.to(torch.int64), p.n_pad)
+    with pytest.raises(ValueError):
+        W.decode_bytes(torch.stack([v, v], 1)[:, 0], e, p.n_pad)  # strided
+    with pytest.raises(ValueError):
+        W.decode_bytes(v, e.cpu(), p.n_pad)
+
+
+@pytest.mark.cuda
+def test_unroll_image_transform_launches_the_kernel_once(cuda_device):
+    rng = np.random.default_rng(3)
+    images = [rng.integers(0, 256, (24, 20, 3), dtype=np.uint8)
+              for _ in range(5)]
+    table = Table({"image": images})
+    K.LAUNCHES_UNROLL = 0
+    got = S.UnrollImage(mean=list(IMAGENET_MEAN_BGR),
+                        std=list(IMAGENET_STD_BGR)).transform(table)
+    assert K.LAUNCHES_UNROLL == 1  # one shape group
+    ref = S.UnrollImage(mean=list(IMAGENET_MEAN_BGR),
+                        std=list(IMAGENET_STD_BGR),
+                        device="cpu").transform(table)
+    for a, b in zip(got["unrolled"], ref["unrolled"]):
+        assert a.dtype == np.float64
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_compressed_put_group_launches_the_decode_per_chunk(cuda_device):
+    chunks = _feed_bench_chunks(4)
+    tel = FeedTelemetry()
+    W.LAUNCHES = 0
+    outs = DeviceFeed(cuda_device, telemetry=tel).put_group(
+        [W.rle_encode(c) for c in chunks])
+    torch.cuda.synchronize()
+    assert W.LAUNCHES == len(chunks)
+    for c, o in zip(chunks, outs):
+        assert o.device.type == "cuda" and o.dtype == torch.uint8
+        np.testing.assert_array_equal(o.cpu().numpy(), c)
+    snap = tel.snapshot()
+    assert snap["compressed_groups"] == 1 and snap["transfer_calls"] == 1
+    assert snap["wire_bytes_raw"] == sum(c.nbytes for c in chunks)
+    assert snap["wire_bytes_sent"] == sum(
+        W.rle_encode(c).wire_nbytes for c in chunks)

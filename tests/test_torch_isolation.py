@@ -98,3 +98,12 @@ def test_the_scan_covers_the_serving_slice():
               "mmlspark_tpu_torch.ops.paged_attention",
               "mmlspark_tpu_torch.ops.quant"):
         assert m in mods, m
+
+
+def test_the_scan_covers_the_image_stage_slice():
+    """... and so are the image stages' and the compressed wire's."""
+    mods = set(_modules())
+    for m in ("mmlspark_tpu_torch.ops.image", "mmlspark_tpu_torch.ops.image_kernels",
+              "mmlspark_tpu_torch.ops.image_stages",
+              "mmlspark_tpu_torch.ops.wire_codec", "mmlspark_tpu_torch.io.feed"):
+        assert m in mods, m
