@@ -10,13 +10,17 @@ exit, no result line) if anything in it fails:
    read with nvidia-smi.
 2. build: every kernel of `mmlspark_tpu_torch/csrc/` is compiled (one
    nvcc per source, all at once) into `mmlspark_tpu_torch/csrc/build/`;
-   each one's register and spill report is printed.
+   each one's register and spill report is printed, and for the TMA /
+   wgmma kernels of B4 and B5 (bf16, D <= 128) their registers at
+   launch, spills (the run fails on any) and shared memory a block.
 3. kernel check: each kernel's wrapper runs on the card at the shapes the
    main paths give it (plus ragged ones; B4 also at the batcher's
    admission prefill buckets, 8x1024 and 1x16; B7/B8 also with f32 pools,
    a GQA pool and D 32) and is held against its plain PyTorch version on the
    same inputs; kernel, plain and library times
-   (CUDA events) are printed beside the least time the card could take.
+   (CUDA events) are printed beside the least time the card could take
+   and the achieved TFLOP/s (B2, B3 and B4 from calls queued behind a
+   spin: the device alone).
 4. ResNet path: `ImageFeaturizer.transform` with the zoo's random-init
    ResNet-50 at 224x224, batch 64, on a table of 192 uint8 BGR images in
    the three sizes of the JAX package's benchmark (256x256, 224x224,
@@ -119,6 +123,7 @@ Imports nothing of JAX or of the JAX package, and no PIL: the images,
 tokens and weights are made from seeds.
 """
 import json
+import re
 import math
 import os
 import subprocess
@@ -380,16 +385,26 @@ def check_attention(A, shape, dtype: str, causal: bool, seed: int):
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
     lib_err = float((library().transpose(1, 2).float() - ref).abs().max())
-    kernel_ms = cuda_ms(lambda: A.flash_attention_fwd(q, k, v, causal), 20)
+    # the kernel's time is the device's, from calls queued behind a spin:
+    # at ~0.06 ms a call the wrapper's host work (checks, allocations,
+    # three tensor maps) can outlast the kernel in back-to-back calls,
+    # whose time is logged beside it
+    b2b_ms = cuda_ms(lambda: A.flash_attention_fwd(q, k, v, causal), 20)
+    kernel_ms = queued_ms(lambda: A.flash_attention_fwd(q, k, v, causal))
     plain_ms = cuda_ms(lambda: A.flash_attention_fwd_plain(q, k, v, causal), 5)
     library_ms = cuda_ms(library, 20)
     bound_ms, bound_by = attention_bound(shape, dtype, causal)
+    b, s, h, d = shape
+    tflops = (4.0 * b * h * s * s * d * ((s + 1) / (2 * s) if causal else 1.0)
+              / (kernel_ms * 1e-3) / 1e12)
     log(f"[kernel] flash_attention_fwd {dtype}{list(shape)} "
         f"causal={causal}: max_abs_err={err:.3e} (limit {ATTN_ATOL[dtype]}) "
         f"lse_err={lse_err:.3e} (limit {LSE_ATOL}) kernel_ms={kernel_ms:.4f} "
+        f"(queued behind a spin; back-to-back calls {b2b_ms:.4f}) "
         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA, "
         f"max_abs_err vs plain {lib_err:.3e}) bound_ms={bound_ms:.4f} "
-        f"({bound_by}) roofline_share={bound_ms / kernel_ms:.3f}")
+        f"({bound_by}) roofline_share={bound_ms / kernel_ms:.3f} "
+        f"achieved {tflops:.1f} TFLOP/s")
     if err > ATTN_ATOL[dtype] or lse_err > LSE_ATOL:
         fail(f"attention {shape}: kernel disagrees with plain version "
              f"(max abs err {err:.3e}, lse {lse_err:.3e})")
@@ -510,11 +525,15 @@ def check_attention_bwd(A, shape, dtype: str, causal: bool, seed: int,
         rows[which].update(ms=kernel_ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
+        pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
+        tflops = ((8.0 if which == "dkdv" else 6.0) * d * pairs
+                  / (kernel_ms * 1e-3) / 1e12)
         log(f"[kernel] flash_attention_bwd_{which} {dtype}{list(shape)} "
             f"causal={causal}: kernel_ms={kernel_ms:.4f} plain_ms="
             f"{plain_ms:.4f} library_ms={library_ms:.4f} (the backward of "
             f"SDPA: dQ, dK and dV together) bound_ms={bound_ms:.4f} "
-            f"({bound_by}) roofline_share={bound_ms / kernel_ms:.3f}")
+            f"({bound_by}) roofline_share={bound_ms / kernel_ms:.3f} "
+            f"achieved {tflops:.1f} TFLOP/s")
     del lib_out, qt, kt, vt
     torch.cuda.empty_cache()
     return rows
@@ -2094,6 +2113,54 @@ def compressed_wire_path(W, card):
     return launches, chunks[0]
 
 
+def ptxas_entries(report: str):
+    """[(entry, registers, spill store bytes, spill load bytes)] from an
+    `nvcc -Xptxas -v` report."""
+    out, entry, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.append((entry, int(m.group(1))) + spills)
+            entry, spills = None, (0, 0)
+    return out
+
+
+def hopper_report(_build, A) -> None:
+    """Registers, spills and shared memory of the TMA/wgmma kernels (B4 and
+    B5 on the bf16, D <= 128 route); fails on a spill."""
+    import ctypes
+
+    smem = {}
+    for lib_name, fn in (("flash_attention_fwd",
+                          "mmk_flash_attention_fwd_hopper_smem"),
+                         ("flash_attention_bwd",
+                          "mmk_flash_attention_bwd_dkdv_hopper_smem")):
+        f = getattr(_build.library(lib_name), fn)
+        f.argtypes, f.restype = [ctypes.c_int], ctypes.c_int
+        smem[lib_name] = {64: f(64), 128: f(128)}
+    for lib_name in smem:
+        for entry, regs, st, ld in ptxas_entries(
+                _build.ptxas_report(lib_name)):
+            if "hopper" not in entry:
+                continue
+            dp = 64 if "ILi64E" in entry else 128
+            log(f"[build] {lib_name} Hopper kernel {entry}: {regs} registers "
+                f"a thread at launch (setmaxnreg: consumer warpgroup 216, "
+                f"producer warpgroup 40), spill stores {st} B, spill loads "
+                f"{ld} B, dynamic shared memory {smem[lib_name][dp]} B a "
+                f"block (D <= {dp}), two blocks an SM")
+            if st or ld:
+                fail(f"{entry} spills registers ({st} B stores, {ld} B loads)")
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -2136,6 +2203,8 @@ def main() -> None:
             if "Compiling entry" in line or "registers" in line or \
                     "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+
+    hopper_report(_build, A)
 
     # ---- 3. kernel check -----------------------------------------------
     main_shapes = [(BATCH, h, w, 3) for h, w in SIZES]
@@ -2244,7 +2313,8 @@ def main() -> None:
         "launches": launches["flash_attention_fwd"],
         "max_abs_err": max([c["err"] for c in attn_main + attn_extra]
                            + [serve_flash_err]),
-        # one ViT-B/16 chunk layer plus one LM prefill layer, summed
+        # one ViT-B/16 chunk layer plus one LM prefill layer, summed;
+        # the kernel's time queued behind a spin (the device alone)
         "ms": summed(attn_main, "ms"),
         "plain_ms": summed(attn_main, "plain_ms"),
         "bound_ms": summed(attn_main, "bound_ms"),

@@ -30,38 +30,62 @@
 // bf16 tensor-core peak.  Both need every score block to stay on chip:
 // no [S, S] tensor is ever written to device memory.
 //
-// Design (a first design: right and simple, not yet fast).  Two kernels,
-// as on the TPU: each output element is summed by exactly one thread, in
-// a fixed order — deterministic, no atomics.
-//   * B5: one thread block per (b*h, 64-key tile[, 64-column chunk of D]).
-//     The block's K and V tiles stay in shared memory; it streams the
-//     visible 64-query tiles of Q, dO, lse and delta (under the causal
-//     mask it starts at the diagonal tile) and holds dK and dV for its
-//     keys in f32 registers.
-//   * B6: one thread block per (b*h, 64-query tile[, column chunk]): the
-//     forward's walk.  Q and dO stay in shared memory; it streams the
-//     visible K/V tiles and holds dQ in f32 registers.
-//   * bf16: four warps, 16 keys (B5) or 16 queries (B6) each.  Every
-//     product is a warp-level tensor-core mma.sync m16n8k16, bf16 in, f32
-//     accumulate.  B5 works on the transposed scores (keys x queries), so
-//     the score and dp fragments are, register for register, the A
-//     fragments of dV += P^T dO and dK += dS^T Q once rounded to bf16;
-//     the B fragments come from shared memory with ldmatrix.trans.  A
-//     block writes 64 columns of D (the register budget of the f32
-//     accumulators); for D = 128 or 256 the grid's z axis walks the
-//     chunks and each chunk recomputes the scores.
-//   * f32: four threads per row, f32 FMAs (the f32 tolerance leaves no
-//     room for bf16 or TF32 products), p and ds through shared memory;
-//     64-row tiles up to D = 128, 32-row tiles for D = 256 (227 KB of
-//     shared memory a block).
-// Rows past S and columns past D are zero-filled in shared memory and
-// masked; any S, no padding.  Not yet: cp.async/TMA double buffering,
-// wgmma and warp specialisation.
+// Two kernels, as on the TPU: each output element is summed by exactly
+// one thread, in a fixed order — deterministic, no atomics.  Routes, by
+// dtype and D alone (a fixed shape rule; each raises on a launch error,
+// neither gives way to the other):
+//   * B5, bf16, D <= 128 — every main path (the LM train layer, D = 64):
+//     flash_bwd_dkdv_hopper_kernel, below.
+//   * B5, bf16, 128 < D <= 256; B6 (dQ), bf16, any D: the mma.sync
+//     kernels flash_bwd_dkdv_bf16_kernel / flash_bwd_dq_bf16_kernel.
+//   * f32, both: four threads per row, f32 FMAs (the f32 tolerance leaves
+//     no room for bf16 or TF32 products); 64-row tiles up to D = 128,
+//     32-row tiles for D = 256 (227 KB of shared memory a block).
+// The mma.sync kernels: one block of four warps per (b*h, 64-row tile[,
+// 64-column chunk of D]), 16 rows a warp.  B5's block holds its keys'
+// K and V and streams the visible query tiles; B6's holds its queries' Q
+// and dO and streams the visible key tiles (the forward's walk).  The
+// score fragments of mma.sync m16n8k16 are, rounded to bf16, the A
+// fragments of the next products; B fragments come with ldmatrix.trans.
+//
+// B5 on Hopper (TMA, mbarriers, wgmma, setmaxnreg; sm_90a).  One block of
+// two warpgroups per (b*h, 64-key tile[, 64-column chunk of D]), two
+// blocks an SM; key tile 0, which sees the most query tiles under the
+// causal mask, launches first.
+//   * Warpgroup 0 is the consumer, 64 keys.  Its K and V tiles arrive
+//     once, by TMA, and stay in shared memory for the whole query loop:
+//     wgmma reads them there as the A operand of the score products, so
+//     no thread ever reloads them.
+//   * Warpgroup 1 is the producer: it gives up registers (setmaxnreg) and
+//     its first warp streams the queries — one thread issues TMA loads of
+//     each 64-query tile of Q and dO into a ring of shared-memory stages
+//     (4 at D <= 64, 2 at D <= 128), and the warp's lanes copy the tile's
+//     lse (as base 2) and delta beside them (plain loads: any S); the
+//     stage completes on an mbarrier ("full") and the consumer releases
+//     it on another ("empty").  Tensor maps read the (B, S, H, D) strided
+//     views directly with 128-byte swizzle; rows past S and columns past
+//     D arrive as zeros.  Under the causal mask the stream starts at the
+//     block's diagonal tile.
+//   * Per query tile, on the transposed scores as before: s^T = K Q^T and
+//     dp^T = V dO^T are wgmma products with Q or dO as B, K-major; p (one
+//     FFMA and one MUFU a score) and ds come from the accumulators in f32
+//     registers; dV += round(P^T) dO and dK += round(dS^T) Q are wgmma
+//     products with A from registers (the accumulator rows 16w.. of warp
+//     w, packed to bf16) and B = dO or Q, MN-major; p is computed while
+//     dp^T runs.  (Overlapping a tile's dV and dK products with the next
+//     tile's score products measured slower on the card.)  dK and dV
+//     accumulate in f32 registers (64 columns a
+//     block; D = 128 walks two column chunks over the grid's z axis, each
+//     recomputing the scores) and leave through shared memory (the idle
+//     Q/dO ring) with 16-byte stores.
+// Rows past S and columns past D are masked; any S, no padding.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -560,6 +584,300 @@ __global__ void __launch_bounds__(4 * R) flash_bwd_dq_f32_kernel(Args a) {
   }
 }
 
+// ---- B5 on Hopper (bf16, D <= 128) ------------------------------------
+
+// One consumer warpgroup and one producer warpgroup a block
+// (hopper::kThreads), two blocks an SM: one block's first loads and
+// epilogue overlap the other's products.
+constexpr int kHopperKeys = 64;  // keys per block
+constexpr int kHopperQ = 64;     // queries per streamed tile
+
+template <int DP>
+struct HopperDkdvCfg {
+  static constexpr int kSub = DP / 64;               // 64-column boxes
+  static constexpr int kStages = DP <= 64 ? 4 : 2;
+  static constexpr int kKVBox = kHopperKeys * 128;   // bytes of a K/V box
+  static constexpr int kQBox = kHopperQ * 128;       // bytes of a Q/dO box
+  static constexpr int kKVBytes = kSub * kKVBox;
+  static constexpr int kQStage = kSub * kQBox;
+  static constexpr int kOPitch = 64 + 8;             // f32 staging pitch
+  // the epilogue stages dK and dV in the Q/dO ring, free after the loop
+  static_assert(64 * kOPitch * 4 <= 2 * kStages * kQStage, "");
+  static constexpr size_t kSmem = 1024 + 2 * kKVBytes + 2 * kStages * kQStage +
+                                  2 * kStages * kHopperQ * 4 +
+                                  (1 + 2 * kStages) * 8;
+};
+
+// 64 rows x 64 f32 columns of this warpgroup's accumulator (the wgmma C
+// layout) to rows row0.., columns c0.. of the contiguous (B, S, H, D) out,
+// through the warpgroup's staging buffer: 16-byte stores along each row.
+__device__ __forceinline__ void store_tile_hopper(float* out, const Args& a,
+                                                  int b, int h, int row0,
+                                                  int c0, float* st,
+                                                  const float (&acc)[32],
+                                                  int tid) {
+  constexpr int P = HopperDkdvCfg<64>::kOPitch;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int rl = warp * 16 + g + ((i >> 1) & 1) * 8;
+    const int col = (i >> 2) * 8 + t * 2;
+    *reinterpret_cast<float2*>(st + rl * P + col) =
+        make_float2(acc[i], acc[i + 1]);
+  }
+  hopper::named_sync(1, 128);
+  for (int idx = tid; idx < 64 * 16; idx += 128) {
+    const int rl = idx >> 4, col = (idx & 15) * 4;
+    const int row = row0 + rl;
+    if (row < a.S && c0 + col < a.D) {
+      *reinterpret_cast<float4*>(
+          out + ((static_cast<long long>(b) * a.S + row) * a.H + h) * a.D +
+          c0 + col) = *reinterpret_cast<const float4*>(st + rl * P + col);
+    }
+  }
+  hopper::named_sync(1, 128);  // the buffer is read before reuse
+}
+
+// Warpgroup 0 of a block holds keys n0 .. n0 + 63 and works on the
+// transposed scores s^T[key][query], as the mma.sync kernel does.
+template <int DP>
+__global__ void __launch_bounds__(hopper::kThreads, 2)
+flash_bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             Args a) {
+  using C = HopperDkdvCfg<DP>;
+  constexpr int ST = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = hopper::align1024(smem_raw);
+  unsigned char* vs = ks + C::kKVBytes;
+  unsigned char* qs = vs + C::kKVBytes;
+  unsigned char* dos = qs + ST * C::kQStage;
+  float* lse_s = reinterpret_cast<float*>(dos + ST * C::kQStage);  // base 2
+  float* dl_s = lse_s + ST * kHopperQ;
+  float* ostage = reinterpret_cast<float*>(qs);  // after the query loop
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dl_s + ST * kHopperQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + ST;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  // key tile 0 (the most query tiles under the causal mask) launches first
+  const int n0 = blockIdx.y * kHopperKeys;
+  const int c0 = blockIdx.z * 64;  // the columns of dK and dV written
+  // under the causal mask, query tiles before the diagonal see no key here
+  const int m_start = a.causal ? n0 : 0;
+  const int n_q = (a.S - m_start + kHopperQ - 1) / kHopperQ;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      hopper::mbar_init(&full[i], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[i], 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer: warpgroup 1; its first warp streams Q, dO, lse and
+    // delta ----
+    hopper::setmaxnreg_dec<hopper::kProducerRegs>();
+    if (threadIdx.x < 160) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        hopper::prefetch_map(&tq);
+        hopper::prefetch_map(&tdo);
+        hopper::prefetch_map(&tk);
+        hopper::prefetch_map(&tv);
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * C::kKVBytes);
+#pragma unroll
+        for (int j = 0; j < C::kSub; ++j) {
+          hopper::tma_load_4d(ks + j * C::kKVBox, &tk, kv_full, 64 * j, n0,
+                              h, b);
+          hopper::tma_load_4d(vs + j * C::kKVBox, &tv, kv_full, 64 * j, n0,
+                              h, b);
+        }
+      }
+      const long long row_base = static_cast<long long>(bh) * a.S;
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_q; ++it) {
+        const int m0 = m_start + it * kHopperQ;
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        for (int i = lane; i < kHopperQ; i += 32) {
+          const bool in = m0 + i < a.S;
+          lse_s[stage * kHopperQ + i] =
+              in ? a.lse[row_base + m0 + i] * kLog2e : 0.f;
+          dl_s[stage * kHopperQ + i] =
+              in ? a.delta[row_base + m0 + i] : 0.f;
+        }
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(&full[stage], 2 * C::kQStage);
+#pragma unroll
+          for (int j = 0; j < C::kSub; ++j) {
+            hopper::tma_load_4d(qs + stage * C::kQStage + j * C::kQBox, &tq,
+                                &full[stage], 64 * j, m0, h, b);
+            hopper::tma_load_4d(dos + stage * C::kQStage + j * C::kQBox,
+                                &tdo, &full[stage], 64 * j, m0, h, b);
+          }
+        } else {
+          hopper::mbar_arrive(&full[stage]);
+        }
+        if (++stage == ST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer ----
+    hopper::setmaxnreg_inc<hopper::kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int key_a = n0 + warp * 16 + g;  // this thread's keys: key_a, +8
+
+    hopper::mbar_wait(kv_full, 0);
+    float dk[32], dv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+
+    int stage = 0, phase = 0;
+    for (int it = 0; it < n_q; ++it) {
+      const int m0 = m_start + it * kHopperQ;
+      // (the stream starts at the diagonal: no tile lies wholly before
+      // this block's keys)
+      hopper::mbar_wait(&full[stage], phase);
+      const unsigned char* qst = qs + stage * C::kQStage;
+      const unsigned char* dost = dos + stage * C::kQStage;
+      // s^T = K Q^T and dp^T = V dO^T: 64 keys x 64 queries each, one
+      // commit group each, so p is computed while dp^T runs
+      float s[32], dp[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int j = kk >> 2, c = (kk & 3) * 32;
+        hopper::wgmma_ss_n64(s, hopper::desc_kmajor(ks + j * C::kKVBox + c),
+                             hopper::desc_kmajor(qst + j * C::kQBox + c),
+                             kk > 0);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int j = kk >> 2, c = (kk & 3) * 32;
+        hopper::wgmma_ss_n64(dp,
+                             hopper::desc_kmajor(vs + j * C::kKVBox + c),
+                             hopper::desc_kmajor(dost + j * C::kQBox + c),
+                             kk > 0);
+      }
+      hopper::wgmma_commit();
+
+      // p = exp(scale q.k - lse) on the visible pairs, ds = p (dp - delta)
+      // scale, from the stage's lse (base 2) and delta
+      const float* ls = lse_s + stage * kHopperQ;
+      const float* dl = dl_s + stage * kHopperQ;
+      const bool edge = m0 + kHopperQ > a.S || n0 + kHopperKeys > a.S ||
+                        (a.causal && m0 < n0 + kHopperKeys - 1);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        bool vis = true;
+        if (edge) {
+          const int key = key_a + ((i >> 1) & 1) * 8;
+          const int query = m0 + (i >> 2) * 8 + t * 2 + (i & 1);
+          vis = key < a.S && query < a.S && !(a.causal && key > query);
+        }
+        const int qi = (i >> 2) * 8 + t * 2 + (i & 1);
+        s[i] = vis ? hopper::exp2_ftz(fmaf(s[i], a.scale_log2, -ls[qi]))
+                   : 0.f;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qi = (i >> 2) * 8 + t * 2 + (i & 1);
+        dp[i] = s[i] * (dp[i] - dl[qi]) * a.scale;
+      }
+      // dV += round(P^T) dO and dK += round(dS^T) Q over this tile's 64
+      // queries: the A fragments are the accumulators', B is MN-major
+      uint32_t pf[4][4], df[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pf[kk][e] =
+              hopper::pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+          df[kk][e] =
+              hopper::pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+        }
+      }
+      const unsigned char* dob = dost + (c0 >> 6) * C::kQBox;
+      const unsigned char* qb = qst + (c0 >> 6) * C::kQBox;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hopper::wgmma_rs_n64_mnmajor(
+            dv, pf[kk], hopper::desc_mnmajor(dob + kk * 16 * 128), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hopper::wgmma_rs_n64_mnmajor(
+            dk, df[kk], hopper::desc_mnmajor(qb + kk * 16 * 128), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+      hopper::fence_regs(pf);
+      hopper::fence_regs(df);
+      hopper::mbar_arrive(&empty[stage]);
+      if (++stage == ST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    store_tile_hopper(a.dk, a, b, h, n0, c0, ostage, dk, tid);
+    store_tile_hopper(a.dv, a, b, h, n0, c0, ostage, dv, tid);
+  }
+}
+
+template <int DP>
+int launch_dkdv_hopper(const Args& a, cudaStream_t stream) {
+  using C = HopperDkdvCfg<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  int e = hopper::make_bshd_map(&tq, a.q, a.B, a.S, a.H, a.D, a.sq.b, a.sq.s,
+                                a.sq.h, kHopperQ);
+  if (e == 0) {
+    e = hopper::make_bshd_map(&tdo, a.dout, a.B, a.S, a.H, a.D, a.sdo.b,
+                              a.sdo.s, a.sdo.h, kHopperQ);
+  }
+  if (e == 0) {
+    e = hopper::make_bshd_map(&tk, a.k, a.B, a.S, a.H, a.D, a.sk.b, a.sk.s,
+                              a.sk.h, kHopperKeys);
+  }
+  if (e == 0) {
+    e = hopper::make_bshd_map(&tv, a.v, a.B, a.S, a.H, a.D, a.sv.b, a.sv.s,
+                              a.sv.h, kHopperKeys);
+  }
+  // checked once: a split the compiled registers cannot cover would hang
+  static const int split =
+      hopper::check_register_split(flash_bwd_dkdv_hopper_kernel<DP>);
+  if (e == 0) e = split;
+  if (e != 0) return e;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkdv_hopper_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(static_cast<unsigned>(a.B * a.H),
+                  static_cast<unsigned>((a.S + kHopperKeys - 1) / kHopperKeys),
+                  static_cast<unsigned>((a.D + 63) / 64));
+  flash_bwd_dkdv_hopper_kernel<DP>
+      <<<grid, hopper::kThreads, C::kSmem, stream>>>(tq, tk, tv, tdo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, int threads, size_t smem, int rows, int chunks,
            const Args& a, cudaStream_t stream) {
@@ -583,8 +901,13 @@ int launch_bf16(bool dkdv, const Args& a, cudaStream_t stream) {
   const size_t tiles =
       4 * static_cast<size_t>(kTile) * (DP + 8) * sizeof(__nv_bfloat16);
   if (dkdv) {
-    return launch(flash_bwd_dkdv_bf16_kernel<DP, DC>, kThreadsBf16,
-                  tiles + 2 * kTile * sizeof(float), kTile, chunks, a, stream);
+    // bf16 dK/dV at D <= 128 take the Hopper kernel (launch_dkdv_hopper)
+    if constexpr (DP > 128) {
+      return launch(flash_bwd_dkdv_bf16_kernel<DP, DC>, kThreadsBf16,
+                    tiles + 2 * kTile * sizeof(float), kTile, chunks, a,
+                    stream);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch(flash_bwd_dq_bf16_kernel<DP, DC>, kThreadsBf16, tiles, kTile,
                 chunks, a, stream);
@@ -636,6 +959,10 @@ int run(bool dkdv, const void* q, const void* k, const void* v,
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && dkdv && D <= 128) {
+    return D <= 64 ? launch_dkdv_hopper<64>(a, s)
+                   : launch_dkdv_hopper<128>(a, s);
+  }
   if (is_bf16) {
     if (D <= 32) return launch_bf16<32>(dkdv, a, s);
     if (D <= 64) return launch_bf16<64>(dkdv, a, s);
@@ -674,4 +1001,12 @@ extern "C" int mmk_flash_attention_bwd_dq(
     void* stream) {
   return run(false, q, k, v, dout, lse, delta, dq, nullptr, nullptr, is_bf16,
              B, S, H, D, strides, causal, scale, stream);
+}
+
+// Dynamic shared memory a block of B5's Hopper kernel takes at head dim D
+// (bf16, D <= 128), 0 for a D the Hopper route does not take; for reports.
+extern "C" int mmk_flash_attention_bwd_dkdv_hopper_smem(int D) {
+  if (D < 1 || D > 128) return 0;
+  return static_cast<int>(D <= 64 ? HopperDkdvCfg<64>::kSmem
+                                  : HopperDkdvCfg<128>::kSmem);
 }

@@ -1,6 +1,6 @@
 // Flash-attention forward for (B, S, H, D) q/k/v: the Hopper port of the
 // JAX package's Pallas kernel
-// mmlspark_tpu/ops/attention_kernels.py::_attention_pallas.
+// mmlspark_tpu/ops/attention_kernels.py::_attention_pallas (B4).
 //
 // Computes, for every batch row b, head h and query row i,
 //
@@ -15,36 +15,61 @@
 // with no visible column (impossible with self-attention, kept as a
 // guard) gets O = 0, not NaN.
 //
-// What bounds it on an H100: at the main path's shapes (S = 196 or
-// 1000, D = 64) bytes — q, k and v read once and the f32 O written once
+// What bounds it on an H100: at the main path's shapes (S = 196 to 1024,
+// D = 64) bytes — q, k and v read once and the f32 O written once
 // take longer at 3.35 TB/s than the 4*S*S*D operations per head take at
-// the bf16 tensor-core peak.  Both need every score block to stay on
-// chip: the [S, S] scores are never written to device memory.
+// the bf16 tensor-core peak (989 TFLOP/s).  Both need every score block
+// to stay on chip: the [S, S] scores are never written to device memory.
 //
-// Design (a first design: right and simple, not yet fast).  One thread
-// block per (b*h, 64-query tile).  The Q tile and, in turn, each 64-key
-// K/V tile are staged in shared memory with 16-byte loads straight from
-// the model's (B, S, H, D) layout through its strides (no transpose or
-// pad copies); rows past S and columns past D are zero-filled, so a
-// ragged S needs no padding and the causal and bounds masks are the
-// only masks.  The online-softmax recurrence (running max, normalizer,
-// unnormalized O rescaled per tile) runs in f32 registers, and with the
-// causal mask the K tiles wholly above the diagonal are never visited.
-//   * bf16: four warps, 16 query rows each.  QK^T and PV are warp-level
-//     tensor-core products (mma.sync m16n8k16, bf16 in, f32 accumulate).
-//     The score fragment of QK^T is, register for register, the A
-//     fragment of PV once rounded to bf16, so P never leaves registers;
-//     V's B fragments come from shared memory with ldmatrix.trans.
-//   * f32: 256 threads, four per query row, FMAs in f32 (the tolerance
-//     of f32 inputs leaves no room for bf16 or TF32 products).  P goes
-//     through shared memory.
-// Not yet: cp.async/TMA double buffering, wgmma and warp
-// specialisation, and splitting long rows across blocks.
+// Routes, by dtype and D alone (a fixed shape rule; each raises on a
+// launch error, neither gives way to the other):
+//   * bf16, D <= 128: the Hopper kernel below (flash_fwd_hopper_kernel).
+//     Every main path (ViT-B/16, TransformerLM prefill, serving
+//     admission, LM training: D = 64) takes it.
+//   * bf16, 128 < D <= 256: flash_fwd_bf16_kernel, mma.sync m16n8k16.
+//   * f32: flash_fwd_f32_kernel, f32 FMAs (the f32 tolerance leaves no
+//     room for bf16 or TF32 products).
+//
+// The Hopper kernel (TMA, mbarriers, wgmma, setmaxnreg; sm_90a).  One
+// block of two warpgroups per (b*h, 128-query tile at D <= 64, 64-query
+// tile at D <= 128), two blocks an SM, so one block's first loads and
+// epilogue overlap the other's products; under the causal mask the grid
+// launches the tiles nearest the end of the sequence (the most keys to
+// visit) first.  Timed on the card with each part left out in turn
+// (attention_ablation.py), neither product nor the exponentials bounds
+// it; the bytes it moves weigh most — K/V tiles read again from L2 for
+// each query tile, and the f32 O — so a block's 64-key K/V tiles serve
+// as many query rows as the consumer's registers hold.
+//   * Warpgroup 1 is the producer: it gives up registers (setmaxnreg, a
+//     whole warpgroup as the instruction requires) and one thread issues
+//     TMA loads — the Q tile once, then each K/V tile into a ring of
+//     shared-memory stages (4 at D <= 64, 2 at D <= 128), each completed
+//     on an mbarrier ("full") and released by the consumer on another
+//     ("empty").  The tensor maps read the (B, S, H, D) strided views
+//     directly (dims D, S, H, B; boxes of 64 columns), with 128-byte
+//     swizzle; rows past S and columns past D arrive as zeros, so the
+//     masks are the only masks and any S needs no padding.
+//   * Warpgroup 0 is the consumer, in 64-row halves (two at D <= 64).
+//     S = Q.K^T is a wgmma with Q and K from shared memory (both
+//     K-major); the online softmax runs on the accumulator in f32
+//     registers, in base 2 with the scale folded into one FFMA and 2^x
+//     one MUFU instruction; P, rounded to bf16, becomes the register A
+//     operand of O += P.V, a wgmma with V MN-major from shared memory.
+//     Under the causal mask a half skips a tile wholly above its
+//     diagonal.
+//   * Epilogue: the consumer normalises O, stages its rows through the
+//     (then idle) K/V ring and writes them with 16-byte stores (O is the
+//     largest stream: 50 MB of the 127 MB at the LM train shape).
+//   A D under 64 (or between 64 and 128) is padded with TMA's zeros to
+//   64-column boxes.  Not yet: TMA multicast of K/V across a cluster of
+//   blocks, a persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -388,6 +413,299 @@ flash_fwd_f32_kernel(Args a) {
   }
 }
 
+using hopper::desc_kmajor;
+using hopper::desc_mnmajor;
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_wait;
+using hopper::tma_load_4d;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
+
+// One consumer warpgroup and one producer warpgroup a block
+// (hopper::kThreads), two blocks an SM: one block's first loads and
+// epilogue overlap the other's products.  At D <= 64 the consumer owns
+// two 64-row halves, so each K/V tile that crosses from L2 serves 128
+// query rows; at D <= 128 its registers hold one half.
+template <int DP>
+struct HopperFwdCfg {
+  static constexpr int kSub = DP / 64;         // 64-column boxes
+  static constexpr int kHalves = DP <= 64 ? 2 : 1;
+  static constexpr int kM = 64 * kHalves;      // query rows a block
+  static constexpr int kBN = 64;               // keys a K/V stage
+  static constexpr int kStages = DP <= 64 ? 4 : 2;
+  static constexpr int kQBox = kM * 128;       // bytes of one Q box
+  static constexpr int kKVBox = kBN * 128;     // bytes of one K/V box
+  static constexpr int kOPitch = DP + 8;       // f32 staging pitch
+  static constexpr int kQBytes = kSub * kQBox;
+  static constexpr int kKVStage = kSub * kKVBox;
+  // the epilogue stages O in the K/V ring, free once the last tile is done
+  static_assert(kM * kOPitch * 4 <= 2 * kStages * kKVStage, "");
+  static constexpr size_t kSmem =
+      1024 + kQBytes + 2 * kStages * kKVStage + (1 + 2 * kStages) * 8;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(hopper::kThreads, 2)
+flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, Args a) {
+  using C = HopperFwdCfg<DP>;
+  constexpr int BN = C::kBN;
+  constexpr int ST = C::kStages;
+  constexpr int MH = C::kHalves;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = hopper::align1024(smem_raw);
+  unsigned char* ks = qs + C::kQBytes;
+  unsigned char* vs = ks + ST * C::kKVStage;
+  float* ostage = reinterpret_cast<float*>(ks);  // after the last tile
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + ST * C::kKVStage);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  // the last query tile (the most keys under the causal mask) first
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * C::kM;
+  const int n_end = a.causal ? min(a.S, m0 + C::kM) : a.S;
+  const int n_tiles = (n_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer: warpgroup 1, one thread of it ----
+    hopper::setmaxnreg_dec<hopper::kProducerRegs>();
+    if (threadIdx.x == 128) {
+      hopper::prefetch_map(&tq);
+      hopper::prefetch_map(&tk);
+      hopper::prefetch_map(&tv);
+      mbar_arrive_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int j = 0; j < C::kSub; ++j) {
+        tma_load_4d(qs + j * C::kQBox, &tq, q_full, 64 * j, m0, h, b);
+      }
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], 2 * C::kKVStage);
+        unsigned char* kst = ks + stage * C::kKVStage;
+        unsigned char* vst = vs + stage * C::kKVStage;
+#pragma unroll
+        for (int j = 0; j < C::kSub; ++j) {
+          tma_load_4d(kst + j * C::kKVBox, &tk, &full[stage], 64 * j,
+                      it * BN, h, b);
+          tma_load_4d(vst + j * C::kKVBox, &tv, &full[stage], 64 * j,
+                      it * BN, h, b);
+        }
+        if (++stage == ST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer: warpgroup 0 owns query rows m0 .. m0 + kM - 1, half
+    // hf of them rows m0 + 64 hf .. + 63 ----
+    hopper::setmaxnreg_inc<hopper::kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row_a = m0 + warp * 16 + g;  // rows row_a (+8) + 64 hf
+
+    float o[MH][C::kSub][32];
+    float m_run[MH][2], l_run[MH][2];  // l: this thread's partial sums
+#pragma unroll
+    for (int hf = 0; hf < MH; ++hf) {
+#pragma unroll
+      for (int j = 0; j < C::kSub; ++j) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[hf][j][i] = 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_run[hf][r] = -INFINITY;
+        l_run[hf][r] = 0.f;
+      }
+    }
+
+    mbar_wait(q_full, 0);
+    // Under the causal mask the last tile lies wholly above half 0's
+    // diagonal, and that half skips it.
+    int stage = 0, phase = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int n0 = it * BN;
+      bool live[MH];
+#pragma unroll
+      for (int hf = 0; hf < MH; ++hf) {
+        live[hf] = !(a.causal && n0 > m0 + 64 * hf + 63);
+      }
+      mbar_wait(&full[stage], phase);
+      const unsigned char* kst = ks + stage * C::kKVStage;
+      const unsigned char* vst = vs + stage * C::kKVStage;
+      // S = Q K^T: 64 rows x BN keys a half
+      float s[MH][BN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int hf = 0; hf < MH; ++hf) {
+        if (!live[hf]) continue;
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const int j = kk >> 2, c = (kk & 3) * 32;
+          hopper::wgmma_ss_n64(
+              s[hf], desc_kmajor(qs + j * C::kQBox + hf * 64 * 128 + c),
+              desc_kmajor(kst + j * C::kKVBox + c), kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int hf = 0; hf < MH; ++hf) fence_regs(s[hf]);
+
+      uint32_t pa[MH][BN / 16][4];  // P, the A operand of P V
+#pragma unroll
+      for (int hf = 0; hf < MH; ++hf) {
+        if (!live[hf]) continue;
+        // masks, then the online-softmax update in base 2: the running
+        // max m is kept scaled (scale * log2(e) * max s; the scale is
+        // > 0) and p = 2^(s * scale_log2 - m) is one FFMA and one MUFU
+        const int r0 = m0 + 64 * hf;
+        const bool edge = n0 + BN > a.S || (a.causal && n0 + BN - 1 > r0);
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int hi = (i >> 1) & 1;
+          if (edge) {
+            const int row = row_a + 64 * hf + hi * 8;
+            const int col = n0 + (i >> 2) * 8 + t * 2 + (i & 1);
+            if (col >= a.S || (a.causal && col > row)) s[hf][i] = -INFINITY;
+          }
+          mx[hi] = fmaxf(mx[hi], s[hf][i]);
+        }
+        float corr[2], m_use[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m_run[hf][r], mx[r] * a.scale_log2);
+          m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+          corr[r] = hopper::exp2_ftz(m_run[hf][r] - m_use[r]);
+          m_run[hf][r] = m_new;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int hi = (i >> 1) & 1;
+          const float p =
+              hopper::exp2_ftz(fmaf(s[hf][i], a.scale_log2, -m_use[hi]));
+          s[hf][i] = p;
+          rs[hi] += p;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l_run[hf][r] = l_run[hf][r] * corr[r] + rs[r];
+        }
+#pragma unroll
+        for (int j = 0; j < C::kSub; ++j) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[hf][j][i] *= corr[(i >> 1) & 1];
+        }
+        // P's register A fragments are the score accumulator's, 16 keys
+        // (8 registers) a slice, rounded to bf16
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pa[hf][kk][e] = pack_bf16(s[hf][8 * kk + 2 * e],
+                                      s[hf][8 * kk + 2 * e + 1]);
+          }
+        }
+      }
+
+      // O += round_bf16(P) V
+      wgmma_fence();
+#pragma unroll
+      for (int hf = 0; hf < MH; ++hf) {
+        if (!live[hf]) continue;
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+          for (int j = 0; j < C::kSub; ++j) {
+            hopper::wgmma_rs_n64_mnmajor(
+                o[hf][j], pa[hf][kk],
+                desc_mnmajor(vst + j * C::kKVBox + kk * 16 * 128), 1);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int hf = 0; hf < MH; ++hf) {
+#pragma unroll
+        for (int j = 0; j < C::kSub; ++j) fence_regs(o[hf][j]);
+        fence_regs(pa[hf]);
+      }
+      mbar_arrive(&empty[stage]);
+      if (++stage == ST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // epilogue: normalise, stage the kM x DP f32 rows in shared memory,
+    // then 16-byte stores along each row
+#pragma unroll
+    for (int hf = 0; hf < MH; ++hf) {
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = l_run[hf][r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        inv[r] = 1.f / fmaxf(l, 1e-20f);
+        const int row = row_a + 64 * hf + r * 8;
+        if (t == 0 && row < a.S) {
+          const float m = m_run[hf][r] == -INFINITY ? 0.f : m_run[hf][r];
+          a.lse[static_cast<long long>(bh) * a.S + row] =
+              (m + log2f(fmaxf(l, 1e-20f))) * kLn2;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < C::kSub; ++j) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int hi = (i >> 1) & 1;
+          const int rl = 64 * hf + warp * 16 + g + hi * 8;
+          const int col = j * 64 + (i >> 2) * 8 + t * 2;
+          *reinterpret_cast<float2*>(ostage + rl * C::kOPitch + col) =
+              make_float2(o[hf][j][i] * inv[hi], o[hf][j][i + 1] * inv[hi]);
+        }
+      }
+    }
+    hopper::named_sync(1, 128);
+    constexpr int kVec = DP / 4;  // float4s a row
+    for (int idx = tid; idx < C::kM * kVec; idx += 128) {
+      const int rl = idx / kVec, col = (idx % kVec) * 4;
+      const int row = m0 + rl;
+      if (row < a.S && col < a.D) {
+        *reinterpret_cast<float4*>(
+            a.o + ((static_cast<long long>(b) * a.S + row) * a.H + h) * a.D +
+            col) =
+            *reinterpret_cast<const float4*>(ostage + rl * C::kOPitch + col);
+      }
+    }
+  }
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, int threads, size_t smem, const Args& a,
            cudaStream_t stream) {
@@ -400,6 +718,36 @@ int launch(Kernel kernel, int threads, size_t smem, const Args& a,
   const dim3 grid(static_cast<unsigned>(a.B * a.H),
                   static_cast<unsigned>((a.S + kBlockM - 1) / kBlockM));
   kernel<<<grid, threads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_hopper(const Args& a, cudaStream_t stream) {
+  using C = HopperFwdCfg<DP>;
+  CUtensorMap tq, tk, tv;
+  int e = hopper::make_bshd_map(&tq, a.q, a.B, a.S, a.H, a.D, a.sq.b, a.sq.s,
+                                a.sq.h, C::kM);
+  if (e == 0) {
+    e = hopper::make_bshd_map(&tk, a.k, a.B, a.S, a.H, a.D, a.sk.b, a.sk.s,
+                              a.sk.h, C::kBN);
+  }
+  if (e == 0) {
+    e = hopper::make_bshd_map(&tv, a.v, a.B, a.S, a.H, a.D, a.sv.b, a.sv.s,
+                              a.sv.h, C::kBN);
+  }
+  // checked once: a split the compiled registers cannot cover would hang
+  static const int split =
+      hopper::check_register_split(flash_fwd_hopper_kernel<DP>);
+  if (e == 0) e = split;
+  if (e != 0) return e;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_hopper_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(static_cast<unsigned>(a.B * a.H),
+                  static_cast<unsigned>((a.S + C::kM - 1) / C::kM));
+  flash_fwd_hopper_kernel<DP>
+      <<<grid, hopper::kThreads, C::kSmem, stream>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -456,13 +804,20 @@ extern "C" int mmk_flash_attention_fwd(
   a.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (D <= 32) return launch_bf16<32>(a, s);
-    if (D <= 64) return launch_bf16<64>(a, s);
-    if (D <= 128) return launch_bf16<128>(a, s);
+    if (D <= 64) return launch_hopper<64>(a, s);
+    if (D <= 128) return launch_hopper<128>(a, s);
     return launch_bf16<256>(a, s);
   }
   if (D <= 32) return launch_f32<32>(a, s);
   if (D <= 64) return launch_f32<64>(a, s);
   if (D <= 128) return launch_f32<128>(a, s);
   return launch_f32<256>(a, s);
+}
+
+// Dynamic shared memory a block of the Hopper kernel takes at head dim D
+// (bf16, D <= 128), 0 for a D the Hopper route does not take; for reports.
+extern "C" int mmk_flash_attention_fwd_hopper_smem(int D) {
+  if (D < 1 || D > 128) return 0;
+  return static_cast<int>(D <= 64 ? HopperFwdCfg<64>::kSmem
+                                  : HopperFwdCfg<128>::kSmem);
 }

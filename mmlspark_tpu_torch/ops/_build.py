@@ -4,10 +4,11 @@ Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into its own
 shared library with a plain C interface, loaded with `ctypes`.  Nothing
 is built at import: a library is built at its first use, or ahead of use
 by `build()`, into `csrc/build/` (listed in `.gitignore`).  The file
-name carries a hash of the source and the flags, so an edited source
-rebuilds and a stale library is never loaded.  A file lock keeps two
-processes from building at once; each compile writes a temporary file
-that is renamed into place.
+name carries a hash of the source, the shared headers (`csrc/*.cuh`)
+and the flags, so an edited source or header rebuilds and a stale
+library is never loaded.  A file lock keeps two processes from building
+at once; each compile writes a temporary file that is renamed into
+place.
 """
 from __future__ import annotations
 
@@ -51,8 +52,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(sources()[name], "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path; its name hashes the source, every shared
+    `csrc/*.cuh` header and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [sources()[name]] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -392,6 +392,114 @@ def test_bwd_kernels_reject_what_they_cannot_take(cuda_device):
         A.flash_attention_bwd_dkdv(*half, lse, delta, True)
 
 
+# The Hopper routes of B4 and B5 (bf16, D <= 128: TMA rings and wgmma)
+# at the main paths' shapes — a ViT-B/16 chunk, the LM prefill, the
+# batcher's admission prefill, the LM train layer — and at ragged S
+# (1, 16, 77, 196, 1000, 1025), causal or not, D = 32, 64 and 128, and
+# at a few other head dims.
+HOPPER_CASES = [
+    ((64, 196, 12, 64), False),
+    ((8, 1000, 12, 64), True),
+    ((8, 1024, 12, 64), True),
+    ((16, 1024, 12, 64), True),
+] + [((2, s, 3, d), causal) for s in (1, 16, 77, 196, 1000, 1025)
+     for d in (32, 64, 128) for causal in (False, True)] + [
+    # head dims the tensor maps pad with zeros to a 64-column box
+    ((2, 77, 3, 8), True), ((2, 200, 2, 96), True), ((2, 130, 2, 40), False)]
+
+
+def _case_id(case):
+    (b, s, h, d), causal = case
+    return f"{b}x{s}x{h}x{d}-{'causal' if causal else 'full'}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HOPPER_CASES, ids=_case_id)
+def test_hopper_forward_matches_plain_on_card(cuda_device, case):
+    shape, causal = case
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for _ in range(3))
+    before = A.LAUNCHES
+    out, lse = A.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES == before + 1
+    ref, ref_lse = A.flash_attention_fwd_plain(q, k, v, causal)
+    assert out.dtype == torch.float32 and out.shape == shape
+    assert (out - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HOPPER_CASES, ids=_case_id)
+def test_hopper_dkdv_matches_plain_and_is_deterministic_on_card(cuda_device,
+                                                                case):
+    shape, causal = case
+    q, k, v, do, lse, delta = _bwd_inputs(cuda_device, shape, torch.bfloat16,
+                                          causal, seed=12)
+    before = A.LAUNCHES_BWD_DKDV
+    dk, dv = A.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    dk2, dv2 = A.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES_BWD_DKDV == before + 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)  # no atomics
+    rk, rv = A.flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal)
+    for name, got, ref in (("dk", dk, rk), ("dv", dv, rv)):
+        assert got.dtype == torch.float32 and got.shape == shape
+        assert (got - ref).abs().max().item() <= BWD_TOL[torch.bfloat16], name
+        rel = float((got - ref).norm() / ref.norm().clamp(min=1.0))
+        assert rel <= BWD_RTOL, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_hopper_routes_read_qkv_split_out_of_one_tensor(cuda_device, d):
+    """q/k/v as views of one (B, S, 3, H, D) tensor: the tensor maps read
+    the strides, and give what contiguous copies give, bit for bit."""
+    qkv = torch.randn(2, 300, 3, 4, d, device=cuda_device).bfloat16()
+    g = torch.randn(2, 300, 4, d, device=cuda_device).bfloat16()
+    views = qkv.unbind(2)
+    copies = [x.contiguous() for x in views]
+    assert views[0].stride() != copies[0].stride()
+    outs = []
+    for q, k, v in (views, copies):
+        out, lse = A.flash_attention_fwd(q, k, v, True)
+        delta = torch.einsum("bshd,bshd->bhs", g.float(), out).reshape(
+            -1, 300).contiguous()
+        outs.append((out, lse) + A.flash_attention_bwd_dkdv(
+            q, k, v, g, lse, delta, True))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 77, 3, 64), torch.float32),
+    ((2, 130, 2, 256), torch.bfloat16),
+    ((2, 100, 2, 192), torch.bfloat16),
+])
+def test_the_other_routes_still_launch_their_kernels(cuda_device, shape,
+                                                     dtype):
+    """f32, and bf16 with D > 128, keep the earlier kernels: each launch
+    is counted and agrees with the plain version."""
+    q, k, v, do, lse, delta = _bwd_inputs(cuda_device, shape, dtype, True,
+                                          seed=13)
+    before = (A.LAUNCHES, A.LAUNCHES_BWD_DKDV)
+    out, lse2 = A.flash_attention_fwd(q, k, v, True)
+    dk, dv = A.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert (A.LAUNCHES, A.LAUNCHES_BWD_DKDV) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref, ref_lse = A.flash_attention_fwd_plain(q, k, v, True)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (out - ref).abs().max().item() <= tol
+    assert (lse2 - ref_lse).abs().max().item() <= 1e-4
+    rk, rv = A.flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, True)
+    for got, r in ((dk, rk), (dv, rv)):
+        assert (got - r).abs().max().item() <= BWD_TOL[dtype]
+
+
 def _lm_grads(cuda_device, attn_fn, kv_heads, state, tokens):
     kw = dict(vocab_size=1024, embed_dim=768, num_layers=2, num_heads=12,
               max_len=256, num_kv_heads=kv_heads)
