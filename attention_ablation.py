@@ -2,7 +2,7 @@
 left out.
 
 Builds patched copies of `mmlspark_tpu_torch/csrc/flash_attention_fwd.cu`
-(B4) and `flash_attention_bwd.cu` (B5) — the package's own sources and
+(B4) and `flash_attention_bwd.cu` (B5 and B6) — the package's own sources and
 libraries are never touched — each with one part of the kernel's work
 removed (the exponentials, a product, the output stores, ...), and
 times every copy with CUDA events at the main paths' shapes, in
@@ -65,6 +65,47 @@ VARIANTS = {
     "dkdv_no_store": (BWD, [("if (row < a.S && c0 + col < a.D) {",
                              "if (row < a.S && c0 + col < a.D && a.B < 0) {")],
                       [TRAIN]),
+    "dq": (BWD, [], [TRAIN]),
+    "dq_no_exp": (BWD, [(
+        "hopper::exp2_ftz(\n                           "
+        "fmaf(s[i], a.scale_log2, -lse2[hf][hi]))",
+        "fmaf(s[i], a.scale_log2, -lse2[hf][hi])")],
+        [TRAIN]),
+    "dq_no_scores": (BWD, [
+        ("hopper::wgmma_ss_n64(\n              s,",
+         SKIP + "hopper::wgmma_ss_n64(\n              s,"),
+        ("hopper::wgmma_ss_n64(\n              dp,",
+         SKIP + "hopper::wgmma_ss_n64(\n              dp,")], [TRAIN]),
+    "dq_no_dq": (BWD, [("hopper::wgmma_rs_n64_mnmajor(\n                dq",
+                        SKIP + "hopper::wgmma_rs_n64_mnmajor(\n"
+                        "                dq")], [TRAIN]),
+    "dq_no_store": (BWD, [("if (row < a.S && col < a.D) {",
+                           "if (row < a.S && col < a.D && a.B < 0) {")],
+                    [TRAIN]),
+    "dq_one_half": (BWD, [(
+        "static constexpr int kHalves = DP <= 64 ? 2 : 1;   // 64-row",
+        "static constexpr int kHalves = 1;   // 64-row")], [TRAIN]),
+    # half 1's score products issued while half 0's dQ product runs
+    "dq_overlap_halves": (BWD, [(
+        """        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < C::kSub; ++j) hopper::fence_regs(dq[hf][j]);
+        hopper::fence_regs(da);
+      }
+      hopper::mbar_arrive(&empty[stage]);""",
+        """        hopper::wgmma_commit();
+#pragma unroll
+        for (int j = 0; j < C::kSub; ++j) hopper::fence_regs(dq[hf][j]);
+        hopper::fence_regs(da);
+      }
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int hf = 0; hf < MH; ++hf) {
+#pragma unroll
+        for (int j = 0; j < C::kSub; ++j) hopper::fence_regs(dq[hf][j]);
+      }
+      hopper::mbar_arrive(&empty[stage]);""")], [TRAIN]),
 }
 
 
@@ -96,7 +137,7 @@ def build_all(_build):
     return libs
 
 
-def launcher(lib, src, q, k, v, do, lse, delta, causal):
+def launcher(lib, name, src, q, k, v, do, lse, delta, causal):
     """A call of the variant's C entry on these inputs (outputs made once)."""
     import torch
 
@@ -113,6 +154,17 @@ def launcher(lib, src, q, k, v, do, lse, delta, causal):
                 lse_out.data_ptr(), 1, b, s, h, d, *q.stride()[:3],
                 *k.stride()[:3], *v.stride()[:3], int(causal),
                 1.0 / math.sqrt(d), stream)
+    elif name.startswith("dq"):
+        dq = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+        fn = lib.mmk_flash_attention_bwd_dq
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
+        strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                           *v.stride()[:3], *do.stride()[:3])
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), 1, b, s, h,
+                d, strides, int(causal), 1.0 / math.sqrt(d), stream)
     else:
         dk = torch.empty(q.shape, dtype=torch.float32, device="cuda")
         dv = torch.empty_like(dk)
@@ -169,8 +221,8 @@ def main() -> None:
         out, lse = A.flash_attention_fwd(q, k, v, causal)
         delta = torch.einsum("bshd,bshd->bhs", do.float(), out).reshape(
             b * h, s).contiguous()
-        calls = {name: launcher(libs[name], src, q, k, v, do, lse, delta,
-                                causal)
+        calls = {name: launcher(libs[name], name, src, q, k, v, do, lse,
+                                delta, causal)
                  for name, (src, _p, shapes) in VARIANTS.items()
                  if (shape, causal) in shapes}
         for rnd in range(2):

@@ -11,7 +11,7 @@ exit, no result line) if anything in it fails:
 2. build: every kernel of `mmlspark_tpu_torch/csrc/` is compiled (one
    nvcc per source, all at once) into `mmlspark_tpu_torch/csrc/build/`;
    each one's register and spill report is printed, and for the TMA /
-   wgmma kernels of B4 and B5 (bf16, D <= 128) their registers at
+   wgmma kernels of B4, B5 and B6 (bf16, D <= 128) their registers at
    launch, spills (the run fails on any) and shared memory a block.
 3. kernel check: each kernel's wrapper runs on the card at the shapes the
    main paths give it (plus ragged ones; B4 also at the batcher's
@@ -19,8 +19,8 @@ exit, no result line) if anything in it fails:
    a GQA pool and D 32) and is held against its plain PyTorch version on the
    same inputs; kernel, plain and library times
    (CUDA events) are printed beside the least time the card could take
-   and the achieved TFLOP/s (B2, B3 and B4 from calls queued behind a
-   spin: the device alone).
+   and the achieved TFLOP/s (B2, B3, B4 and B6 from calls queued behind a
+   spin: the device alone, with the back-to-back time beside it).
 4. ResNet path: `ImageFeaturizer.transform` with the zoo's random-init
    ResNet-50 at 224x224, batch 64, on a table of 192 uint8 BGR images in
    the three sizes of the JAX package's benchmark (256x256, 224x224,
@@ -65,7 +65,9 @@ exit, no result line) if anything in it fails:
    against its plain version on that launch's own q/k/v; stream lengths,
    first tokens against the prefill's argmax, and teacher-forced
    agreement; B7/B8 against their plain versions on one tick's live
-   pools (their recorded times);
+   pools (their recorded times: B7 queued behind a spin, beside its
+   back-to-back time and B7's earlier tiled design, the B8 kernel at the
+   pools' own type, timed the same two ways on the same inputs);
    tokens/s, ms per tick and the kernels' share over 3 rounds each.
    Streams are read with a deadline, so a dead batcher loop fails the run
    instead of hanging it.
@@ -201,6 +203,9 @@ EXACT_LM = dict(LM, num_layers=2)
 EXACT_SLOTS, EXACT_REQUESTS, EXACT_NEW, PREFIX_LEN = 4, 8, 32, 256
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 8, 16, 64
 STREAM_WAIT_S = 300      # no token for this long fails the run, never hangs it
+# the paged kernels' names in a profile: B7's split and merge, B8's kernel
+PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_merge_kernel",
+                      "paged_decode_kernel")
 
 # training (phase 8): bench.py `_measure_transformer` (bench.py:515-549)
 # and `_measure_train` (bench.py:129-169)
@@ -519,7 +524,10 @@ def check_attention_bwd(A, shape, dtype: str, causal: bool, seed: int,
                lambda: A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
                                                       causal))}
     for which, (kern, plain) in kernels.items():
-        kernel_ms = cuda_ms(kern, 20)
+        # B6 on the device alone (queued behind a spin), as B4; B5 back to
+        # back, as in its earlier records
+        b2b_ms = cuda_ms(kern, 20)
+        kernel_ms = queued_ms(kern) if which == "dq" else b2b_ms
         plain_ms = cuda_ms(plain, 5)
         bound_ms, bound_by = attention_bwd_bound(shape, dtype, causal, which)
         rows[which].update(ms=kernel_ms, plain_ms=plain_ms,
@@ -528,8 +536,10 @@ def check_attention_bwd(A, shape, dtype: str, causal: bool, seed: int,
         pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
         tflops = ((8.0 if which == "dkdv" else 6.0) * d * pairs
                   / (kernel_ms * 1e-3) / 1e12)
+        timing = ("queued behind a spin; back-to-back calls "
+                  f"{b2b_ms:.4f}" if which == "dq" else "back-to-back calls")
         log(f"[kernel] flash_attention_bwd_{which} {dtype}{list(shape)} "
-            f"causal={causal}: kernel_ms={kernel_ms:.4f} plain_ms="
+            f"causal={causal}: kernel_ms={kernel_ms:.4f} ({timing}) plain_ms="
             f"{plain_ms:.4f} library_ms={library_ms:.4f} (the backward of "
             f"SDPA: dQ, dK and dV together) bound_ms={bound_ms:.4f} "
             f"({bound_by}) roofline_share={bound_ms / kernel_ms:.3f} "
@@ -1083,19 +1093,68 @@ def check_paged(PA, label, q, pools, table, pos, timed: bool):
             q[:, :, None, :], k_log, v_log, attn_mask=mask)
 
     lib_err = float((library()[:, :, 0].float() - ref).abs().max())
-    kernel_ms = cuda_ms(lambda: kernel(q, *pools, table, pos), 50)
+    def call():
+        return kernel(q, *pools, table, pos)
+
+    b2b_ms = cuda_ms(call, 50)
+    queued = queued_ms(call)
+    # B7's record is its device time (a call is two short kernels behind
+    # a Python wrapper); B8's stays back to back, as in its earlier records
+    kernel_ms = b2b_ms if int8 else queued
     plain_ms = cuda_ms(lambda: plain(q, *pools, table, pos), 5)
     library_ms = cuda_ms(library, 20)
     bound_ms, bound_by = paged_bound(q, pools, pos, int8)
     calls = "gather+dequant+SDPA, 3 calls" if int8 else "gather+SDPA, 2 calls"
     log(f"[kernel] {label} {shape}: max_abs_err={err:.3e} (limit "
-        f"{PAGED_ATOL}) kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} ({calls}, max_abs_err vs plain "
-        f"{lib_err:.3e}) bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"{PAGED_ATOL}) kernel_ms={kernel_ms:.4f} (queued behind a spin "
+        f"{queued:.4f}, back-to-back calls {b2b_ms:.4f}) plain_ms="
+        f"{plain_ms:.4f} library_ms={library_ms:.4f} ({calls}, max_abs_err "
+        f"vs plain {lib_err:.3e}) bound_ms={bound_ms:.4f} ({bound_by}) "
         f"roofline_share={bound_ms / kernel_ms:.3f}")
+    if not int8:
+        tiled, tiled_err = paged_tiled_call(PA, q, pools, table, pos, ref)
+        log(f"[kernel] {label}: B7's earlier tiled design (one block per "
+            f"slot and K/V head, mmk_paged_attention_tiled) on the same "
+            f"inputs: "
+            f"max_abs_err={tiled_err:.3e}, queued behind a spin "
+            f"{queued_ms(tiled):.4f} ms, back-to-back calls "
+            f"{cuda_ms(tiled, 50):.4f} ms; the split kernels queued "
+            f"{queued_ms(call):.4f} ms")
     return {"err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def paged_tiled_call(PA, q, pools, table, pos, ref):
+    """(a call of B7's earlier tiled kernel, the C entry
+    mmk_paged_attention_tiled, on these inputs; its largest error against
+    `ref`): the design the split kernels replaced, timed beside them on
+    the same inputs."""
+    import ctypes
+    import torch
+
+    lib = PA._kernel_lib()
+    fn = lib.mmk_paged_attention_tiled
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_float,
+                                                ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    b, h, d = q.shape
+    _np, page, hkv, _d = pools[0].shape
+    out = torch.empty((b, h, d), dtype=torch.float32, device="cuda")
+    args = (q.data_ptr(), pools[0].data_ptr(), pools[1].data_ptr(),
+            table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, h, hkv, d, page,
+            table.shape[1], q.stride(0), q.stride(1), 1.0 / math.sqrt(d))
+
+    def call():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"mmk_paged_attention_tiled: CUDA error {err}")
+
+    call()
+    torch.cuda.synchronize()
+    return call, float((out - ref).abs().max())
 
 
 def paged_kernel_checks(PA):
@@ -1494,13 +1553,14 @@ def serving_path(A, PA, card):
                 for st in [batcher.submit(p, SERVE_NEW) for p in prompts]:
                     st.tokens(timeout=STREAM_WAIT_S)
 
-            busy = profiled_kernel_ms(one_round, ["paged_decode_kernel",
-                                                  "flash_fwd"])
+            # B7's two kernels (split, merge) or B8's one
+            busy = profiled_kernel_ms(one_round, PAGED_KERNEL_NAMES
+                                      + ("flash_fwd",))
             n = batch_fill_count() - ticks0
             if busy is not None:
-                kern.append((busy[0] / n, busy[1]["paged_decode_kernel"]
-                             / busy[0], busy[1]["flash_fwd"] / busy[0],
-                             busy[2] / n))
+                paged_ms = sum(busy[1][k] for k in PAGED_KERNEL_NAMES)
+                kern.append((busy[0] / n, paged_ms / busy[0],
+                             busy[1]["flash_fwd"] / busy[0], busy[2] / n))
         if kern:
             log(f"[serve] {label}: 3 profiled rounds: kernel time "
                 f"{min(k[0] for k in kern):.3f}..{max(k[0] for k in kern):.3f}"
@@ -2134,31 +2194,39 @@ def ptxas_entries(report: str):
 
 
 def hopper_report(_build, A) -> None:
-    """Registers, spills and shared memory of the TMA/wgmma kernels (B4 and
-    B5 on the bf16, D <= 128 route); fails on a spill."""
+    """Registers, spills and shared memory of the TMA/wgmma kernels (B4, B5
+    and B6 on the bf16, D <= 128 route); fails on a spill."""
     import ctypes
 
-    smem = {}
-    for lib_name, fn in (("flash_attention_fwd",
-                          "mmk_flash_attention_fwd_hopper_smem"),
-                         ("flash_attention_bwd",
-                          "mmk_flash_attention_bwd_dkdv_hopper_smem")):
+    smem = {}  # kernel name -> {64: bytes, 128: bytes}
+    for lib_name, kernel, fn in (
+            ("flash_attention_fwd", "flash_fwd_hopper_kernel",
+             "mmk_flash_attention_fwd_hopper_smem"),
+            ("flash_attention_bwd", "flash_bwd_dkdv_hopper_kernel",
+             "mmk_flash_attention_bwd_dkdv_hopper_smem"),
+            ("flash_attention_bwd", "flash_bwd_dq_hopper_kernel",
+             "mmk_flash_attention_bwd_dq_hopper_smem")):
         f = getattr(_build.library(lib_name), fn)
         f.argtypes, f.restype = [ctypes.c_int], ctypes.c_int
-        smem[lib_name] = {64: f(64), 128: f(128)}
-    for lib_name in smem:
+        smem[kernel] = {64: f(64), 128: f(128)}
+    seen = set()
+    for lib_name in ("flash_attention_fwd", "flash_attention_bwd"):
         for entry, regs, st, ld in ptxas_entries(
                 _build.ptxas_report(lib_name)):
-            if "hopper" not in entry:
+            kernel = next((k for k in smem if k in entry), None)
+            if kernel is None:
                 continue
             dp = 64 if "ILi64E" in entry else 128
+            seen.add((kernel, dp))
             log(f"[build] {lib_name} Hopper kernel {entry}: {regs} registers "
                 f"a thread at launch (setmaxnreg: consumer warpgroup 216, "
                 f"producer warpgroup 40), spill stores {st} B, spill loads "
-                f"{ld} B, dynamic shared memory {smem[lib_name][dp]} B a "
+                f"{ld} B, dynamic shared memory {smem[kernel][dp]} B a "
                 f"block (D <= {dp}), two blocks an SM")
             if st or ld:
                 fail(f"{entry} spills registers ({st} B stores, {ld} B loads)")
+    if len(seen) != 2 * len(smem):
+        fail(f"the ptxas reports lack Hopper kernels: saw {sorted(seen)}")
 
 
 def main() -> None:

@@ -31,13 +31,16 @@
 // no [S, S] tensor is ever written to device memory.
 //
 // Two kernels, as on the TPU: each output element is summed by exactly
-// one thread, in a fixed order — deterministic, no atomics.  Routes, by
-// dtype and D alone (a fixed shape rule; each raises on a launch error,
-// neither gives way to the other):
-//   * B5, bf16, D <= 128 — every main path (the LM train layer, D = 64):
-//     flash_bwd_dkdv_hopper_kernel, below.
-//   * B5, bf16, 128 < D <= 256; B6 (dQ), bf16, any D: the mma.sync
-//     kernels flash_bwd_dkdv_bf16_kernel / flash_bwd_dq_bf16_kernel.
+// one thread, in a fixed order — deterministic, no atomics (dQ keeps its
+// own pass instead of being folded into B5's with atomics, so gradients
+// are reproducible bit for bit).  Routes, by dtype and D alone (a fixed
+// shape rule; each raises on a launch error, neither gives way to the
+// other):
+//   * bf16, D <= 128 — every main path (the LM train layer, D = 64): B5
+//     flash_bwd_dkdv_hopper_kernel and B6 flash_bwd_dq_hopper_kernel,
+//     below.
+//   * bf16, 128 < D <= 256: the mma.sync kernels
+//     flash_bwd_dkdv_bf16_kernel / flash_bwd_dq_bf16_kernel.
 //   * f32, both: four threads per row, f32 FMAs (the f32 tolerance leaves
 //     no room for bf16 or TF32 products); 64-row tiles up to D = 128,
 //     32-row tiles for D = 256 (227 KB of shared memory a block).
@@ -78,6 +81,28 @@
 //     block; D = 128 walks two column chunks over the grid's z axis, each
 //     recomputing the scores) and leave through shared memory (the idle
 //     Q/dO ring) with 16-byte stores.
+//
+// B6 on Hopper: B4's kernel (csrc/flash_attention_fwd.cu) with a second
+// score product and no online softmax, since lse is given.  One block of
+// two warpgroups per (b*h, query tile), two blocks an SM; under the
+// causal mask the last query tiles, which visit the most key tiles,
+// launch first.
+//   * The producer warpgroup gives up registers; one thread TMA-loads the
+//     block's Q and dO once, then streams 64-key K and V tiles through a
+//     ring of stages (4 at D <= 64, 2 at D <= 128) on full/empty
+//     mbarriers, from the same strided tensor maps as B5.
+//   * The consumer warpgroup owns two 64-row halves at D <= 64 (each K/V
+//     tile that crosses from L2 serves 128 query rows; the halves run one
+//     after the other, so their score registers are shared) and one at
+//     D <= 128.  Per key tile and half: s = Q K^T and dp = dO V^T (SS,
+//     both K-major, one commit group each, p computed while dp runs);
+//     p = 2^(s scale log2e - lse log2e) on the f32 accumulators (one FFMA
+//     and one MUFU), masked entries 0; ds = p (dp - delta) scale, rounded
+//     to bf16 in registers as the A operand of dQ += ds K, with K MN-major
+//     from the same stage.  Each row's lse and delta are read once into
+//     registers; key tiles wholly above a half's diagonal are skipped.
+//   * dQ accumulates in f32 registers and leaves through the idle K/V
+//     ring with 16-byte stores.
 // Rows past S and columns past D are masked; any S, no padding.
 
 #include <cuda_bf16.h>
@@ -878,6 +903,287 @@ int launch_dkdv_hopper(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- B6 on Hopper (bf16, D <= 128) ------------------------------------
+
+template <int DP>
+struct HopperDqCfg {
+  static constexpr int kSub = DP / 64;               // 64-column boxes
+  static constexpr int kHalves = DP <= 64 ? 2 : 1;   // 64-row halves a block
+  static constexpr int kM = 64 * kHalves;            // query rows a block
+  static constexpr int kStages = DP <= 64 ? 4 : 2;
+  static constexpr int kQBox = kM * 128;             // bytes of a Q/dO box
+  static constexpr int kKVBox = kHopperKeys * 128;   // bytes of a K/V box
+  static constexpr int kQBytes = kSub * kQBox;
+  static constexpr int kKVStage = kSub * kKVBox;
+  static constexpr int kOPitch = DP + 8;             // f32 staging pitch
+  // the epilogue stages dQ in the K/V ring, free after the last tile
+  static_assert(kM * kOPitch * 4 <= 2 * kStages * kKVStage, "");
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes +
+                                  2 * kStages * kKVStage +
+                                  (1 + 2 * kStages) * 8;
+};
+
+// Warpgroup 0 of a block holds query rows m0 .. m0 + kM - 1 (half hf:
+// rows m0 + 64 hf .. + 63) and walks the visible key tiles, as B4 does.
+template <int DP>
+__global__ void __launch_bounds__(hopper::kThreads, 2)
+flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           Args a) {
+  using C = HopperDqCfg<DP>;
+  constexpr int ST = C::kStages;
+  constexpr int MH = C::kHalves;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = hopper::align1024(smem_raw);
+  unsigned char* dos = qs + C::kQBytes;
+  unsigned char* ks = dos + C::kQBytes;
+  unsigned char* vs = ks + ST * C::kKVStage;
+  float* ostage = reinterpret_cast<float*>(ks);  // after the last tile
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + ST * C::kKVStage);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  // the last query tile (the most key tiles under the causal mask) first
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * C::kM;
+  // under the causal mask, key tiles past the block's last row see none
+  const int n_end = a.causal ? min(a.S, m0 + C::kM) : a.S;
+  const int n_tiles = (n_end + kHopperKeys - 1) / kHopperKeys;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer: warpgroup 1, one thread of it ----
+    hopper::setmaxnreg_dec<hopper::kProducerRegs>();
+    if (threadIdx.x == 128) {
+      hopper::prefetch_map(&tq);
+      hopper::prefetch_map(&tdo);
+      hopper::prefetch_map(&tk);
+      hopper::prefetch_map(&tv);
+      hopper::mbar_arrive_expect_tx(q_full, 2 * C::kQBytes);
+#pragma unroll
+      for (int j = 0; j < C::kSub; ++j) {
+        hopper::tma_load_4d(qs + j * C::kQBox, &tq, q_full, 64 * j, m0, h,
+                            b);
+        hopper::tma_load_4d(dos + j * C::kQBox, &tdo, q_full, 64 * j, m0, h,
+                            b);
+      }
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[stage], 2 * C::kKVStage);
+        unsigned char* kst = ks + stage * C::kKVStage;
+        unsigned char* vst = vs + stage * C::kKVStage;
+#pragma unroll
+        for (int j = 0; j < C::kSub; ++j) {
+          hopper::tma_load_4d(kst + j * C::kKVBox, &tk, &full[stage], 64 * j,
+                              it * kHopperKeys, h, b);
+          hopper::tma_load_4d(vst + j * C::kKVBox, &tv, &full[stage], 64 * j,
+                              it * kHopperKeys, h, b);
+        }
+        if (++stage == ST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer ----
+    hopper::setmaxnreg_inc<hopper::kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row_a = m0 + warp * 16 + g;  // rows row_a (+8) + 64 hf
+
+    // this thread's rows' lse (base 2) and delta, read once
+    float lse2[MH][2], dlt[MH][2];
+    float dq[MH][C::kSub][32];
+#pragma unroll
+    for (int hf = 0; hf < MH; ++hf) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 64 * hf + r * 8;
+        const long long i = static_cast<long long>(bh) * a.S + row;
+        lse2[hf][r] = row < a.S ? a.lse[i] * kLog2e : 0.f;
+        dlt[hf][r] = row < a.S ? a.delta[i] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < C::kSub; ++j) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dq[hf][j][i] = 0.f;
+      }
+    }
+
+    hopper::mbar_wait(q_full, 0);
+    int stage = 0, phase = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int n0 = it * kHopperKeys;
+      hopper::mbar_wait(&full[stage], phase);
+      const unsigned char* kst = ks + stage * C::kKVStage;
+      const unsigned char* vst = vs + stage * C::kKVStage;
+#pragma unroll
+      for (int hf = 0; hf < MH; ++hf) {
+        const int r0 = m0 + 64 * hf;
+        // under the causal mask the block's last tile can lie wholly
+        // above half 0's diagonal, and that half skips it
+        if (a.causal && n0 > r0 + 63) continue;
+        // s = Q K^T and dp = dO V^T: 64 rows x 64 keys each, one commit
+        // group each, so p is computed while dp runs
+        float s[32], dp[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const int j = kk >> 2, c = (kk & 3) * 32;
+          hopper::wgmma_ss_n64(
+              s, hopper::desc_kmajor(qs + j * C::kQBox + hf * 64 * 128 + c),
+              hopper::desc_kmajor(kst + j * C::kKVBox + c), kk > 0);
+        }
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const int j = kk >> 2, c = (kk & 3) * 32;
+          hopper::wgmma_ss_n64(
+              dp, hopper::desc_kmajor(dos + j * C::kQBox + hf * 64 * 128 + c),
+              hopper::desc_kmajor(vst + j * C::kKVBox + c), kk > 0);
+        }
+        hopper::wgmma_commit();
+
+        // p = exp(scale q.k - lse) on the visible pairs (one FFMA and one
+        // MUFU a score), then ds = p (dp - delta) scale
+        const bool edge =
+            n0 + kHopperKeys > a.S || (a.causal && n0 + kHopperKeys - 1 > r0);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hi = (i >> 1) & 1;
+          bool vis = true;
+          if (edge) {
+            const int row = row_a + 64 * hf + hi * 8;
+            const int col = n0 + (i >> 2) * 8 + t * 2 + (i & 1);
+            vis = col < a.S && !(a.causal && col > row);
+          }
+          s[i] = vis ? hopper::exp2_ftz(
+                           fmaf(s[i], a.scale_log2, -lse2[hf][hi]))
+                     : 0.f;
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+        // dQ += round(dS) K over this tile's 64 keys: the A fragments are
+        // the accumulator's, 16 keys (8 registers) a slice; K is MN-major
+        // from the same stage
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float d2[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int i = 8 * kk + 2 * e + u;
+              d2[u] = s[i] * (dp[i] - dlt[hf][(i >> 1) & 1]) * a.scale;
+            }
+            da[kk][e] = hopper::pack_bf16(d2[0], d2[1]);
+          }
+        }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int j = 0; j < C::kSub; ++j) {
+            hopper::wgmma_rs_n64_mnmajor(
+                dq[hf][j], da[kk],
+                hopper::desc_mnmajor(kst + j * C::kKVBox + kk * 16 * 128), 1);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < C::kSub; ++j) hopper::fence_regs(dq[hf][j]);
+        hopper::fence_regs(da);
+      }
+      hopper::mbar_arrive(&empty[stage]);
+      if (++stage == ST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // epilogue: stage the kM x DP f32 rows in the idle K/V ring, then
+    // 16-byte stores along each row
+#pragma unroll
+    for (int hf = 0; hf < MH; ++hf) {
+#pragma unroll
+      for (int j = 0; j < C::kSub; ++j) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int rl = 64 * hf + warp * 16 + g + ((i >> 1) & 1) * 8;
+          const int col = j * 64 + (i >> 2) * 8 + t * 2;
+          *reinterpret_cast<float2*>(ostage + rl * C::kOPitch + col) =
+              make_float2(dq[hf][j][i], dq[hf][j][i + 1]);
+        }
+      }
+    }
+    hopper::named_sync(1, 128);
+    constexpr int kVec = DP / 4;  // float4s a row
+    for (int idx = tid; idx < C::kM * kVec; idx += 128) {
+      const int rl = idx / kVec, col = (idx % kVec) * 4;
+      const int row = m0 + rl;
+      if (row < a.S && col < a.D) {
+        *reinterpret_cast<float4*>(
+            a.dq + ((static_cast<long long>(b) * a.S + row) * a.H + h) * a.D +
+            col) =
+            *reinterpret_cast<const float4*>(ostage + rl * C::kOPitch + col);
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_dq_hopper(const Args& a, cudaStream_t stream) {
+  using C = HopperDqCfg<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  int e = hopper::make_bshd_map(&tq, a.q, a.B, a.S, a.H, a.D, a.sq.b, a.sq.s,
+                                a.sq.h, C::kM);
+  if (e == 0) {
+    e = hopper::make_bshd_map(&tdo, a.dout, a.B, a.S, a.H, a.D, a.sdo.b,
+                              a.sdo.s, a.sdo.h, C::kM);
+  }
+  if (e == 0) {
+    e = hopper::make_bshd_map(&tk, a.k, a.B, a.S, a.H, a.D, a.sk.b, a.sk.s,
+                              a.sk.h, kHopperKeys);
+  }
+  if (e == 0) {
+    e = hopper::make_bshd_map(&tv, a.v, a.B, a.S, a.H, a.D, a.sv.b, a.sv.s,
+                              a.sv.h, kHopperKeys);
+  }
+  // checked once: a split the compiled registers cannot cover would hang
+  static const int split =
+      hopper::check_register_split(flash_bwd_dq_hopper_kernel<DP>);
+  if (e == 0) e = split;
+  if (e != 0) return e;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dq_hopper_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(static_cast<unsigned>(a.B * a.H),
+                  static_cast<unsigned>((a.S + C::kM - 1) / C::kM));
+  flash_bwd_dq_hopper_kernel<DP>
+      <<<grid, hopper::kThreads, C::kSmem, stream>>>(tq, tk, tv, tdo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, int threads, size_t smem, int rows, int chunks,
            const Args& a, cudaStream_t stream) {
@@ -894,20 +1200,17 @@ int launch(Kernel kernel, int threads, size_t smem, int rows, int chunks,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+// bf16 at 128 < D <= 256 (D <= 128 takes the Hopper kernels)
 int launch_bf16(bool dkdv, const Args& a, cudaStream_t stream) {
-  constexpr int DC = DP < kChunk ? DP : kChunk;
+  constexpr int DP = 256;
+  constexpr int DC = kChunk;
   const int chunks = (a.D + DC - 1) / DC;
   const size_t tiles =
       4 * static_cast<size_t>(kTile) * (DP + 8) * sizeof(__nv_bfloat16);
   if (dkdv) {
-    // bf16 dK/dV at D <= 128 take the Hopper kernel (launch_dkdv_hopper)
-    if constexpr (DP > 128) {
-      return launch(flash_bwd_dkdv_bf16_kernel<DP, DC>, kThreadsBf16,
-                    tiles + 2 * kTile * sizeof(float), kTile, chunks, a,
-                    stream);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch(flash_bwd_dkdv_bf16_kernel<DP, DC>, kThreadsBf16,
+                  tiles + 2 * kTile * sizeof(float), kTile, chunks, a,
+                  stream);
   }
   return launch(flash_bwd_dq_bf16_kernel<DP, DC>, kThreadsBf16, tiles, kTile,
                 chunks, a, stream);
@@ -963,12 +1266,11 @@ int run(bool dkdv, const void* q, const void* k, const void* v,
     return D <= 64 ? launch_dkdv_hopper<64>(a, s)
                    : launch_dkdv_hopper<128>(a, s);
   }
-  if (is_bf16) {
-    if (D <= 32) return launch_bf16<32>(dkdv, a, s);
-    if (D <= 64) return launch_bf16<64>(dkdv, a, s);
-    if (D <= 128) return launch_bf16<128>(dkdv, a, s);
-    return launch_bf16<256>(dkdv, a, s);
+  if (is_bf16 && !dkdv && D <= 128) {
+    return D <= 64 ? launch_dq_hopper<64>(a, s)
+                   : launch_dq_hopper<128>(a, s);
   }
+  if (is_bf16) return launch_bf16(dkdv, a, s);
   if (D <= 32) return launch_f32<32>(dkdv, a, s);
   if (D <= 64) return launch_f32<64>(dkdv, a, s);
   if (D <= 128) return launch_f32<128>(dkdv, a, s);
@@ -1009,4 +1311,11 @@ extern "C" int mmk_flash_attention_bwd_dkdv_hopper_smem(int D) {
   if (D < 1 || D > 128) return 0;
   return static_cast<int>(D <= 64 ? HopperDkdvCfg<64>::kSmem
                                   : HopperDkdvCfg<128>::kSmem);
+}
+
+// ... and of B6's Hopper kernel.
+extern "C" int mmk_flash_attention_bwd_dq_hopper_smem(int D) {
+  if (D < 1 || D > 128) return 0;
+  return static_cast<int>(D <= 64 ? HopperDqCfg<64>::kSmem
+                                  : HopperDqCfg<128>::kSmem);
 }

@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the redesigned flash-attention kernels
-// (flash_attention_fwd.cu, B4; flash_attention_bwd.cu, B5): on the host,
+// (flash_attention_fwd.cu, B4; flash_attention_bwd.cu, B5 and B6): on the host,
 // the tensor maps and the register split of a block; on the device,
 // mbarriers, TMA tile loads through a tensor map, wgmma on shared-memory
 // descriptors or register fragments, and warpgroup register

@@ -13,32 +13,56 @@
 //             / max(sum_t exp(s[t] - m), 1e-20)
 //
 // in f32 throughout (P is never rounded), output f32 [B, H, D].  As in
-// the TPU kernels the online softmax runs across pages; unlike them, rows
-// past pos[b] are skipped, never weighted by 0, and pages past the last
-// live one are never read, so nothing in them (the write-trash page 0
+// the TPU kernels the softmax runs across pages; unlike them, rows past
+// pos[b] are skipped, never weighted by 0, and pages past the last live
+// one are never read, so nothing in them (the write-trash page 0
 // included) can reach the output.
 //
 // What bounds it on an H100: bytes.  Each live K/V row is read once per
 // (slot, K/V head) and takes 2*G operations per element of K and of V,
 // well below the ~20 f32 operations per byte at which the card's FMA
 // rate would be the limit, so plain f32 FMAs suffice: no tensor cores.
+// At a serving tick the live rows are a few MB, microseconds at the HBM
+// rate, so what a launch costs is a chain of latencies (pos, then the
+// page table, then the rows), and the design keeps as many rows in
+// flight at once as it can.
 //
-// Design (a first design: right and simple, not yet fast).  One block of
-// 128 threads per (slot, K/V head), serving that head's G query heads, so
-// a K/V row shared by G query heads is read once.  The block walks the
-// slot's live rows in tiles of up to 64 rows that never cross a page (the
-// host picks the tile so that shared memory fits); each tile's physical
-// page is read from the page table in device memory, and its K and V rows
-// (B8: and their scales) are copied into shared memory with cp.async, the
-// next tile's copy in flight while the current one is computed.  Per
-// tile: the four warps take the rows in turn, lanes over d, and reduce
-// each row's dot products with warp shuffles; one warp per query head
-// then updates the running max and normaliser and turns the scores into
-// probabilities; last, each thread owns (head, d) entries of the f32
-// accumulator (kept in shared memory) and adds the tile's P.V.
-// Not yet: splitting a long slot over several blocks (flash-decoding; at
-// the serving shape B * Hkv = 96 blocks leave SMs of the 132 idle) and
-// wider loads in the compute phase.
+// B7: flash-decoding, two kernels a call (split, then merge).
+//   * paged_split_kernel: a grid of (slot, K/V head[, group of up to 8 of
+//     its query heads]) x chunk, a chunk being `split_pages` whole pages
+//     (64 rows at the serving page size; the caller fixes it from the
+//     page size alone).  The grid comes from the static shapes (MP and
+//     the page size), never from pos, so the host never reads pos.  A
+//     block whose chunk starts past pos[b] writes an empty partial (m =
+//     -inf, l = 0, acc = 0) and exits.  Otherwise each row of the chunk
+//     goes to a group of lanes of one warp (a 64-wide bf16 row is 128
+//     bytes: 8 lanes of one 16-byte load each, 4 rows a warp
+//     instruction); every lane issues its loads of several rows' K and V
+//     before it computes, reading each row's physical page from the page
+//     table in device memory.  Each lane group keeps its own running
+//     (m, l, acc) in registers for the block's query heads; the groups of
+//     a warp merge through shuffles, the 4 warps once through shared
+//     memory, and the block writes its f32 partial: acc [B, H, n_split,
+//     D], m and l [B, H, n_split] (unnormalised, relative to m).
+//   * paged_merge_kernel: one warp per (slot, query head) combines the
+//     partials in split order (a fixed order: deterministic), skips the
+//     empty ones (no exp(-inf - (-inf))), and divides by max(l, 1e-20).
+//   The split kernel is templated on the pool type; an int8 instantiation
+//   (B8) adds the per-row scales to its loads.
+//
+// B8 (int8 pools), the first design, kept until it moves to the split
+// kernel: one block of 128 threads per (slot, K/V head), serving that
+// head's G query heads, walks the slot's live rows in tiles of up to 64
+// rows that never cross a page (the host picks the tile so that shared
+// memory fits); each tile's physical page is read from the page table in
+// device memory, and its K and V rows and their scales are copied into
+// shared memory with cp.async, the next tile's copy in flight while the
+// current one is computed.  Per tile: the four warps take the rows in
+// turn, lanes over d, and reduce each row's dot products with warp
+// shuffles; one warp per query head then updates the running max and
+// normaliser and turns the scores into probabilities; last, each thread
+// owns (head, d) entries of the f32 accumulator (kept in shared memory)
+// and adds the tile's P.V.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -387,6 +411,334 @@ Args make_args(const void* q, const void* k, const void* v, const void* ks,
   return a;
 }
 
+// ---- B7: split and merge -------------------------------------------------
+
+constexpr int kSplitThreads = 128;
+constexpr int kSplitWarps = kSplitThreads / 32;
+
+struct SplitArgs {
+  const void* q;       // [B, H, D] view, unit d stride
+  const void* k;       // [NP, page, Hkv, D] contiguous
+  const void* v;
+  const int* table;    // [B, MP]
+  const int* pos;      // [B]
+  float* ws_acc;       // [B, H, n_split, D] partials
+  float* ws_m;         // [B, H, n_split]
+  float* ws_l;         // [B, H, n_split]
+  float* out;          // [B, H, D] contiguous
+  int B, H, Hkv, D, page, MP;
+  int split_pages;     // pages a chunk
+  int n_split;         // chunks a slot: ceil(MP / split_pages)
+  int n_hg;            // query-head groups a K/V head
+  long long q_sb, q_sh;
+  int vec;             // a pool row is whole 16-byte vectors
+  float scale;
+};
+
+// x[0 .. 16 / sizeof(T)) = f32(row[d0 ..]), zeros at and past D; `vec`:
+// one 16-byte load (the row is whole 16-byte vectors, so a vector that
+// starts below D ends at or below it).
+__device__ __forceinline__ void load16(float* x, const float* row, int d0,
+                                       int D, bool vec) {
+  if (vec) {
+    const float4 f = d0 < D ? *reinterpret_cast<const float4*>(row + d0)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    x[0] = f.x;
+    x[1] = f.y;
+    x[2] = f.z;
+    x[3] = f.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = d0 + u < D ? row[d0 + u] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load16(float* x, const __nv_bfloat16* row,
+                                       int d0, int D, bool vec) {
+  if (vec) {
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (d0 < D) raw = *reinterpret_cast<const uint4*>(row + d0);
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float2 f = __bfloat1622float2(p[u]);
+      x[2 * u] = f.x;
+      x[2 * u + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      x[u] = d0 + u < D ? __bfloat162float(row[d0 + u]) : 0.f;
+    }
+  }
+}
+
+// (m, l, acc) <- the merge of two partials over disjoint rows, each
+// relative to its own m; an empty partial has m = -inf and l = acc = 0.
+template <int E>
+__device__ __forceinline__ void merge_into(float& m, float& l, float (&acc)[E],
+                                           float m2, float l2,
+                                           const float (&acc2)[E]) {
+  const float mx = fmaxf(m, m2);
+  const float mu = mx == -INFINITY ? 0.f : mx;
+  const float c1 = expf(m - mu), c2 = expf(m2 - mu);
+  l = l * c1 + l2 * c2;
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = acc[e] * c1 + acc2[e] * c2;
+  m = mx;
+}
+
+// One chunk of one slot for GB query heads of one K/V head.  T: the pool
+// (and q) type.
+template <typename T, int DP, int GB>
+__global__ void __launch_bounds__(kSplitThreads)
+    paged_split_kernel(const SplitArgs a) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // values a load
+  constexpr int LPR = DP / VEC < 32 ? DP / VEC : 32;      // lanes a row
+  constexpr int E = DP / LPR;                             // values a lane
+  constexpr int NV = E / VEC;                             // loads a row
+  constexpr int RPW = 32 / LPR;                           // rows a warp
+  constexpr int STEP = kSplitWarps * RPW;                 // rows a block
+  constexpr int U = GB <= 2 ? 4 : 2;  // block steps whose loads fly together
+  __shared__ float sh_acc[kSplitWarps][GB][DP];
+  __shared__ float sh_m[kSplitWarps][GB], sh_l[kSplitWarps][GB];
+
+  const int G = a.H / a.Hkv;
+  const int b = blockIdx.x / (a.Hkv * a.n_hg);
+  const int hk = (blockIdx.x / a.n_hg) % a.Hkv;
+  const int g0 = (blockIdx.x % a.n_hg) * GB;  // the group's first head in hk
+  const int split = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = lane / LPR, li = lane % LPR;
+  const int D = a.D;
+  const bool vec = a.vec != 0;
+  const int chunk = a.split_pages * a.page;  // rows a chunk
+  // partial of head g of the group: (b, hk * G + g0 + g, split)
+  const size_t part0 =
+      (static_cast<size_t>(b) * a.H + hk * G + g0) * a.n_split + split;
+
+  const int p = a.pos[b];
+  const int live = p < 0 ? 0 : min(p, a.MP * a.page - 1) + 1;
+  const int n = min(live - split * chunk, chunk);  // live rows of the chunk
+  if (n <= 0) {
+    for (int i = tid; i < GB * D; i += kSplitThreads) {
+      const int g = i / D, d = i % D;
+      if (g0 + g >= G) continue;
+      const size_t pi = part0 + static_cast<size_t>(g) * a.n_split;
+      a.ws_acc[pi * D + d] = 0.f;
+      if (d == 0) {
+        a.ws_m[pi] = -INFINITY;
+        a.ws_l[pi] = 0.f;
+      }
+    }
+    return;
+  }
+
+  // q for the group's heads, this lane's values: load v of a row covers
+  // d = (v * LPR + li) * VEC .. + VEC - 1 (q's own strides: scalar loads)
+  float qr[GB][E];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    const bool head = g0 + g < G;
+    const T* qp = static_cast<const T*>(a.q) + b * a.q_sb +
+                  static_cast<long long>(hk * G + (head ? g0 + g : 0)) * a.q_sh;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      load16(&qr[g][v * VEC], qp, (v * LPR + li) * VEC, head ? D : 0, false);
+    }
+  }
+
+  float m[GB], l[GB], acc[GB][E];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+
+  const T* kg = static_cast<const T*>(a.k);
+  const T* vg = static_cast<const T*>(a.v);
+  const int* pages = a.table + static_cast<size_t>(b) * a.MP +
+                     static_cast<size_t>(split) * a.split_pages;
+  for (int base = 0; base < n; base += U * STEP) {
+    // every load of U block steps first, then the arithmetic
+    float kr[U][E], vr[U][E];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = base + u * STEP + warp * RPW + rg;  // row of the chunk
+      ok[u] = r < n;
+      const T* kp = kg;
+      const T* vp = vg;
+      if (ok[u]) {
+        const size_t prow =
+            (static_cast<size_t>(pages[r / a.page]) * a.page + r % a.page) *
+                a.Hkv + hk;
+        kp += prow * D;
+        vp += prow * D;
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int d0 = (v * LPR + li) * VEC;
+        load16(&kr[u][v * VEC], kp, d0, ok[u] ? D : 0, vec);
+        load16(&vr[u][v * VEC], vp, d0, ok[u] ? D : 0, vec);
+      }
+    }
+    // scores: each lane's values, then the row's lane group
+    float s[U][GB];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float x = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) x = fmaf(qr[g][e], kr[u][e], x);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) {
+          x += __shfl_xor_sync(0xffffffffu, x, o);
+        }
+        s[u][g] = ok[u] ? x * a.scale : -INFINITY;
+      }
+    }
+    // the online softmax over this lane group's U rows
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][g]);
+      const float mu = mx == -INFINITY ? 0.f : mx;
+      const float c = expf(m[g] - mu);
+      l[g] *= c;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= c;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float pu = expf(s[u][g] - mu);
+        l[g] += pu;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pu, vr[u][e], acc[g][e]);
+      }
+      m[g] = mx;
+    }
+  }
+
+  // the warp's lane groups, then the block's warps
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      float acc2[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        acc2[e] = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+      }
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l[g], o);
+      merge_into(m[g], l[g], acc[g], m2, l2, acc2);
+    }
+  }
+  if (rg == 0) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          sh_acc[warp][g][(v * LPR + li) * VEC + u] = acc[g][v * VEC + u];
+        }
+      }
+      if (li == 0) {
+        sh_m[warp][g] = m[g];
+        sh_l[warp][g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < GB * D; i += kSplitThreads) {
+    const int g = i / D, d = i % D;
+    if (g0 + g >= G) continue;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) mx = fmaxf(mx, sh_m[w][g]);
+    float ls = 0.f, as = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float c = expf(sh_m[w][g] - mx);  // mx is finite: n > 0
+      ls = fmaf(sh_l[w][g], c, ls);
+      as = fmaf(sh_acc[w][g][d], c, as);
+    }
+    const size_t pi = part0 + static_cast<size_t>(g) * a.n_split;
+    a.ws_acc[pi * D + d] = as;
+    if (d == 0) {
+      a.ws_m[pi] = mx;
+      a.ws_l[pi] = ls;
+    }
+  }
+}
+
+// One warp per (slot, query head): the partials merged in split order.
+__global__ void __launch_bounds__(128) paged_merge_kernel(const SplitArgs a) {
+  const int pair = blockIdx.x * 4 + (threadIdx.x >> 5);  // b * H + h
+  const int lane = threadIdx.x & 31;
+  if (pair >= a.B * a.H) return;
+  const int D = a.D;
+  const float* pm = a.ws_m + static_cast<size_t>(pair) * a.n_split;
+  const float* pl = a.ws_l + static_cast<size_t>(pair) * a.n_split;
+  const float* pa = a.ws_acc + static_cast<size_t>(pair) * a.n_split * D;
+  float mx = -INFINITY;
+  for (int sp = 0; sp < a.n_split; ++sp) mx = fmaxf(mx, pm[sp]);
+  float ls = 0.f, o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = 0.f;
+  for (int sp = 0; sp < a.n_split; ++sp) {
+    const float ms = pm[sp];
+    if (ms == -INFINITY) continue;  // an empty chunk
+    const float c = expf(ms - mx);
+    ls = fmaf(pl[sp], c, ls);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) o[i] = fmaf(pa[static_cast<size_t>(sp) * D + d], c, o[i]);
+    }
+  }
+  const float inv = 1.f / fmaxf(ls, 1e-20f);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int d = lane + 32 * i;
+    if (d < D) a.out[static_cast<size_t>(pair) * D + d] = o[i] * inv;
+  }
+}
+
+template <typename T, int DP, int GB>
+int launch_split(SplitArgs a, cudaStream_t stream) {
+  a.n_hg = (a.H / a.Hkv + GB - 1) / GB;
+  const dim3 grid(static_cast<unsigned>(a.B * a.Hkv * a.n_hg),
+                  static_cast<unsigned>(a.n_split));
+  paged_split_kernel<T, DP, GB><<<grid, kSplitThreads, 0, stream>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  paged_merge_kernel<<<static_cast<unsigned>((a.B * a.H + 3) / 4), 128, 0,
+                       stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DP>
+int launch_split_g(const SplitArgs& a, cudaStream_t stream) {
+  const int G = a.H / a.Hkv;
+  if (G <= 1) return launch_split<T, DP, 1>(a, stream);
+  if (G <= 2) return launch_split<T, DP, 2>(a, stream);
+  if (G <= 4) return launch_split<T, DP, 4>(a, stream);
+  return launch_split<T, DP, 8>(a, stream);
+}
+
+template <typename T>
+int launch_split_d(const SplitArgs& a, cudaStream_t stream) {
+  if (a.D <= 64) return launch_split_g<T, 64>(a, stream);
+  if (a.D <= 128) return launch_split_g<T, 128>(a, stream);
+  return launch_split_g<T, 256>(a, stream);
+}
+
 }  // namespace
 
 // Plain C entries, loaded with ctypes.  q is a device pointer to a
@@ -398,13 +750,68 @@ Args make_args(const void* q, const void* k, const void* v, const void* ks,
 // and does not synchronise.  Each returns the CUDA error of the launch
 // (0 on success).
 
-// B7: q and the pools in one type, f32 (is_bf16 = 0) or bf16 (1).
+// B7: q and the pools in one type, f32 (is_bf16 = 0) or bf16 (1); bf16
+// needs D % 8 == 0.  `workspace` is an f32 buffer of B * H * n_split *
+// (D + 2) values, n_split = ceil(MP / split_pages): the partials of
+// chunks of `split_pages` pages.  Two launches (split, merge); returns
+// the first error.
 extern "C" int mmk_paged_attention(const void* q, const void* k_pool,
                                    const void* v_pool, const void* table,
-                                   const void* pos, void* out, int is_bf16,
-                                   int B, int H, int Hkv, int D, int page,
-                                   int MP, long long q_sb, long long q_sh,
-                                   float scale, void* stream) {
+                                   const void* pos, void* out,
+                                   void* workspace, int is_bf16, int B, int H,
+                                   int Hkv, int D, int page, int MP,
+                                   int split_pages, long long q_sb,
+                                   long long q_sh, float scale,
+                                   void* stream) {
+  if (B < 0 || H < 1 || Hkv < 1 || H % Hkv != 0 || D < 1 || D > 256 ||
+      (is_bf16 && D % 8 != 0) || page < 1 || MP < 1 || split_pages < 1 ||
+      static_cast<long long>(MP) * page > 0x7fffffffLL ||
+      static_cast<long long>(B) * H > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SplitArgs a;
+  a.n_split = (MP + split_pages - 1) / split_pages;
+  if (a.n_split > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  a.q = q;
+  a.k = k_pool;
+  a.v = v_pool;
+  a.table = static_cast<const int*>(table);
+  a.pos = static_cast<const int*>(pos);
+  const size_t parts = static_cast<size_t>(B) * H * a.n_split;
+  a.ws_acc = static_cast<float*>(workspace);
+  a.ws_m = a.ws_acc + parts * D;
+  a.ws_l = a.ws_m + parts;
+  a.out = static_cast<float*>(out);
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.D = D;
+  a.page = page;
+  a.MP = MP;
+  a.split_pages = split_pages;
+  a.n_hg = 0;
+  a.q_sb = q_sb;
+  a.q_sh = q_sh;
+  a.vec = (static_cast<size_t>(D) * (is_bf16 ? 2 : 4)) % 16 == 0;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return launch_split_d<__nv_bfloat16>(a, s);
+  return launch_split_d<float>(a, s);
+}
+
+// B7's earlier tiled design, the B8 kernel at the pools' own type
+// (arguments as mmk_paged_attention's without workspace and
+// split_pages): kept only to be timed beside the split kernels on the
+// same inputs (chip_smoke.py); no wrapper calls it.  It goes when B8
+// moves to the split kernel.
+extern "C" int mmk_paged_attention_tiled(const void* q, const void* k_pool,
+                                         const void* v_pool,
+                                         const void* table, const void* pos,
+                                         void* out, int is_bf16, int B, int H,
+                                         int Hkv, int D, int page, int MP,
+                                         long long q_sb, long long q_sh,
+                                         float scale, void* stream) {
   const Args a = make_args(q, k_pool, v_pool, nullptr, nullptr, table, pos,
                            out, B, H, Hkv, D, page, MP, q_sb, q_sh, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

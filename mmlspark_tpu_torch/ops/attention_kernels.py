@@ -15,11 +15,13 @@ The sources explain the designs; in short, at the shapes the
 transformers give them (S of a few hundred to a thousand, D = 64) they
 are bound by bytes on an H100 and keep every score block on chip: the
 forward writes O and the logsumexp, the backward recomputes each score
-block from that logsumexp.  B4 and B5 take bf16 with D <= 128 (every
-main path) through kernels built for Hopper — TMA loads into a ring of
-shared-memory stages on mbarriers, a producer warpgroup, wgmma products
-— and f32, or bf16 with D > 128, through the earlier mma.sync / FMA
-kernels; the C entry picks the kernel by dtype and D alone.
+block from that logsumexp.  B4, B5 and B6 take bf16 with D <= 128
+(every main path) through kernels built for Hopper — TMA loads into a
+ring of shared-memory stages on mbarriers, a producer warpgroup, wgmma
+products — and f32, or bf16 with D > 128, through the earlier mma.sync /
+FMA kernels; the C entry picks the kernel by dtype and D alone.  B5 and
+B6 stay two passes, each gradient element summed by one thread in a
+fixed order, so gradients are reproducible bit for bit.
 
 Unlike the TPU wrappers they read q/k/v/dO in the model's (B, S, H, D)
 layout through their strides — no transposes to [B*H, S, D], no padding

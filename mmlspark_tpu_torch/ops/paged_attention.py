@@ -6,9 +6,14 @@ the Pallas TPU kernels `mmlspark_tpu/ops/paged_attention.py::_paged_pallas`
 (B7, `pallas_call` at L167) and `::_paged_pallas_int8` (B8, L250) with
 CUDA kernels written by hand for Hopper, `csrc/paged_attention.cu`, built
 for `sm_90a` and bound with ctypes (ops/_build.py).  The source explains
-the design: one block per (slot, K/V head) walks only the slot's live
-pages through the page table, which it reads in device memory; the
-softmax and both products run in f32.
+the designs: both read only the slot's live pages through the page table,
+which they read in device memory, and run the softmax and both products
+in f32.  B7 is flash-decoding: a call is two device kernels, one block
+per (slot, K/V head, chunk of `split_pages(page)` pages) writing an f32
+partial into a workspace the wrapper allocates, then a merge of the
+partials in chunk order (`paged_decode_attention_split_plain` is its
+arithmetic in PyTorch).  Its grid comes from the shapes alone: the host
+never reads `pos`.  B8 keeps one block per (slot, K/V head).
 
 Shapes: q [B, H, D]; pools [NP, page, Hkv, D] with Hkv dividing H (query
 head h reads pool head h // (H / Hkv), `jnp.repeat` semantics, so GQA
@@ -21,7 +26,8 @@ int8 pools: a multiple of 4).
 the plain PyTorch version (`*_plain`, the semantics of the JAX package's
 `_xla_paged` / `_xla_paged_int8`: gather every page of the table, mask
 positions past pos, softmax) for CPU tensors; there is no other
-selection.  `LAUNCHES` and `LAUNCHES_INT8` count the kernels' launches.
+selection.  `LAUNCHES` and `LAUNCHES_INT8` count the wrappers' calls on
+the card, one a call (a B7 call launches its two kernels).
 """
 from __future__ import annotations
 
@@ -32,9 +38,11 @@ import torch
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_int8",
            "paged_decode_attention_plain", "paged_decode_attention_int8_plain",
-           "gather_pages", "LAUNCHES", "LAUNCHES_INT8", "MAX_HEAD_DIM"]
+           "paged_decode_attention_split_plain", "split_pages", "gather_pages",
+           "LAUNCHES", "LAUNCHES_INT8", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256  # the largest D csrc/paged_attention.cu takes
+SPLIT_ROWS = 64     # B7's chunk: this many rows, in whole pages
 
 # kernel launches since import (or since a caller reset them to 0): B7, B8
 LAUNCHES = 0
@@ -124,13 +132,55 @@ def paged_decode_attention_int8_plain(q, kq_pool, ks_pool, vq_pool, vs_pool,
                         _gather(vq_pool, page_table, h).float())
 
 
+def split_pages(page: int) -> int:
+    """Pages in one of B7's chunks at this page size: SPLIT_ROWS rows
+    rounded down to whole pages, at least one page."""
+    return max(1, SPLIT_ROWS // page)
+
+
+def paged_decode_attention_split_plain(q, k_pool, v_pool, page_table, pos,
+                                       pages_per_split=None) -> torch.Tensor:
+    """B7's split-and-merge arithmetic in PyTorch: each chunk of
+    `pages_per_split` pages (default `split_pages(page)`) gives its own
+    (m, l, acc) — the max of its live scores, the sum of exp(s - m), and
+    of exp(s - m) * v — and the chunks are merged in order, an empty one
+    (no live row: m = -inf) skipped, then divided by max(l, 1e-20).  The
+    CUDA kernels compute this; the plain version above is the oracle."""
+    _check(q, (k_pool, v_pool), (), page_table, pos)
+    b, h, d = q.shape
+    page, mp = k_pool.shape[1], page_table.shape[1]
+    sp = pages_per_split or split_pages(page)
+    n_split = -(-mp // sp)
+    pad = n_split * sp * page - mp * page
+    sc = _masked_scores(q, _gather(k_pool, page_table, h), pos)
+    sc = torch.nn.functional.pad(sc, (0, pad), value=float("-inf"))
+    v = torch.nn.functional.pad(
+        _gather(v_pool, page_table, h).float(), (0, 0, 0, 0, 0, pad))
+    sc = sc.reshape(b, h, n_split, sp * page)
+    v = v.reshape(b, n_split, sp * page, h, d)
+    m = sc.amax(-1)                                      # [B, H, n_split]
+    e = torch.exp(sc - torch.where(m == float("-inf"), 0.0, m)[..., None])
+    l = e.sum(-1)
+    acc = torch.einsum("bhnc,bnchd->bhnd", e, v)
+    mx = m.amax(-1)                                      # [B, H]
+    out = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    tot = torch.zeros((b, h), dtype=torch.float32, device=q.device)
+    for i in range(n_split):
+        live = m[..., i] != float("-inf")
+        c = torch.where(live, torch.exp(m[..., i] - mx), 0.0)
+        tot = tot + torch.where(live, l[..., i] * c, 0.0)
+        out = out + torch.where(live[..., None], acc[..., i, :] * c[..., None],
+                                0.0)
+    return out / tot.clamp(min=1e-20)[..., None]
+
+
 def _kernel_lib() -> ctypes.CDLL:
     from . import _build
 
     lib = _build.library("paged_attention")
     fn = lib.mmk_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_longlong] * 2
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -177,16 +227,27 @@ def _check_kernel_input(name, q, pools, scales, page_table, pos,
                             f"{t.dtype}")
 
 
-def _launch(fn, q, pointers, page_table, pos, kind: int) -> torch.Tensor:
+def _launch(fn, q, pointers, page_table, pos, kind: int,
+            split: bool = False) -> torch.Tensor:
+    """One C entry's launch(es).  With `split` (B7) the entry also takes
+    a workspace for its chunks' partials, B * H * n_split * (D + 2) f32
+    values with n_split = ceil(MP / split_pages(page)), and the pages a
+    chunk."""
     b, h, d = q.shape
     np_, page, hkv, _ = pointers[0].shape
+    mp = page_table.shape[1]
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    ws, sp = (), ()
+    if split:
+        sp = (split_pages(page),)
+        ws = (torch.empty(b * h * -(-mp // sp[0]) * (d + 2),
+                          dtype=torch.float32, device=q.device),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), *(p.data_ptr() for p in pointers),
-                 page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), kind,
-                 b, h, hkv, d, page, page_table.shape[1], q.stride(0),
-                 q.stride(1), 1.0 / math.sqrt(d), stream)
+                 page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                 *(w.data_ptr() for w in ws), kind, b, h, hkv, d, page, mp,
+                 *sp, q.stride(0), q.stride(1), 1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
                            f"{err}")
@@ -197,10 +258,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
                            pos: torch.Tensor) -> torch.Tensor:
     """B7: q [B, H, D] over K/V pools [NP, page, Hkv, D] -> [B, H, D] f32;
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    the CUDA kernels for CUDA tensors, the plain version for CPU tensors.
 
-    The kernel takes q and pools of one type, bf16 or f32, and raises on
-    anything else; it never falls back."""
+    A call on the card is two device kernels (split, then merge) and
+    counts one in LAUNCHES.  They take q and pools of one type, bf16 or
+    f32, and raise on anything else; they never fall back."""
     global LAUNCHES
     _check(q, (k_pool, v_pool), (), page_table, pos)
     if q.device.type == "cpu":
@@ -211,7 +273,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check_kernel_input("paged_decode_attention", q, (k_pool, v_pool), (),
                         page_table, pos, (q.dtype,))
     out = _launch(_kernel_lib().mmk_paged_attention, q, (k_pool, v_pool),
-                  page_table, pos, int(q.dtype == torch.bfloat16))
+                  page_table, pos, int(q.dtype == torch.bfloat16), split=True)
     LAUNCHES += 1
     return out
 

@@ -473,6 +473,120 @@ def test_hopper_routes_read_qkv_split_out_of_one_tensor(cuda_device, d):
         assert torch.equal(a, b)
 
 
+# B6's Hopper route (bf16, D <= 128): the LM train layer, then S in
+# (1, 196, 1000, 1024) x D in (32, 64, 128), causal or not.
+B6_HOPPER_CASES = [((16, 1024, 12, 64), True)] + [
+    ((2, s, 3, d), causal) for s in (1, 196, 1000, 1024)
+    for d in (32, 64, 128) for causal in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B6_HOPPER_CASES, ids=_case_id)
+def test_hopper_dq_matches_plain_and_is_deterministic_on_card(cuda_device,
+                                                              case):
+    shape, causal = case
+    q, k, v, do, lse, delta = _bwd_inputs(cuda_device, shape, torch.bfloat16,
+                                          causal, seed=14)
+    before = A.LAUNCHES_BWD_DQ
+    dq = A.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dq2 = A.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES_BWD_DQ == before + 2
+    assert torch.equal(dq, dq2)  # one thread a dQ element, a fixed order
+    ref = A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    assert dq.dtype == torch.float32 and dq.shape == shape
+    assert (dq - ref).abs().max().item() <= BWD_TOL[torch.bfloat16]
+    rel = float((dq - ref).norm() / ref.norm().clamp(min=1.0))
+    assert rel <= BWD_RTOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_hopper_dq_reads_qkv_split_out_of_one_tensor(cuda_device, d):
+    """B6 on q/k/v as views of one (B, S, 3, H, D) tensor, as the
+    transformer hands them: what contiguous copies give, bit for bit, and
+    the plain version's dQ."""
+    qkv = torch.randn(2, 300, 3, 4, d, device=cuda_device).bfloat16()
+    g = torch.randn(2, 300, 4, d, device=cuda_device).bfloat16()
+    views = qkv.unbind(2)
+    copies = [x.contiguous() for x in views]
+    assert views[0].stride() != copies[0].stride()
+    out, lse = A.flash_attention_fwd(*copies, True)
+    delta = torch.einsum("bshd,bshd->bhs", g.float(), out).reshape(
+        -1, 300).contiguous()
+    got = [A.flash_attention_bwd_dq(*qkv_, g, lse, delta, True)
+           for qkv_ in (views, copies)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    ref = A.flash_attention_bwd_dq_plain(*copies, g, lse, delta, True)
+    assert (got[0] - ref).abs().max().item() <= BWD_TOL[torch.bfloat16]
+
+
+# B7's split and merge: PAGED_CASES (pos 0, 63, 64 and 1023; f32 pools; a
+# GQA pool; D 32 with 16-row pages) and slots whose every chunk but the
+# first is empty, against the plain version and the split arithmetic's
+# PyTorch mirror.
+SPLIT_CASES = PAGED_CASES + [
+    (3, 12, 12, 64, 64, 16, torch.bfloat16, [0, 63, 40]),
+    (3, 6, 2, 32, 16, 8, torch.float32, [5, 0, 63]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_merge_b7_matches_plain_on_card(cuda_device, case):
+    b, h, hkv, d, page, mp, dtype, positions = case
+    q, k, v, table, pos = _paged_inputs(cuda_device, b, h, hkv, d, page, mp,
+                                        dtype, positions, seed=9)
+    before = PA.LAUNCHES
+    got = PA.paged_decode_attention(q, k, v, table, pos)
+    again = PA.paged_decode_attention(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES == before + 2  # one a call: split and merge
+    assert torch.equal(got, again)  # the partials merge in a fixed order
+    for ref in (PA.paged_decode_attention_plain(q, k, v, table, pos),
+                PA.paged_decode_attention_split_plain(q, k, v, table, pos)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_split_merge_b7_never_reads_past_the_live_pages(cuda_device):
+    """The table's unused entries point at page 0; filled with NaN, it
+    must not reach the output."""
+    q, k, v, table, pos = _paged_inputs(cuda_device, 4, 12, 12, 64, 64, 16,
+                                        torch.bfloat16, [0, 70, 1023, 5],
+                                        seed=10)
+    ref = PA.paged_decode_attention_plain(q, k, v, table, pos)
+    assert (table == 0).any()
+    k[0] = float("nan")
+    v[0] = float("nan")
+    got = PA.paged_decode_attention(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_split_merge_b7_never_syncs_with_the_host(cuda_device):
+    """The grid comes from the shapes alone: a call never reads pos (or
+    anything else) back to the host."""
+    q, k, v, table, pos = _paged_inputs(cuda_device, 8, 12, 12, 64, 64, 16,
+                                        torch.bfloat16,
+                                        [0, 63, 64, 1023, 500, 129, 900, 7],
+                                        seed=11)
+    PA.paged_decode_attention(q, k, v, table, pos)  # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = PA.paged_decode_attention(q, k, v, table, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
     ((2, 77, 3, 64), torch.float32),

@@ -81,6 +81,51 @@ def test_b7_plain_matches_jax(which, positions, dtype, seed):
                                        **TOL)
 
 
+# B7's split-and-merge arithmetic (the CUDA kernels' rule), in PyTorch:
+# per-chunk (m, l, acc), merged in chunk order with empty chunks skipped.
+# At PAGE 8 the kernels' chunk is all 4 pages; 1 page a chunk leaves
+# slot 1 (pos 3) and every slot at pos 0 with three empty chunks, 3 pages
+# a chunk a ragged last one.  B7's limit on the card, 1e-4.
+SPLIT_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("pages_per_split", [None, 1, 3])
+@pytest.mark.parametrize("positions,dtype,seed", [
+    ("mid_page", "float32", 0), ("pos0", "float32", 2),
+    ("mid_page", "bfloat16", 1)])
+def test_b7_split_merge_matches_jax_pallas_and_plain(pages_per_split,
+                                                     positions, dtype, seed):
+    q, k, v = _inputs(seed, dtype=dtype)
+    args = (_torch(q, dtype), _torch(k, dtype), _torch(v, dtype),
+            torch.from_numpy(TABLE),
+            torch.tensor(POSITIONS[positions], dtype=torch.int32))
+    got = PA.paged_decode_attention_split_plain(
+        *args, pages_per_split=pages_per_split)
+    assert got.dtype == torch.float32 and got.shape == (B, H, D)
+    np.testing.assert_allclose(got.numpy(),
+                               _jax_b7("pallas", positions, dtype, seed),
+                               **SPLIT_TOL)
+    np.testing.assert_allclose(
+        got.numpy(), PA.paged_decode_attention_plain(*args).numpy(),
+        **SPLIT_TOL)
+
+
+def test_b7_split_merge_gqa_matches_jax_gather():
+    q, k, v = _inputs(3, hkv=2)
+    pos = np.array([9, 0, 30], np.int32)
+    ref = np.asarray(JP._xla_paged(*map(jnp.asarray, (q, k, v, TABLE, pos))))
+    got = PA.paged_decode_attention_split_plain(
+        *map(_torch, (q, k, v)), torch.from_numpy(TABLE),
+        torch.from_numpy(pos), pages_per_split=1)
+    np.testing.assert_allclose(got.numpy(), ref, **SPLIT_TOL)
+
+
+@pytest.mark.parametrize("page,pages", [(64, 1), (16, 4), (8, 8), (48, 1),
+                                        (128, 1), (1, 64)])
+def test_b7_chunks_are_whole_pages_of_about_64_rows(page, pages):
+    assert PA.split_pages(page) == pages
+
+
 def test_b7_plain_gqa_matches_jax_gather():
     """A GQA pool (Hkv = 2 < H = 4): query head h reads pool head
     h // 2 (`jnp.repeat`), against the JAX gather, which serves GQA."""
