@@ -12,15 +12,19 @@ exit, no result line) if anything in it fails:
    nvcc per source, all at once) into `mmlspark_tpu_torch/csrc/build/`;
    each one's register and spill report is printed, and for the TMA /
    wgmma kernels of B4, B5 and B6 (bf16, D <= 128) their registers at
-   launch, spills (the run fails on any) and shared memory a block.
+   launch, spills (the run fails on any) and shared memory a block; the
+   run also fails on a spill in B7/B8's or B1's source.
 3. kernel check: each kernel's wrapper runs on the card at the shapes the
-   main paths give it (plus ragged ones; B4 also at the batcher's
-   admission prefill buckets, 8x1024 and 1x16; B7/B8 also with f32 pools,
-   a GQA pool and D 32) and is held against its plain PyTorch version on the
-   same inputs; kernel, plain and library times
-   (CUDA events) are printed beside the least time the card could take
-   and the achieved TFLOP/s (B2, B3, B4 and B6 from calls queued behind a
-   spin: the device alone, with the back-to-back time beside it).
+   main paths give it (plus ragged ones; B1 on both its routes, with its
+   route, rows a tile and shared memory printed, also at ragged store
+   edges, at plans its rule sends to the pixel route and at two composed
+   chains; B4 also at the batcher's admission prefill buckets, 8x1024 and
+   1x16; B7/B8 also with f32 pools, a GQA pool and D 32) and is held
+   against its plain PyTorch version on the same inputs; kernel, plain
+   and library times (CUDA events) are printed beside the least time the
+   card could take and the achieved TFLOP/s (B1, B2, B3, B4 and B6 from
+   calls queued behind a spin: the device alone, with the back-to-back
+   time beside it).
 4. ResNet path: `ImageFeaturizer.transform` with the zoo's random-init
    ResNet-50 at 224x224, batch 64, on a table of 192 uint8 BGR images in
    the three sizes of the JAX package's benchmark (256x256, 224x224,
@@ -65,9 +69,9 @@ exit, no result line) if anything in it fails:
    against its plain version on that launch's own q/k/v; stream lengths,
    first tokens against the prefill's argmax, and teacher-forced
    agreement; B7/B8 against their plain versions on one tick's live
-   pools (their recorded times: B7 queued behind a spin, beside its
-   back-to-back time and B7's earlier tiled design, the B8 kernel at the
-   pools' own type, timed the same two ways on the same inputs);
+   pools (their recorded times queued behind a spin, beside the
+   back-to-back time and the times at chunks of half and twice the
+   rule's rows on the same inputs);
    tokens/s, ms per tick and the kernels' share over 3 rounds each.
    Streams are read with a deadline, so a dead batcher loop fails the run
    instead of hanging it.
@@ -203,9 +207,8 @@ EXACT_LM = dict(LM, num_layers=2)
 EXACT_SLOTS, EXACT_REQUESTS, EXACT_NEW, PREFIX_LEN = 4, 8, 32, 256
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 8, 16, 64
 STREAM_WAIT_S = 300      # no token for this long fails the run, never hangs it
-# the paged kernels' names in a profile: B7's split and merge, B8's kernel
-PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_merge_kernel",
-                      "paged_decode_kernel")
+# the paged kernels' names in a profile: B7's and B8's split and merge
+PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_merge_kernel")
 
 # training (phase 8): bench.py `_measure_transformer` (bench.py:515-549)
 # and `_measure_train` (bench.py:129-169)
@@ -305,9 +308,14 @@ def resample_bound(plan, batch) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_resample(K, shape, dtype, seed, out_hw=(IMG, IMG)):
-    """Kernel vs plain (and the library call) at one shape, resized to
-    out_hw and normalised with the ImageNet BGR mean/std."""
+def check_resample(K, shape, dtype, seed, out_hw=(IMG, IMG), plan=None,
+                   timed=True):
+    """B1 on both routes against its plain version at one shape: the
+    rule's route (`plan.tiling`) through the wrapper, and the pixel route
+    on the same inputs; resized to out_hw and normalised with the
+    ImageNet BGR mean/std, or by `plan`.  With `timed`, the kernel's time
+    queued behind a spin (the record), back to back, and the pixel
+    route's, beside the plain version, the library call and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -318,14 +326,39 @@ def check_resample(K, shape, dtype, seed, out_hw=(IMG, IMG)):
     else:
         x = torch.rand(shape, device="cuda", generator=gen) * 255.0
     c = shape[3]
-    mean, std = MEAN_BGR[:c], STD_BGR[:c]
-    plan = K.resize_plan(shape[1], shape[2], c, *out_hw, mean, std)
+    mean, std = (MEAN_BGR * 2)[:c], (STD_BGR * 2)[:c]  # an RGBA's 4th too
+    resize = plan is None
+    if resize:
+        plan = K.resize_plan(shape[1], shape[2], c, *out_hw, mean, std)
+    ty, span = plan.tiling(x.dtype, shape[0])
+    route = f"tile TY {ty} span {span}" if ty else "pixel"
+    if ty:
+        smem = plan.tile_smem(span, x.element_size(), ty)
+        c_smem = K._kernel_lib().mmk_affine_resample_smem(
+            plan.w_in, plan.c_in, x.element_size(), plan.w_out, plan.c_out,
+            ty, plan.k_h, span)
+        if c_smem != smem or smem > K.TILE_SMEM:
+            fail(f"resample {shape}: the tile route's shared memory is "
+                 f"{c_smem} B in the kernel, {smem} B by the plan's rule "
+                 f"(limit {K.TILE_SMEM})")
+        route += f" smem {smem} B"
     got = K.affine_resample(x, plan)
+    pixel = K._launch(x, plan, 0, 0)
     ref = K.affine_resample_plain(x, plan)
     torch.cuda.synchronize()
+    label = (f"affine_resample {dtype}{list(shape)} -> "
+             f"{plan.h_out}x{plan.w_out}x{plan.c_out}")
     if got.shape != ref.shape or not torch.isfinite(got).all():
-        fail(f"resample {shape}: bad output {tuple(got.shape)}")
+        fail(f"{label}: bad output {tuple(got.shape)}")
     err = float((got - ref).abs().max())
+    pixel_err = float((pixel - ref).abs().max())
+    if max(err, pixel_err) > ATOL:
+        fail(f"{label}: kernel disagrees with plain version (max abs err "
+             f"{err:.3e}, pixel route {pixel_err:.3e} > {ATOL})")
+    if not timed:
+        log(f"[kernel] {label} ({route}): max_abs_err={err:.3e}, pixel "
+            f"route {pixel_err:.3e} (limit {ATOL})")
+        return {"err": max(err, pixel_err)}
     mean_t = torch.tensor(mean, device="cuda").view(1, c, 1, 1)
     inv_t = 1.0 / torch.tensor(std, device="cuda").view(1, c, 1, 1)
 
@@ -335,21 +368,24 @@ def check_resample(K, shape, dtype, seed, out_hw=(IMG, IMG)):
         return (y - mean_t) * inv_t
 
     lib_err = float((library().permute(0, 2, 3, 1) - ref).abs().max())
-    kernel_ms = cuda_ms(lambda: K.affine_resample(x, plan), 20)
+
+    def call():
+        return K.affine_resample(x, plan)
+
+    b2b_ms = cuda_ms(call, 20)
+    kernel_ms = queued_ms(call)
+    pixel_ms = queued_ms(lambda: K._launch(x, plan, 0, 0))
     plain_ms = cuda_ms(lambda: K.affine_resample_plain(x, plan), 5)
     library_ms = cuda_ms(library, 20)
     bound_ms, bound_by = resample_bound(plan, x)
-    log(f"[kernel] affine_resample {dtype}{list(shape)} -> "
-        f"{out_hw[0]}x{out_hw[1]}: "
-        f"max_abs_err={err:.3e} kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"(library agrees: {lib_err <= ATOL}, max_abs_err={lib_err:.3e}) "
-        f"bound_ms={bound_ms:.4f} ({bound_by}) "
+    log(f"[kernel] {label} ({route}): max_abs_err={err:.3e}, pixel route "
+        f"{pixel_err:.3e} (limit {ATOL}) kernel_ms={kernel_ms:.4f} (queued "
+        f"behind a spin; back-to-back calls {b2b_ms:.4f}; the pixel route "
+        f"queued {pixel_ms:.4f}) plain_ms={plain_ms:.4f} library_ms="
+        f"{library_ms:.4f} (library agrees: {lib_err <= ATOL}, max_abs_err="
+        f"{lib_err:.3e}) bound_ms={bound_ms:.4f} ({bound_by}) "
         f"roofline_share={bound_ms / kernel_ms:.3f}")
-    if err > ATOL:
-        fail(f"resample {shape}: kernel disagrees with plain version "
-             f"(max abs err {err:.3e} > {ATOL})")
-    return {"err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+    return {"err": max(err, pixel_err), "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms if lib_err <= ATOL else None,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1093,64 +1129,63 @@ def check_paged(PA, label, q, pools, table, pos, timed: bool):
             q[:, :, None, :], k_log, v_log, attn_mask=mask)
 
     lib_err = float((library()[:, :, 0].float() - ref).abs().max())
+
     def call():
         return kernel(q, *pools, table, pos)
 
+    # the record is the device time (a call is two short kernels behind a
+    # Python wrapper), the back-to-back time beside it
     b2b_ms = cuda_ms(call, 50)
-    queued = queued_ms(call)
-    # B7's record is its device time (a call is two short kernels behind
-    # a Python wrapper); B8's stays back to back, as in its earlier records
-    kernel_ms = b2b_ms if int8 else queued
+    kernel_ms = queued_ms(call)
     plain_ms = cuda_ms(lambda: plain(q, *pools, table, pos), 5)
     library_ms = cuda_ms(library, 20)
     bound_ms, bound_by = paged_bound(q, pools, pos, int8)
     calls = "gather+dequant+SDPA, 3 calls" if int8 else "gather+SDPA, 2 calls"
     log(f"[kernel] {label} {shape}: max_abs_err={err:.3e} (limit "
-        f"{PAGED_ATOL}) kernel_ms={kernel_ms:.4f} (queued behind a spin "
-        f"{queued:.4f}, back-to-back calls {b2b_ms:.4f}) plain_ms="
-        f"{plain_ms:.4f} library_ms={library_ms:.4f} ({calls}, max_abs_err "
-        f"vs plain {lib_err:.3e}) bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"{PAGED_ATOL}) kernel_ms={kernel_ms:.4f} (queued behind a spin; "
+        f"back-to-back calls {b2b_ms:.4f}) plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} ({calls}, max_abs_err vs plain "
+        f"{lib_err:.3e}) bound_ms={bound_ms:.4f} ({bound_by}) "
         f"roofline_share={bound_ms / kernel_ms:.3f}")
-    if not int8:
-        tiled, tiled_err = paged_tiled_call(PA, q, pools, table, pos, ref)
-        log(f"[kernel] {label}: B7's earlier tiled design (one block per "
-            f"slot and K/V head, mmk_paged_attention_tiled) on the same "
-            f"inputs: "
-            f"max_abs_err={tiled_err:.3e}, queued behind a spin "
-            f"{queued_ms(tiled):.4f} ms, back-to-back calls "
-            f"{cuda_ms(tiled, 50):.4f} ms; the split kernels queued "
-            f"{queued_ms(call):.4f} ms")
+    # the chunk rule (PA.split_pages): the same inputs at half (in whole
+    # pages) and twice the rule's rows
+    sp = PA.split_pages(page, pools[0].dtype)
+    for pages in sorted({max(1, sp // 2), 2 * sp} - {sp}):
+        other, other_err = paged_chunk_call(PA, q, pools, table, pos, pages,
+                                            ref)
+        log(f"[kernel] {label}: chunks of {pages * page} rows in place of "
+            f"the rule's {sp * page}: max_abs_err={other_err:.3e}, queued "
+            f"behind a spin {queued_ms(other):.4f} ms; the rule's queued "
+            f"again {queued_ms(call):.4f} ms")
     return {"err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
 
-def paged_tiled_call(PA, q, pools, table, pos, ref):
-    """(a call of B7's earlier tiled kernel, the C entry
-    mmk_paged_attention_tiled, on these inputs; its largest error against
-    `ref`): the design the split kernels replaced, timed beside them on
-    the same inputs."""
-    import ctypes
+def paged_chunk_call(PA, q, pools, table, pos, pages, ref):
+    """(a call of the split kernels with chunks of `pages` pages through
+    the wrapper's C entry, on these inputs; its largest error against
+    `ref`): the chunk rule's alternative, timed beside it."""
     import torch
 
     lib = PA._kernel_lib()
-    fn = lib.mmk_paged_attention_tiled
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_float,
-                                                ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    int8 = len(pools) == 4
+    fn = lib.mmk_paged_attention_int8 if int8 else lib.mmk_paged_attention
     b, h, d = q.shape
     _np, page, hkv, _d = pools[0].shape
+    mp = table.shape[1]
     out = torch.empty((b, h, d), dtype=torch.float32, device="cuda")
-    args = (q.data_ptr(), pools[0].data_ptr(), pools[1].data_ptr(),
-            table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, h, hkv, d, page,
-            table.shape[1], q.stride(0), q.stride(1), 1.0 / math.sqrt(d))
+    ws = torch.empty(b * h * -(-mp // pages) * (d + 2), dtype=torch.float32,
+                     device="cuda")
+    args = (q.data_ptr(), *(t.data_ptr() for t in pools), table.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, h, hkv, d, page, mp, pages,
+            q.stride(0), q.stride(1), 1.0 / math.sqrt(d))
 
     def call():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err:
-            fail(f"mmk_paged_attention_tiled: CUDA error {err}")
+            fail(f"{fn.__name__} at {pages} pages a chunk: CUDA error {err}")
 
     call()
     torch.cuda.synchronize()
@@ -1553,7 +1588,7 @@ def serving_path(A, PA, card):
                 for st in [batcher.submit(p, SERVE_NEW) for p in prompts]:
                     st.tokens(timeout=STREAM_WAIT_S)
 
-            # B7's two kernels (split, merge) or B8's one
+            # B7's or B8's two kernels (split, merge)
             busy = profiled_kernel_ms(one_round, PAGED_KERNEL_NAMES
                                       + ("flash_fwd",))
             n = batch_fill_count() - ticks0
@@ -2273,6 +2308,16 @@ def main() -> None:
                 log(f"[build] {name}: {line.strip()}")
 
     hopper_report(_build, A)
+    # the kernels redesigned last (B8's split instantiations, B1's tile
+    # route) ship without spills, as the Hopper kernels do
+    for name in ("paged_attention", "resize_normalize"):
+        entries = ptxas_entries(_build.ptxas_report(name))
+        spilled = [e for e in entries if e[2] or e[3]]
+        log(f"[build] {name}: {len(entries)} kernels, registers "
+            f"{min(e[1] for e in entries)}..{max(e[1] for e in entries)}, "
+            f"{len(spilled)} with spills")
+        if spilled:
+            fail(f"{name} spills registers: {spilled}")
 
     # ---- 3. kernel check -----------------------------------------------
     main_shapes = [(BATCH, h, w, 3) for h, w in SIZES]
@@ -2285,7 +2330,29 @@ def main() -> None:
              check_resample(K, (DV_BATCH, 32, 32, 3), "uint8", seed=9,
                             out_hw=(32, 32)),
              check_resample(K, (64, 32, 32, 3), "uint8", seed=17,
-                            out_hw=(32, 32))]
+                            out_hw=(32, 32))] + [
+        # ragged store edges (a row of 7 x 31 x 4 and of 7 x 31 x 3
+        # values), the pixel route by the rule (a large uint8 downscale, a
+        # wide f32 input), and two composed chains: phase 10's (resize,
+        # center crop, blur, flip) and a crop with both flips
+        check_resample(K, shape, dtype, seed=40 + i, out_hw=hw, timed=False)
+        for i, (shape, dtype, hw) in enumerate([
+            ((2, 19, 23, 4), "uint8", (7, 31)),
+            ((3, 19, 23, 3), "float32", (7, 31)),
+            ((2, 1500, 2000, 3), "uint8", (IMG, IMG)),
+            ((2, 600, 1600, 3), "float32", (IMG, IMG))])] + [
+        check_resample(K, (16, h, w, 3), "uint8", seed=50 + i, timed=False,
+                       plan=K.affine_plan(K.freeze_stages(chain), h, w, 3))
+        for i, (h, w, chain) in enumerate([
+            (320, 240, [("resize", {"height": 256, "width": 256}),
+                        ("centerCrop", {"height": IMG, "width": IMG}),
+                        ("blur", {"height": 2.0, "width": 2.0}),
+                        ("flip", {})]),
+            (333, 517, [("crop", {"x": 40, "y": 21, "height": 300,
+                                  "width": 400}),
+                        ("resize", {"height": IMG, "width": IMG}),
+                        ("flip", {"flipLeftRight": True,
+                                  "flipUpDown": True})])])]
     # B4 at the ViT-B/16 chunk and the LM prefill (the main paths'
     # shapes), then a ragged causal f32 and a D = 32 shape
     attn_main = [

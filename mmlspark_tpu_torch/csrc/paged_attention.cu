@@ -27,391 +27,50 @@
 // page table, then the rows), and the design keeps as many rows in
 // flight at once as it can.
 //
-// B7: flash-decoding, two kernels a call (split, then merge).
-//   * paged_split_kernel: a grid of (slot, K/V head[, group of up to 8 of
-//     its query heads]) x chunk, a chunk being `split_pages` whole pages
-//     (64 rows at the serving page size; the caller fixes it from the
-//     page size alone).  The grid comes from the static shapes (MP and
-//     the page size), never from pos, so the host never reads pos.  A
-//     block whose chunk starts past pos[b] writes an empty partial (m =
-//     -inf, l = 0, acc = 0) and exits.  Otherwise each row of the chunk
-//     goes to a group of lanes of one warp (a 64-wide bf16 row is 128
-//     bytes: 8 lanes of one 16-byte load each, 4 rows a warp
-//     instruction); every lane issues its loads of several rows' K and V
-//     before it computes, reading each row's physical page from the page
-//     table in device memory.  Each lane group keeps its own running
-//     (m, l, acc) in registers for the block's query heads; the groups of
-//     a warp merge through shuffles, the 4 warps once through shared
-//     memory, and the block writes its f32 partial: acc [B, H, n_split,
-//     D], m and l [B, H, n_split] (unnormalised, relative to m).
-//   * paged_merge_kernel: one warp per (slot, query head) combines the
-//     partials in split order (a fixed order: deterministic), skips the
-//     empty ones (no exp(-inf - (-inf))), and divides by max(l, 1e-20).
-//   The split kernel is templated on the pool type; an int8 instantiation
-//   (B8) adds the per-row scales to its loads.
-//
-// B8 (int8 pools), the first design, kept until it moves to the split
-// kernel: one block of 128 threads per (slot, K/V head), serving that
-// head's G query heads, walks the slot's live rows in tiles of up to 64
-// rows that never cross a page (the host picks the tile so that shared
-// memory fits); each tile's physical page is read from the page table in
-// device memory, and its K and V rows and their scales are copied into
-// shared memory with cp.async, the next tile's copy in flight while the
-// current one is computed.  Per tile: the four warps take the rows in
-// turn, lanes over d, and reduce each row's dot products with warp
-// shuffles; one warp per query head then updates the running max and
-// normaliser and turns the scores into probabilities; last, each thread
-// owns (head, d) entries of the f32 accumulator (kept in shared memory)
-// and adds the tile's P.V.
+// B7 and B8 are one design, flash-decoding: two kernels a call (split,
+// then merge).
+//   * paged_split_kernel<TQ, T, DP, GB>: q of type TQ (f32 or bf16) over
+//     pools of type T (B7: T = TQ; B8: int8 with per-row f32 scales).  A
+//     grid of (slot, K/V head[, group of up to 8 of its query heads]) x
+//     chunk, a chunk being `split_pages` whole pages (the caller fixes it
+//     from the page size and the pool type: 64 rows, see
+//     ops/paged_attention.py::split_pages).  The grid comes from the
+//     static shapes (MP and the page size), never from pos, so the host
+//     never reads pos.  A block whose chunk starts past pos[b] writes an
+//     empty partial (m = -inf, l = 0, acc = 0) and exits.  Otherwise each
+//     row of the chunk goes to a group of lanes of one warp, each lane
+//     one 16-byte load of K and one of V a row (a 64-wide bf16 row is 8
+//     lanes, 4 rows a warp instruction; a 64-wide int8 row 4 lanes, 8
+//     rows); every lane issues the loads of several rows (and, for B8,
+//     their two scales) before it computes, keeping them as raw words
+//     until the arithmetic needs them, and reads each row's physical page
+//     from the page table in device memory.  B8 applies the scales where
+//     the TPU kernel does: the K scale after the lane group's reduction
+//     of q.kq, the V scale on p before the V update, never on the
+//     normaliser l.  Each lane group keeps its own running (m, l, acc) in
+//     registers for the block's query heads; the groups of a warp merge
+//     through shuffles, the 4 warps once through shared memory, and the
+//     block writes its f32 partial: acc [B, H, n_split, D], m and l [B,
+//     H, n_split] (unnormalised, relative to m).
+//   * paged_merge_kernel (B7 and B8): one warp per (slot, query head)
+//     combines the partials in split order (a fixed order:
+//     deterministic), skips the empty ones (no exp(-inf - (-inf))), and
+//     divides by max(l, 1e-20).
+//   Registers: with 16-byte int8 loads a lane holds 16 values of a row,
+//   so q and the accumulators of GB query heads take 32 * GB registers;
+//   an int8 block of more than 2 query heads (GQA) loads 8 bytes a lane
+//   instead (8 values, as bf16), so that nothing spills.  A row that is
+//   not whole load vectors (D * sizeof(T) not a multiple of the load)
+//   is read in 4-byte words.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxTile = 64;
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr size_t kMaxSmem = 232448;  // what one block may opt in to on sm_90
-
-struct Args {
-  const void* q;      // [B, H, D] view, unit d stride
-  const void* k;      // [NP, page, Hkv, D] contiguous
-  const void* v;
-  const float* ks;    // [NP, page, Hkv] (B8), else null
-  const float* vs;
-  const int* table;   // [B, MP]
-  const int* pos;     // [B]
-  float* out;         // [B, H, D] contiguous
-  int B, H, Hkv, D, page, MP;
-  long long q_sb, q_sh;
-  int tile;           // rows per tile, <= min(kMaxTile, page)
-  int chunk;          // bytes per cp.async: 16, 8 or 4
-  float scale;
-};
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~static_cast<size_t>(15);
-}
-
-// Byte offsets of the dynamic shared memory: q and the accumulator
-// [G, D] f32, scores [G, tile] f32, the softmax statistics [G] f32 x3,
-// then two tile buffers (K, V and, for B8, their scales).
-struct Layout {
-  size_t q, acc, sc, m, l, corr, buf, kv_bytes, s_bytes, buf_stride, total;
-};
-
-__host__ __device__ inline Layout make_layout(int G, int D, int tile,
-                                              int item, bool int8) {
-  Layout L;
-  size_t o = 0;
-  L.q = o;
-  o = align16(o + static_cast<size_t>(G) * D * 4);
-  L.acc = o;
-  o = align16(o + static_cast<size_t>(G) * D * 4);
-  L.sc = o;
-  o = align16(o + static_cast<size_t>(G) * tile * 4);
-  L.m = o;
-  o = align16(o + static_cast<size_t>(G) * 4);
-  L.l = o;
-  o = align16(o + static_cast<size_t>(G) * 4);
-  L.corr = o;
-  o = align16(o + static_cast<size_t>(G) * 4);
-  L.kv_bytes = align16(static_cast<size_t>(tile) * D * item);
-  L.s_bytes = int8 ? align16(static_cast<size_t>(tile) * 4) : 0;
-  L.buf = o;
-  L.buf_stride = 2 * L.kv_bytes + 2 * L.s_bytes;
-  L.total = o + 2 * L.buf_stride;
-  return L;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(gmem), "n"(N));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void copy_chunk(int chunk, void* dst,
-                                           const void* src) {
-  if (chunk == 16) {
-    cp_async<16>(dst, src);
-  } else if (chunk == 8) {
-    cp_async<8>(dst, src);
-  } else {
-    cp_async<4>(dst, src);
-  }
-}
-
-// Start the copy of `n` rows of one K/V head, from pool row `row0` on,
-// into tile buffer `buf` (K, then V, then the B8 scales).
-template <typename T, bool kInt8>
-__device__ void issue_tile(const Args& a, const Layout& L, unsigned char* buf,
-                           size_t row0, int hk, int n) {
-  const size_t row_bytes = static_cast<size_t>(a.D) * sizeof(T);
-  const int per_row = static_cast<int>(row_bytes / a.chunk);
-  const char* kg = static_cast<const char*>(a.k);
-  const char* vg = static_cast<const char*>(a.v);
-  for (int c = threadIdx.x; c < n * per_row; c += kThreads) {
-    const int t = c / per_row;
-    const size_t off = static_cast<size_t>(c % per_row) * a.chunk;
-    const size_t src = ((row0 + t) * a.Hkv + hk) * row_bytes + off;
-    const size_t dst = t * row_bytes + off;
-    copy_chunk(a.chunk, buf + dst, kg + src);
-    copy_chunk(a.chunk, buf + L.kv_bytes + dst, vg + src);
-  }
-  if (kInt8) {
-    float* ks_s = reinterpret_cast<float*>(buf + 2 * L.kv_bytes);
-    float* vs_s = reinterpret_cast<float*>(buf + 2 * L.kv_bytes + L.s_bytes);
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const size_t i = (row0 + t) * a.Hkv + hk;
-      cp_async<4>(ks_s + t, a.ks + i);
-      cp_async<4>(vs_s + t, a.vs + i);
-    }
-  }
-}
-
-template <typename TQ, typename T, bool kInt8>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x / a.Hkv;
-  const int hk = blockIdx.x % a.Hkv;
-  const int G = a.H / a.Hkv;
-  const int D = a.D;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const Layout L = make_layout(G, D, a.tile, sizeof(T), kInt8);
-  float* q_s = reinterpret_cast<float*>(smem + L.q);
-  float* acc_s = reinterpret_cast<float*>(smem + L.acc);
-  float* sc_s = reinterpret_cast<float*>(smem + L.sc);
-  float* m_s = reinterpret_cast<float*>(smem + L.m);
-  float* l_s = reinterpret_cast<float*>(smem + L.l);
-  float* corr_s = reinterpret_cast<float*>(smem + L.corr);
-
-  const int p = a.pos[b];
-  const int npages = p < 0 ? 0 : min(p / a.page + 1, a.MP);
-  // rows of page j that are live: all of a page below the last, and up
-  // to pos[b] in the last
-  auto live_rows = [&](int j) { return min(a.page, p - j * a.page + 1); };
-  auto pool_row = [&](int j, int r) {
-    return static_cast<size_t>(a.table[static_cast<size_t>(b) * a.MP + j]) *
-               a.page + r;
-  };
-
-  // the tile (page j, first row r0) in flight first
-  int j = 0, r0 = 0;
-  if (npages > 0) {
-    issue_tile<T, kInt8>(a, L, smem + L.buf, pool_row(0, 0), hk,
-                         min(a.tile, live_rows(0)));
-  }
-  cp_async_commit();
-
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D;
-    const TQ* qp = static_cast<const TQ*>(a.q) + b * a.q_sb +
-                   static_cast<long long>(hk * G + g) * a.q_sh + i % D;
-    q_s[i] = to_f32(*qp);
-    acc_s[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
-  __syncthreads();
-
-  int cur = 0;
-  while (j < npages) {
-    const int n = min(a.tile, live_rows(j) - r0);
-    int jn = j, rn = r0 + a.tile;
-    if (rn >= live_rows(j)) {
-      jn = j + 1;
-      rn = 0;
-    }
-    if (jn < npages) {
-      issue_tile<T, kInt8>(a, L, smem + L.buf + (cur ^ 1) * L.buf_stride,
-                           pool_row(jn, rn), hk,
-                           min(a.tile, live_rows(jn) - rn));
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-
-    unsigned char* buf = smem + L.buf + cur * L.buf_stride;
-    const T* k_t = reinterpret_cast<const T*>(buf);
-    const T* v_t = reinterpret_cast<const T*>(buf + L.kv_bytes);
-    const float* ks_t = reinterpret_cast<const float*>(buf + 2 * L.kv_bytes);
-    const float* vs_t =
-        reinterpret_cast<const float*>(buf + 2 * L.kv_bytes + L.s_bytes);
-
-    // scores: warps over the tile's rows, lanes over d
-    for (int r = warp; r < n; r += kWarps) {
-      for (int g = 0; g < G; ++g) {
-        float s = 0.f;
-        for (int d = lane; d < D; d += 32) {
-          s = fmaf(q_s[g * D + d], to_f32(k_t[r * D + d]), s);
-        }
-        s = warp_sum(s);
-        if (lane == 0) {
-          s *= a.scale;
-          if (kInt8) s *= ks_t[r];
-          sc_s[g * a.tile + r] = s;
-        }
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query head, lanes over rows
-    for (int g = warp; g < G; g += kWarps) {
-      float* sg = sc_s + g * a.tile;
-      float mx = -INFINITY;
-      for (int r = lane; r < n; r += 32) mx = fmaxf(mx, sg[r]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float corr = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-      float sum = 0.f;
-      for (int r = lane; r < n; r += 32) {
-        const float e = expf(sg[r] - m_new);
-        sum += e;
-        sg[r] = kInt8 ? e * vs_t[r] : e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        m_s[g] = m_new;
-        l_s[g] = l_s[g] * corr + sum;
-        corr_s[g] = corr;
-      }
-    }
-    __syncthreads();
-
-    // P.V into the accumulator: each thread owns (head, d) entries
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D;
-      const int d = i % D;
-      const float* pg = sc_s + g * a.tile;
-      float o = acc_s[i] * corr_s[g];
-      for (int r = 0; r < n; ++r) o = fmaf(pg[r], to_f32(v_t[r * D + d]), o);
-      acc_s[i] = o;
-    }
-    __syncthreads();
-    j = jn;
-    r0 = rn;
-    cur ^= 1;
-  }
-
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D;
-    a.out[(static_cast<size_t>(b) * a.H + hk * G + g) * D + i % D] =
-        acc_s[i] / fmaxf(l_s[g], 1e-20f);
-  }
-}
-
-// Checks the shapes, picks the tile and the copy width, and launches.
-template <typename TQ, typename T, bool kInt8>
-int launch(Args a, cudaStream_t stream) {
-  if (a.B < 0 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv != 0 || a.D < 1 ||
-      a.D > 256 || a.page < 1 || a.MP < 1 ||
-      static_cast<long long>(a.B) * a.Hkv > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t row_bytes = static_cast<size_t>(a.D) * sizeof(T);
-  a.chunk = row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8
-          : row_bytes % 4 == 0 ? 4 : 0;
-  if (a.chunk == 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (a.B == 0) return 0;
-  const int G = a.H / a.Hkv;
-  // the largest tile (a power of two, at most 64 rows and one page) whose
-  // shared memory fits the default 48 KB; else the largest that fits the
-  // opt-in maximum
-  const size_t limits[2] = {kDefaultSmem, kMaxSmem};
-  int tile = 0;
-  size_t smem = 0;
-  for (int li = 0; li < 2 && tile == 0; ++li) {
-    for (int t = kMaxTile; t >= 1 && tile == 0; t >>= 1) {
-      if (t > a.page && t > 1) continue;
-      const size_t need =
-          make_layout(G, a.D, t, static_cast<int>(sizeof(T)), kInt8).total;
-      if (need <= limits[li]) {
-        tile = t;
-        smem = need;
-      }
-    }
-  }
-  if (tile == 0) return static_cast<int>(cudaErrorInvalidValue);
-  a.tile = tile;
-  auto kernel = paged_decode_kernel<TQ, T, kInt8>;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<static_cast<unsigned>(a.B * a.Hkv), kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-Args make_args(const void* q, const void* k, const void* v, const void* ks,
-               const void* vs, const void* table, const void* pos, void* out,
-               int B, int H, int Hkv, int D, int page, int MP, long long q_sb,
-               long long q_sh, float scale) {
-  Args a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.ks = static_cast<const float*>(ks);
-  a.vs = static_cast<const float*>(vs);
-  a.table = static_cast<const int*>(table);
-  a.pos = static_cast<const int*>(pos);
-  a.out = static_cast<float*>(out);
-  a.B = B;
-  a.H = H;
-  a.Hkv = Hkv;
-  a.D = D;
-  a.page = page;
-  a.MP = MP;
-  a.q_sb = q_sb;
-  a.q_sh = q_sh;
-  a.tile = 0;
-  a.chunk = 0;
-  a.scale = scale;
-  return a;
-}
-
-// ---- B7: split and merge -------------------------------------------------
 
 constexpr int kSplitThreads = 128;
 constexpr int kSplitWarps = kSplitThreads / 32;
@@ -420,6 +79,8 @@ struct SplitArgs {
   const void* q;       // [B, H, D] view, unit d stride
   const void* k;       // [NP, page, Hkv, D] contiguous
   const void* v;
+  const float* ks;     // [NP, page, Hkv] (B8), else null
+  const float* vs;
   const int* table;    // [B, MP]
   const int* pos;      // [B]
   float* ws_acc;       // [B, H, n_split, D] partials
@@ -431,46 +92,77 @@ struct SplitArgs {
   int n_split;         // chunks a slot: ceil(MP / split_pages)
   int n_hg;            // query-head groups a K/V head
   long long q_sb, q_sh;
-  int vec;             // a pool row is whole 16-byte vectors
   float scale;
 };
 
-// x[0 .. 16 / sizeof(T)) = f32(row[d0 ..]), zeros at and past D; `vec`:
-// one 16-byte load (the row is whole 16-byte vectors, so a vector that
-// starts below D ends at or below it).
-__device__ __forceinline__ void load16(float* x, const float* row, int d0,
-                                       int D, bool vec) {
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// w[0 .. LB / 4) = the LB bytes of `row` from element d0 on, as raw
+// words; zeros at and past D.  `vec`: one LB-byte load (the row is whole
+// LB-byte vectors, so a vector that starts below D ends at or below it);
+// else 4-byte words (a word holds whole values: D is a multiple of
+// 4 / sizeof(T) wherever this path runs).
+template <typename T, int LB>
+__device__ __forceinline__ void load_raw(uint32_t (&w)[LB / 4], const T* row,
+                                         int d0, int D, bool vec) {
+  constexpr int VPW = 4 / static_cast<int>(sizeof(T));  // values a word
   if (vec) {
-    const float4 f = d0 < D ? *reinterpret_cast<const float4*>(row + d0)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-    x[0] = f.x;
-    x[1] = f.y;
-    x[2] = f.z;
-    x[3] = f.w;
+    if (d0 < D) {
+      if constexpr (LB == 16) {
+        const uint4 x = *reinterpret_cast<const uint4*>(row + d0);
+        w[0] = x.x;
+        w[1] = x.y;
+        w[2] = x.z;
+        w[3] = x.w;
+      } else {
+        const uint2 x = *reinterpret_cast<const uint2*>(row + d0);
+        w[0] = x.x;
+        w[1] = x.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < LB / 4; ++i) w[i] = 0u;
+    }
   } else {
 #pragma unroll
-    for (int u = 0; u < 4; ++u) x[u] = d0 + u < D ? row[d0 + u] : 0.f;
+    for (int i = 0; i < LB / 4; ++i) {
+      w[i] = d0 + i * VPW < D
+                 ? *reinterpret_cast<const uint32_t*>(row + d0 + i * VPW)
+                 : 0u;
+    }
   }
 }
 
-__device__ __forceinline__ void load16(float* x, const __nv_bfloat16* row,
-                                       int d0, int D, bool vec) {
-  if (vec) {
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (d0 < D) raw = *reinterpret_cast<const uint4*>(row + d0);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float2 f = __bfloat1622float2(p[u]);
-      x[2 * u] = f.x;
-      x[2 * u + 1] = f.y;
-    }
+// x[0 .. 4 / sizeof(T)) = f32 of the values in word w, exactly.
+template <typename T>
+__device__ __forceinline__ void unpack_word(float* x, uint32_t w) {
+  if constexpr (std::is_same<T, float>::value) {
+    x[0] = __uint_as_float(w);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+    x[0] = f.x;
+    x[1] = f.y;
   } else {
+    // int8: the biased byte u = b + 128 under the exponent of 2^23 is
+    // 2^23 + u exactly; less 2^23 + 128 it is b (full-rate ALU ops in
+    // place of the quarter-rate integer-to-float conversion)
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      x[u] = d0 + u < D ? __bfloat162float(row[d0 + u]) : 0.f;
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t u = ((w >> (8 * j)) & 0xffu) ^ 0x80u;
+      x[j] = __uint_as_float(0x4b000000u | u) - 8388736.f;
     }
   }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void unpack(float* x, const uint32_t (&w)[W]) {
+  constexpr int VPW = 4 / static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int i = 0; i < W; ++i) unpack_word<T>(x + i * VPW, w[i]);
 }
 
 // (m, l, acc) <- the merge of two partials over disjoint rows, each
@@ -488,12 +180,15 @@ __device__ __forceinline__ void merge_into(float& m, float& l, float (&acc)[E],
   m = mx;
 }
 
-// One chunk of one slot for GB query heads of one K/V head.  T: the pool
-// (and q) type.
-template <typename T, int DP, int GB>
+// One chunk of one slot for GB query heads of one K/V head.  TQ: q's
+// type; T: the pools' (B8: int8, with the scales).
+template <typename TQ, typename T, int DP, int GB>
 __global__ void __launch_bounds__(kSplitThreads)
     paged_split_kernel(const SplitArgs a) {
-  constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // values a load
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  constexpr int LB = kInt8 && GB > 2 ? 8 : 16;            // bytes a load
+  constexpr int W = LB / 4;                               // words a load
+  constexpr int VEC = LB / static_cast<int>(sizeof(T));   // values a load
   constexpr int LPR = DP / VEC < 32 ? DP / VEC : 32;      // lanes a row
   constexpr int E = DP / LPR;                             // values a lane
   constexpr int NV = E / VEC;                             // loads a row
@@ -511,7 +206,7 @@ __global__ void __launch_bounds__(kSplitThreads)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = lane / LPR, li = lane % LPR;
   const int D = a.D;
-  const bool vec = a.vec != 0;
+  const bool vec = D * static_cast<int>(sizeof(T)) % LB == 0;
   const int chunk = a.split_pages * a.page;  // rows a chunk
   // partial of head g of the group: (b, hk * G + g0 + g, split)
   const size_t part0 =
@@ -540,11 +235,15 @@ __global__ void __launch_bounds__(kSplitThreads)
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
     const bool head = g0 + g < G;
-    const T* qp = static_cast<const T*>(a.q) + b * a.q_sb +
-                  static_cast<long long>(hk * G + (head ? g0 + g : 0)) * a.q_sh;
+    const TQ* qp = static_cast<const TQ*>(a.q) + b * a.q_sb +
+                   static_cast<long long>(hk * G + (head ? g0 + g : 0)) * a.q_sh;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
-      load16(&qr[g][v * VEC], qp, (v * LPR + li) * VEC, head ? D : 0, false);
+      const int d0 = (v * LPR + li) * VEC;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        qr[g][v * VEC + i] = head && d0 + i < D ? to_f32(qp[d0 + i]) : 0.f;
+      }
     }
   }
 
@@ -562,64 +261,81 @@ __global__ void __launch_bounds__(kSplitThreads)
   const int* pages = a.table + static_cast<size_t>(b) * a.MP +
                      static_cast<size_t>(split) * a.split_pages;
   for (int base = 0; base < n; base += U * STEP) {
-    // every load of U block steps first, then the arithmetic
-    float kr[U][E], vr[U][E];
+    // every load of U block steps first (raw words), then the arithmetic
+    uint32_t kw[U][NV][W], vw[U][NV][W];
+    float ksr[U], vsr[U];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int r = base + u * STEP + warp * RPW + rg;  // row of the chunk
       ok[u] = r < n;
-      const T* kp = kg;
-      const T* vp = vg;
+      size_t prow = 0;  // the row's (page row, hk) index
       if (ok[u]) {
-        const size_t prow =
-            (static_cast<size_t>(pages[r / a.page]) * a.page + r % a.page) *
-                a.Hkv + hk;
-        kp += prow * D;
-        vp += prow * D;
+        prow = (static_cast<size_t>(pages[r / a.page]) * a.page + r % a.page) *
+                   a.Hkv + hk;
       }
+      const T* kp = kg + prow * D;
+      const T* vp = vg + prow * D;
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const int d0 = (v * LPR + li) * VEC;
-        load16(&kr[u][v * VEC], kp, d0, ok[u] ? D : 0, vec);
-        load16(&vr[u][v * VEC], vp, d0, ok[u] ? D : 0, vec);
+        load_raw<T, LB>(kw[u][v], kp, d0, ok[u] ? D : 0, vec);
+        load_raw<T, LB>(vw[u][v], vp, d0, ok[u] ? D : 0, vec);
+      }
+      if constexpr (kInt8) {
+        ksr[u] = ok[u] ? a.ks[prow] : 0.f;
+        vsr[u] = ok[u] ? a.vs[prow] : 0.f;
       }
     }
-    // scores: each lane's values, then the row's lane group
+    // scores: each lane's values, then the row's lane group (B8: then
+    // the row's K scale)
     float s[U][GB];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
+      float kf[E];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) unpack<T>(&kf[v * VEC], kw[u][v]);
 #pragma unroll
       for (int g = 0; g < GB; ++g) {
         float x = 0.f;
 #pragma unroll
-        for (int e = 0; e < E; ++e) x = fmaf(qr[g][e], kr[u][e], x);
+        for (int e = 0; e < E; ++e) x = fmaf(qr[g][e], kf[e], x);
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1) {
           x += __shfl_xor_sync(0xffffffffu, x, o);
         }
+        if constexpr (kInt8) x *= ksr[u];
         s[u][g] = ok[u] ? x * a.scale : -INFINITY;
       }
     }
-    // the online softmax over this lane group's U rows
+    // the online softmax over this lane group's U rows: rescale, then
+    // each row's p (B8: times its V scale) into the V sum
+    float mu[GB];
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
       float mx = m[g];
 #pragma unroll
       for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][g]);
-      const float mu = mx == -INFINITY ? 0.f : mx;
-      const float c = expf(m[g] - mu);
+      mu[g] = mx == -INFINITY ? 0.f : mx;
+      const float c = expf(m[g] - mu[g]);
       l[g] *= c;
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[g][e] *= c;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float pu = expf(s[u][g] - mu);
-        l[g] += pu;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pu, vr[u][e], acc[g][e]);
-      }
       m[g] = mx;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[E];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) unpack<T>(&vf[v * VEC], vw[u][v]);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float pu = expf(s[u][g] - mu[g]);
+        l[g] += pu;
+        if constexpr (kInt8) pu *= vsr[u];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pu, vf[e], acc[g][e]);
+      }
     }
   }
 
@@ -710,12 +426,12 @@ __global__ void __launch_bounds__(128) paged_merge_kernel(const SplitArgs a) {
   }
 }
 
-template <typename T, int DP, int GB>
+template <typename TQ, typename T, int DP, int GB>
 int launch_split(SplitArgs a, cudaStream_t stream) {
   a.n_hg = (a.H / a.Hkv + GB - 1) / GB;
   const dim3 grid(static_cast<unsigned>(a.B * a.Hkv * a.n_hg),
                   static_cast<unsigned>(a.n_split));
-  paged_split_kernel<T, DP, GB><<<grid, kSplitThreads, 0, stream>>>(a);
+  paged_split_kernel<TQ, T, DP, GB><<<grid, kSplitThreads, 0, stream>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   paged_merge_kernel<<<static_cast<unsigned>((a.B * a.H + 3) / 4), 128, 0,
@@ -723,59 +439,42 @@ int launch_split(SplitArgs a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DP>
+template <typename TQ, typename T, int DP>
 int launch_split_g(const SplitArgs& a, cudaStream_t stream) {
   const int G = a.H / a.Hkv;
-  if (G <= 1) return launch_split<T, DP, 1>(a, stream);
-  if (G <= 2) return launch_split<T, DP, 2>(a, stream);
-  if (G <= 4) return launch_split<T, DP, 4>(a, stream);
-  return launch_split<T, DP, 8>(a, stream);
+  if (G <= 1) return launch_split<TQ, T, DP, 1>(a, stream);
+  if (G <= 2) return launch_split<TQ, T, DP, 2>(a, stream);
+  if (G <= 4) return launch_split<TQ, T, DP, 4>(a, stream);
+  return launch_split<TQ, T, DP, 8>(a, stream);
 }
 
-template <typename T>
+template <typename TQ, typename T>
 int launch_split_d(const SplitArgs& a, cudaStream_t stream) {
-  if (a.D <= 64) return launch_split_g<T, 64>(a, stream);
-  if (a.D <= 128) return launch_split_g<T, 128>(a, stream);
-  return launch_split_g<T, 256>(a, stream);
+  if (a.D <= 64) return launch_split_g<TQ, T, 64>(a, stream);
+  if (a.D <= 128) return launch_split_g<TQ, T, 128>(a, stream);
+  return launch_split_g<TQ, T, 256>(a, stream);
 }
 
-}  // namespace
-
-// Plain C entries, loaded with ctypes.  q is a device pointer to a
-// [B, H, D] view with unit d stride and element strides q_sb, q_sh; the
-// pools are contiguous [NP, page, Hkv, D] (16-byte-aligned bases), the
-// B8 scales contiguous f32 [NP, page, Hkv]; table is int32 [B, MP] with
-// every entry a page of the pool, pos int32 [B]; out is a contiguous f32
-// [B, H, D] buffer.  `scale` is 1/sqrt(D).  The launch goes on `stream`
-// and does not synchronise.  Each returns the CUDA error of the launch
-// (0 on success).
-
-// B7: q and the pools in one type, f32 (is_bf16 = 0) or bf16 (1); bf16
-// needs D % 8 == 0.  `workspace` is an f32 buffer of B * H * n_split *
-// (D + 2) values, n_split = ceil(MP / split_pages): the partials of
-// chunks of `split_pages` pages.  Two launches (split, merge); returns
-// the first error.
-extern "C" int mmk_paged_attention(const void* q, const void* k_pool,
-                                   const void* v_pool, const void* table,
-                                   const void* pos, void* out,
-                                   void* workspace, int is_bf16, int B, int H,
-                                   int Hkv, int D, int page, int MP,
-                                   int split_pages, long long q_sb,
-                                   long long q_sh, float scale,
-                                   void* stream) {
+// The checks and the arguments both C entries share; returns a CUDA
+// error, or 0 with `a` filled (and then nothing to launch if B == 0).
+int split_args(SplitArgs& a, const void* q, const void* k, const void* v,
+               const void* ks, const void* vs, const void* table,
+               const void* pos, void* out, void* workspace, int B, int H,
+               int Hkv, int D, int page, int MP, int split_pages,
+               long long q_sb, long long q_sh, float scale) {
   if (B < 0 || H < 1 || Hkv < 1 || H % Hkv != 0 || D < 1 || D > 256 ||
-      (is_bf16 && D % 8 != 0) || page < 1 || MP < 1 || split_pages < 1 ||
+      page < 1 || MP < 1 || split_pages < 1 ||
       static_cast<long long>(MP) * page > 0x7fffffffLL ||
       static_cast<long long>(B) * H > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  SplitArgs a;
   a.n_split = (MP + split_pages - 1) / split_pages;
   if (a.n_split > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
   a.q = q;
-  a.k = k_pool;
-  a.v = v_pool;
+  a.k = k;
+  a.v = v;
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
   a.table = static_cast<const int*>(table);
   a.pos = static_cast<const int*>(pos);
   const size_t parts = static_cast<size_t>(B) * H * a.n_split;
@@ -793,42 +492,59 @@ extern "C" int mmk_paged_attention(const void* q, const void* k_pool,
   a.n_hg = 0;
   a.q_sb = q_sb;
   a.q_sh = q_sh;
-  a.vec = (static_cast<size_t>(D) * (is_bf16 ? 2 : 4)) % 16 == 0;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_split_d<__nv_bfloat16>(a, s);
-  return launch_split_d<float>(a, s);
+  return 0;
 }
 
-// B7's earlier tiled design, the B8 kernel at the pools' own type
-// (arguments as mmk_paged_attention's without workspace and
-// split_pages): kept only to be timed beside the split kernels on the
-// same inputs (chip_smoke.py); no wrapper calls it.  It goes when B8
-// moves to the split kernel.
-extern "C" int mmk_paged_attention_tiled(const void* q, const void* k_pool,
-                                         const void* v_pool,
-                                         const void* table, const void* pos,
-                                         void* out, int is_bf16, int B, int H,
-                                         int Hkv, int D, int page, int MP,
-                                         long long q_sb, long long q_sh,
-                                         float scale, void* stream) {
-  const Args a = make_args(q, k_pool, v_pool, nullptr, nullptr, table, pos,
-                           out, B, H, Hkv, D, page, MP, q_sb, q_sh, scale);
+}  // namespace
+
+// Plain C entries, loaded with ctypes.  q is a device pointer to a
+// [B, H, D] view with unit d stride and element strides q_sb, q_sh; the
+// pools are contiguous [NP, page, Hkv, D] (16-byte-aligned bases), the
+// B8 scales contiguous f32 [NP, page, Hkv]; table is int32 [B, MP] with
+// every entry a page of the pool, pos int32 [B]; out is a contiguous f32
+// [B, H, D] buffer.  `workspace` is an f32 buffer of B * H * n_split *
+// (D + 2) values, n_split = ceil(MP / split_pages): the partials of
+// chunks of `split_pages` pages.  `scale` is 1/sqrt(D).  Two launches
+// (split, merge) on `stream`, no synchronisation; each entry returns the
+// first CUDA error (0 on success).
+
+// B7: q and the pools in one type, f32 (is_bf16 = 0) or bf16 (1); bf16
+// needs D % 8 == 0.
+extern "C" int mmk_paged_attention(const void* q, const void* k_pool,
+                                   const void* v_pool, const void* table,
+                                   const void* pos, void* out,
+                                   void* workspace, int is_bf16, int B, int H,
+                                   int Hkv, int D, int page, int MP,
+                                   int split_pages, long long q_sb,
+                                   long long q_sh, float scale,
+                                   void* stream) {
+  if (is_bf16 && D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  SplitArgs a;
+  const int err = split_args(a, q, k_pool, v_pool, nullptr, nullptr, table,
+                             pos, out, workspace, B, H, Hkv, D, page, MP,
+                             split_pages, q_sb, q_sh, scale);
+  if (err != 0 || B == 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch<__nv_bfloat16, __nv_bfloat16, false>(a, s);
-  return launch<float, float, false>(a, s);
+  if (is_bf16) return launch_split_d<__nv_bfloat16, __nv_bfloat16>(a, s);
+  return launch_split_d<float, float>(a, s);
 }
 
-// B8: int8 pools with f32 scales; q f32 (q_is_bf16 = 0) or bf16 (1).
+// B8: int8 pools with f32 scales; q f32 (q_is_bf16 = 0) or bf16 (1); D
+// a multiple of 4.
 extern "C" int mmk_paged_attention_int8(
     const void* q, const void* kq_pool, const void* ks_pool,
     const void* vq_pool, const void* vs_pool, const void* table,
-    const void* pos, void* out, int q_is_bf16, int B, int H, int Hkv, int D,
-    int page, int MP, long long q_sb, long long q_sh, float scale,
-    void* stream) {
-  const Args a = make_args(q, kq_pool, vq_pool, ks_pool, vs_pool, table, pos,
-                           out, B, H, Hkv, D, page, MP, q_sb, q_sh, scale);
+    const void* pos, void* out, void* workspace, int q_is_bf16, int B, int H,
+    int Hkv, int D, int page, int MP, int split_pages, long long q_sb,
+    long long q_sh, float scale, void* stream) {
+  if (D % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  SplitArgs a;
+  const int err = split_args(a, q, kq_pool, vq_pool, ks_pool, vs_pool, table,
+                             pos, out, workspace, B, H, Hkv, D, page, MP,
+                             split_pages, q_sb, q_sh, scale);
+  if (err != 0 || B == 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_is_bf16) return launch<__nv_bfloat16, int8_t, true>(a, s);
-  return launch<float, int8_t, true>(a, s);
+  if (q_is_bf16) return launch_split_d<__nv_bfloat16, int8_t>(a, s);
+  return launch_split_d<float, int8_t>(a, s);
 }

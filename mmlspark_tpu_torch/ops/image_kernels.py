@@ -8,9 +8,13 @@ replaces the Pallas TPU kernel
 `csrc/resize_normalize.cu`, built for `sm_90a` and bound with ctypes
 (ops/_build.py).  The source explains the design; in short, the kernel
 is bound by bytes on an H100 — one uint8 read of the input and one f32
-write of the output per pixel — and computes each output pixel from the
-few non-zero taps the host found for its row and column, instead of the
-TPU's dense padded matmuls.
+write of the output per pixel — and sums only the few non-zero taps the
+host found for each output row and column, instead of the TPU's dense
+padded matmuls.  Its tile route gives a block a tile of output rows,
+stages their input rows in shared memory and writes with 16-byte
+stores; a plan whose one-row span is too large for that takes its
+pixel route (one thread a pixel).  `AffinePlan.route` and
+`AffinePlan.tiling` are that fixed rule.
 
 The contract is the general affine one of the TPU kernel:
 
@@ -53,6 +57,17 @@ __all__ = ["AffinePlan", "resize_plan", "fused_resize_normalize",
 
 MAX_CHANNELS = 4  # kMaxChannels of csrc/resize_normalize.cu and normalize_unroll.cu
 
+# B1's tile route (csrc/resize_normalize.cu): blocks an SM the rule for
+# rows a tile leaves room for (3 beat 1, 2 and 4 at the featurizers'
+# chunk shapes on the H100, PERF.md), and the shared memory a block may
+# then take, (233,472 bytes an SM on sm_90 less 1,024 reserved a block) /
+# blocks; the blocks that give each of the H100's 132 SMs one; the most
+# width taps a column (kMaxTaps, held in registers)
+TILE_BLOCKS_PER_SM = 3
+TILE_SMEM = (233_472 - 1_024 * TILE_BLOCKS_PER_SM) // TILE_BLOCKS_PER_SM
+TILE_MIN_BLOCKS = 132
+TILE_MAX_TAPS = 16
+
 # kernel launches since import (or since a caller reset it to 0): B1's
 # and B2's
 LAUNCHES = 0
@@ -69,12 +84,23 @@ def _tap_ranges(a: np.ndarray) -> np.ndarray:
     return rng
 
 
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
 class AffinePlan:
     """Host-built constants of one affine resample: the height and width
     weights `a_h [h_out, h_in]` / `a_w [w_out, w_in]`, the channel mix
     `cmix [c_in, c_out]`, the normalize epilogue `mean_eff`/`inv_eff
-    [c_out]` (all f32), and each output row's and column's [lo, hi) tap
-    range.  Device copies are made once per device."""
+    [c_out]` (all f32), each output row's and column's [lo, hi) tap
+    range, and for the kernel's tile route the width taps compacted to
+    `k_w` weights a column from `x_lo` on (`w_taps [w_out, k_w]`), the
+    most height taps a row `k_h`, and whether the channel mix is not the
+    identity (`mix`).  `route[dtype name]` is the kernel's route for a
+    uint8 or float32 batch: "tile" when a column's width taps fit its
+    registers (k_w <= TILE_MAX_TAPS) and one output row's input span fits
+    TILE_SMEM at one row a tile, else "pixel".  Device copies are made
+    once per device."""
 
     def __init__(self, a_h, a_w, cmix, mean_eff, inv_eff):
         self.a_h = np.ascontiguousarray(a_h, np.float32)
@@ -90,18 +116,99 @@ class AffinePlan:
             raise ValueError("mean_eff/inv_eff must have c_out entries")
         self.y_rng = _tap_ranges(self.a_h)
         self.x_rng = _tap_ranges(self.a_w)
+        # each column's window of k_w taps from x_lo on, inside the row
+        # and covering its non-zero ones (the weights outside are 0)
+        self.k_w = max(1, int((self.x_rng[:, 1] - self.x_rng[:, 0]).max()))
+        self.x_lo = np.minimum(self.x_rng[:, 0],
+                               self.w_in - self.k_w).astype(np.int32)
+        self.w_taps = np.ascontiguousarray(np.take_along_axis(
+            self.a_w, self.x_lo[:, None] + np.arange(self.k_w)[None, :],
+            axis=1))
+        self.k_h = max(1, int((self.y_rng[:, 1] - self.y_rng[:, 0]).max()))
+        self.mix = not (self.c_in == self.c_out and
+                        np.array_equal(self.cmix, np.eye(self.c_in)))
+        self.route = {name: "tile" if self.k_w <= TILE_MAX_TAPS and
+                      self.tile_smem(self._span(1), item, 1) <= TILE_SMEM
+                      else "pixel"
+                      for name, item in (("uint8", 1), ("float32", 4))}
+        self._tiling: Dict[Tuple[int, int], Tuple[int, int]] = {}
         self._dev: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        self._tiles: Dict[Tuple[str, int], torch.Tensor] = {}
 
     def tensors(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
-        """(a_h, a_w, cmix, mean_eff, inv_eff, y_rng, x_rng) on `device`."""
+        """(a_h, a_w, cmix, mean_eff, inv_eff, y_rng, x_rng, w_taps, x_lo)
+        on `device`."""
         key = str(device)
         t = self._dev.get(key)
         if t is None:
             t = tuple(torch.from_numpy(a).to(device) for a in (
                 self.a_h, self.a_w, self.cmix, self.mean_eff, self.inv_eff,
-                self.y_rng, self.x_rng))
+                self.y_rng, self.x_rng, self.w_taps, self.x_lo))
             self._dev[key] = t
         return t
+
+    def tile_tensor(self, device: torch.device, ty: int) -> torch.Tensor:
+        """`tile_table(ty)` on `device`, made once."""
+        key = (str(device), ty)
+        t = self._tiles.get(key)
+        if t is None:
+            t = self._tiles[key] = torch.from_numpy(
+                self.tile_table(ty)).to(device)
+        return t
+
+    def tile_table(self, ty: int) -> np.ndarray:
+        """[ceil(h_out / ty), 2] int32: the input-row span [lo, hi) of each
+        tile of `ty` output rows, the min and max of its rows' tap ranges
+        (rows without a non-zero tap left out; (0, 0) for a tile of such
+        rows)."""
+        live = self.y_rng[:, 1] > self.y_rng[:, 0]
+        starts = np.arange(0, self.h_out, ty)
+        lo = np.minimum.reduceat(
+            np.where(live, self.y_rng[:, 0], np.iinfo(np.int32).max), starts)
+        hi = np.maximum.reduceat(np.where(live, self.y_rng[:, 1], -1), starts)
+        dead = hi < 0
+        return np.stack([np.where(dead, 0, lo), np.where(dead, 0, hi)],
+                        axis=1).astype(np.int32)
+
+    def _span(self, ty: int) -> int:
+        table = self.tile_table(ty)
+        return int((table[:, 1] - table[:, 0]).max())
+
+    def tile_smem(self, span: int, itemsize: int, ty: int) -> int:
+        """Shared memory bytes of a tile-route block of `ty` rows over
+        `span` input rows (csrc/resize_normalize.cu's tile_layout): the
+        channel mix, the epilogue's mean and inv of every value of an
+        output row (w_out * c_out rounded up to 4), the rows' height taps,
+        the f32 intermediate [span, that row] and the staged input rows
+        with 16 bytes of slack."""
+        r_pad = (self.w_out * self.c_out + 3) & ~3
+        return (64 + 8 * r_pad + 2 * _align16(4 * ty)
+                + _align16(4 * ty * self.k_h) + 4 * span * r_pad
+                + _align16(span * self.w_in * self.c_in * itemsize + 16))
+
+    def tiling(self, dtype: torch.dtype, n_batch: int) -> Tuple[int, int]:
+        """(TY, widest span) of the kernel's launch over a batch of
+        `n_batch` images of `dtype`; TY 0 is the pixel route.  The rule:
+        the fewest tiles an image, each of TY = ceil(h_out / tiles) rows,
+        that give at least TILE_MIN_BLOCKS blocks (or one a row, when the
+        batch has fewer rows) and whose widest span fits TILE_SMEM
+        (TILE_BLOCKS_PER_SM blocks an SM): the largest such TY."""
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        key = (itemsize, n_batch)
+        if key not in self._tiling:
+            ty = span = 0
+            if self.route[str(dtype)[6:]] == "tile":
+                n = max(n_batch, 1)  # an empty batch launches nothing
+                need = min(TILE_MIN_BLOCKS, n * self.h_out)
+                for tiles in range(-(-need // n), self.h_out + 1):
+                    ty = -(-self.h_out // tiles)
+                    if -(-self.h_out // ty) != tiles:
+                        continue  # the same TY as fewer tiles
+                    span = self._span(ty)
+                    if self.tile_smem(span, itemsize, ty) <= TILE_SMEM:
+                        break
+            self._tiling[key] = (ty, span)
+        return self._tiling[key]
 
 
 @lru_cache(maxsize=16)
@@ -158,14 +265,47 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.mmk_affine_resample
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8)
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        smem = lib.mmk_affine_resample_smem
+        smem.argtypes = [ctypes.c_int] * 8
+        smem.restype = ctypes.c_int
     return lib
 
 
+def _launch(batch: torch.Tensor, plan: AffinePlan, ty: int, span: int
+            ) -> torch.Tensor:
+    """One launch of the kernel: the tile route with `ty` rows a tile and
+    a widest span of `span` input rows, or the pixel route for ty 0."""
+    n = batch.shape[0]
+    out = torch.empty((n, plan.h_out, plan.w_out, plan.c_out),
+                      dtype=torch.float32, device=batch.device)
+    a_h, a_w, cmix, mean, inv, y_rng, x_rng, w_taps, x_lo = \
+        plan.tensors(batch.device)
+    tiles = plan.tile_tensor(batch.device, ty) if ty else None
+    lib = _kernel_lib()
+    with torch.cuda.device(batch.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmk_affine_resample(
+            batch.data_ptr(), int(batch.dtype == torch.uint8), out.data_ptr(),
+            n, plan.h_in, plan.w_in, plan.c_in, plan.h_out, plan.w_out,
+            plan.c_out, a_h.data_ptr(), a_w.data_ptr(), y_rng.data_ptr(),
+            x_rng.data_ptr(), cmix.data_ptr(), mean.data_ptr(),
+            inv.data_ptr(), ty, tiles.data_ptr() if ty else None, span,
+            w_taps.data_ptr(), x_lo.data_ptr(), plan.k_w, plan.k_h,
+            int(plan.mix), stream)
+    if err != 0:
+        raise RuntimeError(f"affine_resample kernel launch failed: CUDA error {err}")
+    return out
+
+
 def affine_resample(batch: torch.Tensor, plan: AffinePlan) -> torch.Tensor:
-    """Run the plan over `batch`: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    """Run the plan over `batch`: the CUDA kernel for a CUDA tensor (the
+    route and the rows a tile by `plan.tiling`), the plain version for a
+    CPU tensor."""
     global LAUNCHES
     _check(batch, plan)
     if batch.device.type == "cpu":
@@ -176,21 +316,7 @@ def affine_resample(batch: torch.Tensor, plan: AffinePlan) -> torch.Tensor:
         raise ValueError("affine_resample: the batch must be contiguous NHWC")
     if plan.c_in > MAX_CHANNELS or plan.c_out > MAX_CHANNELS:
         raise ValueError(f"affine_resample: at most {MAX_CHANNELS} channels")
-    n = batch.shape[0]
-    out = torch.empty((n, plan.h_out, plan.w_out, plan.c_out),
-                      dtype=torch.float32, device=batch.device)
-    a_h, a_w, cmix, mean, inv, y_rng, x_rng = plan.tensors(batch.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(batch.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmk_affine_resample(
-            batch.data_ptr(), int(batch.dtype == torch.uint8), out.data_ptr(),
-            n, plan.h_in, plan.w_in, plan.c_in, plan.h_out, plan.w_out,
-            plan.c_out, a_h.data_ptr(), a_w.data_ptr(), y_rng.data_ptr(),
-            x_rng.data_ptr(), cmix.data_ptr(), mean.data_ptr(),
-            inv.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"affine_resample kernel launch failed: CUDA error {err}")
+    out = _launch(batch, plan, *plan.tiling(batch.dtype, batch.shape[0]))
     LAUNCHES += 1
     return out
 

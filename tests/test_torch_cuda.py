@@ -780,3 +780,188 @@ def test_compressed_put_group_launches_the_decode_per_chunk(cuda_device):
     assert snap["wire_bytes_raw"] == sum(c.nbytes for c in chunks)
     assert snap["wire_bytes_sent"] == sum(
         W.rle_encode(c).wire_nbytes for c in chunks)
+
+
+# B8 on the split kernel: int8 pools from quantize_kv_row of f32 pools
+# (the serving shape with bf16 and f32 q, GQA at 3 and 8 query heads a
+# K/V head, D 32 with 16-row pages, D 36 whose int8 rows are not whole
+# 16-byte vectors, D 256), against its plain version and the split
+# arithmetic's PyTorch mirror at 1e-4.
+B8_CASES = [  # (b, h, hkv, d, page, mp, q dtype, positions)
+    (8, 12, 12, 64, 64, 16, torch.bfloat16,
+     [0, 63, 64, 1023, 500, 129, 900, 7]),
+    (8, 12, 12, 64, 64, 16, torch.float32,
+     [0, 63, 64, 1023, 500, 129, 900, 7]),
+    (4, 12, 4, 64, 64, 16, torch.bfloat16, [5, 700, 64, 1000]),
+    (4, 16, 2, 64, 64, 16, torch.bfloat16, [0, 63, 64, 1023]),
+    (3, 4, 4, 32, 16, 8, torch.float32, [0, 17, 127]),
+    (3, 6, 6, 36, 16, 8, torch.bfloat16, [5, 0, 127]),
+    (3, 6, 2, 36, 16, 8, torch.float32, [16, 0, 127]),
+    (2, 8, 1, 256, 32, 8, torch.bfloat16, [3, 255]),
+]
+
+
+def _int8_inputs(device, case, seed):
+    b, h, hkv, d, page, mp, dtype, positions = case
+    q, k, v, table, pos = _paged_inputs(device, b, h, hkv, d, page, mp,
+                                        dtype, positions, seed)
+    kq, ks = quantize_kv_row(k.float())
+    vq, vs = quantize_kv_row(v.float())
+    return q, (kq, ks, vq, vs), table, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B8_CASES)
+def test_split_merge_b8_matches_plain_on_card(cuda_device, case):
+    q, pools, table, pos = _int8_inputs(cuda_device, case, seed=12)
+    before = PA.LAUNCHES_INT8
+    got = PA.paged_decode_attention_int8(q, *pools, table, pos)
+    again = PA.paged_decode_attention_int8(q, *pools, table, pos)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES_INT8 == before + 2  # one a call: split and merge
+    assert torch.equal(got, again)  # bit-identical reruns
+    for ref in (PA.paged_decode_attention_int8_plain(q, *pools, table, pos),
+                PA.paged_decode_attention_int8_split_plain(q, *pools, table,
+                                                           pos)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_split_merge_b8_never_reads_past_the_live_pages(cuda_device):
+    """Every page no slot's live rows reach (page 0, which the unused
+    table entries point at, and the pages past each slot's last live
+    one) holds NaN scales and codes of 127: none reaches the output."""
+    case = (4, 12, 12, 64, 64, 16, torch.bfloat16, [0, 70, 1023, 5])
+    q, (kq, ks, vq, vs), table, pos = _int8_inputs(cuda_device, case,
+                                                   seed=13)
+    ref = PA.paged_decode_attention_int8_plain(q, kq, ks, vq, vs, table, pos)
+    live = set()
+    for row, p in zip(table.cpu().numpy(), pos.cpu().numpy()):
+        live.update(row[:p // 64 + 1].tolist())
+    dead = [i for i in range(kq.shape[0]) if i not in live]
+    assert 0 in dead and (table == 0).any()
+    for t in (kq, vq):
+        t[dead] = 127
+    for t in (ks, vs):
+        t[dead] = float("nan")
+    got = PA.paged_decode_attention_int8(q, kq, ks, vq, vs, table, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_split_merge_b8_never_syncs_with_the_host(cuda_device):
+    q, pools, table, pos = _int8_inputs(cuda_device, B8_CASES[0], seed=14)
+    PA.paged_decode_attention_int8(q, *pools, table, pos)  # builds, loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = PA.paged_decode_attention_int8(q, *pools, table, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_b8_rejects_what_it_cannot_take(cuda_device):
+    q, (kq, ks, vq, vs), table, pos = _int8_inputs(
+        cuda_device, (2, 4, 4, 64, 16, 4, torch.float32, [3, 40]), seed=15)
+    with pytest.raises(TypeError):                      # int32 q
+        PA.paged_decode_attention_int8(q.to(torch.int32), kq, ks, vq, vs,
+                                       table, pos)
+    with pytest.raises(TypeError):                      # f32 pools
+        PA.paged_decode_attention_int8(q, kq.float(), ks, vq.float(), vs,
+                                       table, pos)
+    with pytest.raises(TypeError):                      # f64 scales
+        PA.paged_decode_attention_int8(q, kq, ks.double(), vq, vs, table,
+                                       pos)
+    with pytest.raises(TypeError):                      # int64 positions
+        PA.paged_decode_attention_int8(q, kq, ks, vq, vs, table, pos.long())
+    with pytest.raises(ValueError):                     # D % 4
+        PA.paged_decode_attention_int8(
+            q[..., :62].contiguous(), kq[..., :62].contiguous(), ks,
+            vq[..., :62].contiguous(), vs, table, pos)
+
+
+# B1 on both routes: the rule's route through the wrapper and the pixel
+# route (`_launch` with TY 0) on the same inputs, against the plain
+# version at 1e-3 (normalized units): the featurizers' three chunk
+# shapes, a large odd one, an f32 gray upscale, ragged store edges (rows
+# of 7 x 31 x 4 and 7 x 31 x 3 values), DeepVisionClassifier's batch, and
+# plans the rule sends to the pixel route.
+B1_CASES = [  # (dtype, shape, out_hw)
+    ("uint8", (64, 256, 256, 3), (224, 224)),
+    ("uint8", (64, 224, 224, 3), (224, 224)),
+    ("uint8", (64, 320, 240, 3), (224, 224)),
+    ("uint8", (7, 333, 517, 3), (224, 224)),
+    ("float32", (5, 97, 131, 1), (224, 224)),
+    ("uint8", (2, 19, 23, 4), (7, 31)),
+    ("float32", (3, 19, 23, 3), (7, 31)),
+    ("uint8", (256, 32, 32, 3), (32, 32)),
+    ("uint8", (2, 1500, 2000, 3), (224, 224)),
+    ("float32", (2, 600, 1600, 3), (224, 224)),
+]
+
+
+def _b1_check(device, x, plan, want_route):
+    assert plan.route[str(x.dtype)[6:]] == want_route
+    ty, _span = plan.tiling(x.dtype, x.shape[0])
+    assert (ty > 0) == (want_route == "tile")
+    before = K.LAUNCHES
+    got = K.affine_resample(x, plan)
+    pixel = K._launch(x, plan, 0, 0)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before + 1
+    ref = K.affine_resample_plain(x, plan).cpu().numpy()
+    for out in (got, pixel):
+        np.testing.assert_allclose(out.cpu().numpy(), ref, atol=ATOL,
+                                   rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,out_hw", B1_CASES)
+def test_b1_both_routes_match_plain_on_card(cuda_device, dtype, shape,
+                                            out_hw):
+    rng = np.random.default_rng(21)
+    if dtype == "uint8":
+        x = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    else:
+        x = rng.uniform(0, 255, size=shape).astype(np.float32)
+    c = shape[3]
+    plan = K.resize_plan(shape[1], shape[2], c, *out_hw,
+                         (IMAGENET_MEAN_BGR * 2)[:c], (IMAGENET_STD_BGR * 2)[:c])
+    route = "pixel" if shape[1] >= 600 else "tile"
+    _b1_check(cuda_device, torch.from_numpy(x).to(cuda_device), plan, route)
+
+
+@pytest.mark.cuda
+def test_b1_flip_crop_chain_matches_plain_on_card(cuda_device):
+    stages = [("crop", {"x": 40, "y": 21, "height": 300, "width": 400}),
+              ("resize", {"height": 224, "width": 224}),
+              ("blur", {"height": 2.0, "width": 2.0}),
+              ("flip", {"flipLeftRight": True, "flipUpDown": True})]
+    plan = K.affine_plan(K.freeze_stages(stages), 333, 517, 3)
+    x = np.random.default_rng(22).integers(0, 256, (16, 333, 517, 3),
+                                           dtype=np.uint8)
+    _b1_check(cuda_device, torch.from_numpy(x).to(cuda_device), plan, "tile")
+
+
+@pytest.mark.cuda
+def test_b1_rejects_what_it_cannot_take(cuda_device):
+    plan = K.resize_plan(8, 8, 3, 4, 4, (0.0,) * 3, (1.0,) * 3)
+    x = torch.zeros(2, 8, 8, 3, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(TypeError):                      # f64
+        K.affine_resample(x.double(), plan)
+    with pytest.raises(ValueError):                     # strided batch
+        K.affine_resample(x.transpose(1, 2), plan)
+    with pytest.raises(ValueError):                     # shape != plan
+        K.affine_resample(x[:, :7].contiguous(), plan)
+    wide = K.AffinePlan(np.eye(8), np.eye(8), np.eye(5), np.zeros(5),
+                        np.ones(5))
+    with pytest.raises(ValueError):                     # > 4 channels
+        K.affine_resample(torch.zeros(2, 8, 8, 5, dtype=torch.uint8,
+                                      device=cuda_device), wide)

@@ -124,6 +124,16 @@ def test_b7_split_merge_gqa_matches_jax_gather():
                                         (128, 1), (1, 64)])
 def test_b7_chunks_are_whole_pages_of_about_64_rows(page, pages):
     assert PA.split_pages(page) == pages
+    assert PA.split_pages(page, torch.bfloat16) == pages
+    assert PA.split_pages(page, torch.float32) == pages
+
+
+@pytest.mark.parametrize("page,pages", [(64, 2), (16, 8), (8, 16), (48, 2),
+                                        (128, 1), (256, 1), (1, 128)])
+def test_b8_chunks_are_whole_pages_of_about_128_rows(page, pages):
+    """int8 rows are half a bf16 row's bytes: B8's chunk is twice B7's
+    rows (the faster of the two on the H100)."""
+    assert PA.split_pages(page, torch.int8) == pages
 
 
 def test_b7_plain_gqa_matches_jax_gather():
@@ -178,6 +188,70 @@ def test_b8_plain_gqa_matches_jax_gather():
 
 def _torch_any(x):
     return torch.from_numpy(np.array(x))
+
+
+# B8's split-and-merge arithmetic (the CUDA kernels' rule over int8
+# pools: the K scale on each row's score, the V scale on its p in the V
+# sum but not in l), held against the JAX kernel in interpret mode and
+# its gather at TOL.  PAGE 8, MP 4: the default chunk (128 rows) is the
+# whole table;
+# one page a chunk leaves slot 1 (pos 7) with three empty chunks and
+# every slot at pos 0 with three, three pages a chunk a ragged last one
+# (empty below pos 24); pos 8 is a page's first row.
+INT8_POSITIONS = {"boundary": [8, 7, PAGE * MP - 1], "pos0": [0, 0, 0],
+                  "mid_page": [13, 20, 30]}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_b8(which, positions, seed, hkv=H):
+    q, pools = _int8_case(seed, hkv)
+    fn = JP._paged_pallas_int8 if which == "pallas" else JP._xla_paged_int8
+    return np.asarray(fn(jnp.asarray(q), *map(jnp.asarray, pools),
+                         jnp.asarray(TABLE),
+                         jnp.asarray(INT8_POSITIONS[positions], jnp.int32)))
+
+
+@pytest.mark.parametrize("which", ["pallas", "xla"])
+@pytest.mark.parametrize("pages_per_split", [None, 1, 3])
+@pytest.mark.parametrize("positions,seed", [("boundary", 4), ("pos0", 6),
+                                            ("mid_page", 7)])
+def test_b8_split_merge_matches_jax(which, pages_per_split, positions, seed):
+    q, pools = _int8_case(seed)
+    got = PA.paged_decode_attention_int8_split_plain(
+        _torch(q), *map(_torch_any, pools), torch.from_numpy(TABLE),
+        torch.tensor(INT8_POSITIONS[positions], dtype=torch.int32),
+        pages_per_split=pages_per_split)
+    assert got.dtype == torch.float32 and got.shape == (B, H, D)
+    np.testing.assert_allclose(got.numpy(), _jax_b8(which, positions, seed),
+                               **TOL)
+
+
+@pytest.mark.parametrize("hkv,pages_per_split", [(2, 1), (1, 3), (2, None)])
+def test_b8_split_merge_gqa_matches_jax_gather(hkv, pages_per_split):
+    """GQA pools (the JAX kernel takes MHA pools only, so its gather is
+    the reference): query head h reads pool head h // (H / Hkv)."""
+    got = PA.paged_decode_attention_int8_split_plain(
+        _torch(_int8_case(8, hkv)[0]), *map(_torch_any, _int8_case(8, hkv)[1]),
+        torch.from_numpy(TABLE),
+        torch.tensor(INT8_POSITIONS["boundary"], dtype=torch.int32),
+        pages_per_split=pages_per_split)
+    np.testing.assert_allclose(got.numpy(),
+                               _jax_b8("xla", "boundary", 8, hkv), **TOL)
+
+
+def test_b8_split_merge_scales_the_v_sum_but_not_l():
+    """Doubling every V scale doubles the output: the scale rides p into
+    the V sum, not into the normaliser l."""
+    q, (kq, ks, vq, vs) = _int8_case(9)
+    args = [_torch(q), *map(_torch_any, (kq, ks, vq, vs)),
+            torch.from_numpy(TABLE),
+            torch.tensor(INT8_POSITIONS["mid_page"], dtype=torch.int32)]
+    base = PA.paged_decode_attention_int8_split_plain(*args, pages_per_split=1)
+    args[4] = args[4] * 2
+    np.testing.assert_allclose(
+        PA.paged_decode_attention_int8_split_plain(*args, pages_per_split=1
+                                                   ).numpy(),
+        2 * base.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -252,3 +326,21 @@ def test_kernel_input_checks():
     with pytest.raises(TypeError):                     # f64 scales
         check(q, (k.to(torch.int8), v.to(torch.int8)),
               (scales[0].double(), scales[1]), dtypes=(torch.int8,))
+
+
+def test_kernel_input_checks_take_int8_pools_at_a_word_multiple():
+    """B8's split kernel loads q one value at a time and int8 rows in
+    4-byte words: a bf16 q over int8 pools needs D % 4 only, where bf16
+    pools need D % 8."""
+    q, k, v = (_torch(x) for x in _inputs(0))
+    table = torch.from_numpy(TABLE)
+    pos = torch.tensor([1, 2, 3], dtype=torch.int32)
+    scales = (k[..., 0].contiguous(), v[..., 0].contiguous())
+    int8_pools = (k[..., :36].contiguous().to(torch.int8),
+                  v[..., :36].contiguous().to(torch.int8))
+    PA._check_kernel_input("t", q[..., :36].bfloat16(), int8_pools, scales,
+                           table, pos, (torch.int8,))
+    with pytest.raises(ValueError):
+        PA._check_kernel_input("t", q[..., :36].bfloat16(),
+                               tuple(p.bfloat16() for p in int8_pools), (),
+                               table, pos, (torch.bfloat16,))
