@@ -36,6 +36,19 @@ exit, no result line) if anything in it fails:
    residual branch counts) for a few images.  Then images/s as a range
    over repeated runs with the feed's time split, and one chunk's device
    time from a CUDA-graph replay beside its eager stream span.
+4b. JPEG path: the port's JPEG decoder (libjpeg where its headers exist,
+   else nvJPEG from the CUDA toolkit; the run fails without one) holds
+   each committed fixture of tests/jpeg_fixtures/ (bench.py's recipe:
+   uniform noise, quality 85) against its libjpeg digest — byte-exact on
+   libjpeg, within a stated mean difference on nvJPEG, whose max abs
+   difference and share of differing values are printed.  Then
+   `ImageFeaturizer.transform` with phase 4's ResNet-50 over a bytes
+   column of 192 JPEGs, 64 per size (phase 4's three shape groups): B1
+   launches once per chunk and nothing else; the features are (192,
+   2048), finite, within 1e-3 relative L2 of phase 4's uint8 path on the
+   same decoded pixels and within 3e-2 of an f32 CPU run of the port on
+   12 rows; images/s over 3 runs, bytes and uint8 in turns, with the
+   feed's stall_decode_s / transfer_s / compute_s.
 5. ViT path: the same transform and table with the zoo's random-init
    ViT-B/16 (seed 0): B4 launches 12 times per chunk, B1 once; the
    features are checked against the same transform with attention forced
@@ -121,7 +134,9 @@ exit, no result line) if anything in it fails:
    path's; the wire ratio and the host's encode time.  B3 exact to the
    byte on phase 4's 64 uniform-random 224x224 images as one chunk (the
    worst case) and on the JAX package's codec test cases; timed at a
-   feed_bench chunk beside its bound and `torch.repeat_interleave`.
+   feed_bench chunk and at the worst case beside its bound (the bytes of
+   the runs the chunk needs and of the output) and
+   `torch.repeat_interleave`.
 9. record: a `{"kernels": [...]}` JSON line (all eight kernels), the
    nvidia-smi line, and last the `{"ok": true, "device": ...}` line.
 
@@ -183,6 +198,18 @@ TRAIN_CPU_LOSS_RTOL = 1e-5
 TRAIN_CPU_GRAD_RTOL = 1e-4
 
 TIMED_RUNS = 5
+
+# the JPEG path (phase 4b): its features against phase 4's uint8 path on
+# the same decoded pixels (the same forward, so only cuDNN's choice of
+# algorithm between two calls can differ); nvJPEG against the libjpeg
+# digests: its chroma upsampling and colour rounding are not libjpeg's,
+# which on the fixtures' uniform noise (the worst case for 4:2:0 chroma)
+# gave a mean absolute difference of 13.1-13.5 levels on the digests'
+# pixel sample and -0.46..-0.50 a channel on an H100 machine; a channel
+# swap or a wrong image gives tens of levels
+JPEG_UINT8_RTOL = 1e-3
+NVJPEG_SAMPLE_MEAN_ABS = 16.0
+NVJPEG_CHANNEL_MEAN = 1.0
 
 IMG = 224
 BATCH = 64
@@ -700,7 +727,7 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def timed_transforms(featurizer, table, label, card):
+def timed_transforms(featurizer, table, label, card, n_runs=TIMED_RUNS):
     """images/s on the host's clock, as a range over repeated runs (a run
     is tens of ms on a shared host), with the feed's split of the median;
     returns the median wall in seconds."""
@@ -708,7 +735,7 @@ def timed_transforms(featurizer, table, label, card):
     from mmlspark_tpu_torch.io.feed import FEED_TELEMETRY
 
     runs = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(n_runs):
         torch.cuda.synchronize()
         before = FEED_TELEMETRY.snapshot()
         t0 = time.perf_counter()
@@ -718,7 +745,7 @@ def timed_transforms(featurizer, table, label, card):
     walls = [r[0] for r in runs]
     med_wall, med_feed = runs[len(runs) // 2]
     log(f"[{label}] ImageFeaturizer pool {IMG}x{IMG} batch {BATCH}, "
-        f"{N_IMAGES} images, {TIMED_RUNS} runs: images/s min "
+        f"{N_IMAGES} images, {n_runs} runs: images/s min "
         f"{N_IMAGES / walls[-1]:.0f}, median {N_IMAGES / med_wall:.0f}, "
         f"max {N_IMAGES / walls[0]:.0f} (walls {walls[0]:.4f}-{walls[-1]:.4f}"
         f" s) on {card}")
@@ -850,6 +877,158 @@ def resnet_path(K, A, images, table, repo, n_chunks, card):
     profile_run(lambda: featurizer.transform(table), "resnet",
                 ["affine_resample"], med_wall)
     del featurizer, plain_model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def jpeg_fixtures():
+    """({file name: bytes}, digests) of tests/jpeg_fixtures/: JPEGs made by
+    bench.py's recipe (uniform noise, quality 85) and the libjpeg digests
+    of their pixels (make_jpeg_fixtures.py)."""
+    d = os.path.join(ROOT, "tests", "jpeg_fixtures")
+    with open(os.path.join(d, "digests.json")) as f:
+        digests = json.load(f)
+    blobs = {}
+    for name in digests["fixtures"]:
+        with open(os.path.join(d, name), "rb") as f:
+            blobs[name] = f.read()
+    return blobs, digests
+
+
+def check_jpeg_decoder(native, blobs, digests):
+    """Every fixture's pixels against its libjpeg digest: byte-exact on
+    the libjpeg backend, within the stated difference on nvJPEG; returns
+    {size: [decoded arrays of the bench fixtures of that size]}."""
+    import base64
+    import hashlib
+
+    import numpy as np
+
+    backend = native.jpeg_backend()
+    stride = digests["sample_stride"]
+    by_size = {}
+    for name, want in sorted(digests["fixtures"].items()):
+        t0 = time.perf_counter()
+        got = native.decode_jpeg_bgr(blobs[name])
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        if want is None:  # CMYK: the decoder refuses it (PIL decodes it)
+            if got is not None:
+                fail(f"jpeg {name}: decoded a stream libjpeg refuses")
+            log(f"[jpeg] {name}: refused, as libjpeg refuses it")
+            continue
+        if got is None or list(got.shape) != want["shape"]:
+            fail(f"jpeg {name}: decoded {None if got is None else got.shape}"
+                 f", digest {want['shape']}")
+        exact = hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
+        sample = np.frombuffer(base64.b64decode(want["sample"]), np.uint8)
+        diff = np.abs(got[::stride, ::stride].astype(np.int16).ravel()
+                      - sample.astype(np.int16))
+        channel = ((got.reshape(-1, got.shape[2]).sum(0, np.int64)
+                    - np.array(want["channel_sums"])) / got[..., 0].size)
+        log(f"[jpeg] {name} {tuple(got.shape)} by {backend} in {dt_ms:.2f} ms"
+            f": sha256 equals libjpeg's: {exact}; on the every-{stride}th-"
+            f"pixel sample max abs diff {int(diff.max())}, share differing "
+            f"{float(np.mean(diff > 0)):.4f}, mean abs diff "
+            f"{float(diff.mean()):.3f} (limit {NVJPEG_SAMPLE_MEAN_ABS}); "
+            f"channel mean diff {np.round(channel, 4).tolist()} (limit "
+            f"{NVJPEG_CHANNEL_MEAN})")
+        if backend == "libjpeg" and not exact:
+            fail(f"jpeg {name}: libjpeg pixels differ from the digest")
+        if diff.mean() > NVJPEG_SAMPLE_MEAN_ABS or \
+                np.abs(channel).max() > NVJPEG_CHANNEL_MEAN:
+            fail(f"jpeg {name}: the decoder is past its stated difference")
+        if name.startswith("bench_"):
+            by_size.setdefault(tuple(want["shape"][:2]), []).append(got)
+    return by_size
+
+
+def jpeg_path(repo, n_chunks, card):
+    """Phase 4b; returns {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table, native
+    from mmlspark_tpu_torch.io.pipeline import PIPELINE_TELEMETRY
+    from mmlspark_tpu_torch.models.bundle import (TorchBundle, get_builder,
+                                                  init_state_dict)
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.zoo import get_or_create_resnet
+
+    t0 = time.perf_counter()
+    if not native.jpeg_available():
+        fail(f"no JPEG decoder on the card's machine: {native.build_error()}")
+    log(f"[jpeg] decoder: {native.jpeg_backend()}, ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    blobs, digests = jpeg_fixtures()
+    decoded = check_jpeg_decoder(native, blobs, digests)
+    by_size = {hw: [n for n in sorted(blobs) if n.startswith("bench_") and
+                    n.endswith(f"_{hw[0]}x{hw[1]}.jpg")] for hw in SIZES}
+    # phase 4's three shape groups, 64 rows each, the two fixtures of a
+    # size in turns; beside it the same decoded pixels as uint8 arrays
+    column = [blobs[by_size[SIZES[i % 3]][(i // 3) % 2]]
+              for i in range(N_IMAGES)]
+    pixels = [decoded[SIZES[i % 3]][(i // 3) % 2] for i in range(N_IMAGES)]
+    table = Table({"image": column, "id": np.arange(N_IMAGES)})
+    pixel_table = Table({"image": pixels, "id": np.arange(N_IMAGES)})
+
+    bundle = get_or_create_resnet("resnet50", (IMG, IMG, 3), 1000, repo=repo)
+    featurizer = ImageFeaturizer(bundle=bundle, batch_size=BATCH)
+    zero_launches()
+    t0 = time.perf_counter()
+    out = featurizer.transform(table)
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    feats = out["features"]
+    log(f"[jpeg] bytes column of {N_IMAGES} JPEGs: transform {first_s:.3f} "
+        f"s; launches {launches} (chunks={n_chunks})")
+    if launches != dict(NO_LAUNCHES, affine_resample=n_chunks):
+        fail(f"the JPEG path launched the kernels {launches} times, "
+             f"expected affine_resample once per chunk ({n_chunks})")
+    if feats.shape != (N_IMAGES, 2048) or not np.isfinite(feats).all():
+        fail(f"JPEG features: shape {feats.shape}, "
+             f"finite={np.isfinite(feats).all()}")
+    if not (out["id"] == np.arange(N_IMAGES)).all():
+        fail("the JPEG path changed the row order")
+    uint8_feats = featurizer.transform(pixel_table)["features"]
+    err_uint8 = rel_l2(feats, uint8_feats)
+    log(f"[jpeg] features vs phase 4's uint8 path on the same decoded "
+        f"pixels: rel_l2={err_uint8:.3e} (bound {JPEG_UINT8_RTOL})")
+    if err_uint8 > JPEG_UINT8_RTOL:
+        fail("the JPEG path disagrees with the uint8 path on its pixels")
+
+    # bf16 on the card against an f32 CPU run of the port (both decode
+    # with the same decoder), random-BatchNorm weights as in phase 4
+    few = [i for s in range(len(SIZES)) for i in range(s, 12, len(SIZES))]
+    few_table = Table({"image": [column[i] for i in few]})
+    check_state = init_state_dict(get_builder("resnet50")(num_classes=1000),
+                                  seed=1, random_bn=True)
+    side = {}
+    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
+        check_bundle = TorchBundle("resnet50", {"num_classes": 1000},
+                                   state_dict=check_state,
+                                   input_shape=(IMG, IMG, 3), dtype=dtype)
+        side[dev] = ImageFeaturizer(bundle=check_bundle, batch_size=BATCH,
+                                    device=dev).transform(few_table)["features"]
+    err_cpu = rel_l2(side["cuda"], side["cpu"])
+    log(f"[jpeg] features (random-BatchNorm ResNet-50, bf16 on the card) vs "
+        f"an f32 CPU run of {len(few)} JPEGs: rel_l2={err_cpu:.3e} (bound "
+        f"{CPU_FEATURES_RTOL})")
+    if err_cpu > CPU_FEATURES_RTOL:
+        fail("JPEG features disagree with the f32 CPU run")
+
+    # images/s, the JPEG bytes and phase 4's uint8 path on the same
+    # pixels in turns, with the decode workers' busy time
+    before = PIPELINE_TELEMETRY.snapshot()
+    walls = {}
+    for label, t in (("jpeg bytes", table), ("jpeg uint8", pixel_table),
+                     ("jpeg bytes", table), ("jpeg uint8", pixel_table)):
+        walls.setdefault(label, []).append(
+            timed_transforms(featurizer, t, label, card, n_runs=3))
+    busy = PIPELINE_TELEMETRY.delta(before).get("assemble", {})
+    log(f"[jpeg] median walls: bytes {walls['jpeg bytes']} s, uint8 "
+        f"{walls['jpeg uint8']} s; the assembly workers (decode for the "
+        f"bytes, stacking for uint8) busy {busy.get('busy_s', 0.0):.4f} s "
+        f"over {busy.get('items', 0.0):.0f} chunks in the 12 runs")
+    del featurizer
     torch.cuda.empty_cache()
     return launches
 
@@ -1990,7 +2169,10 @@ def check_rle(W, name, arr, timed=False):
                  v, counts, output_size=p.n_pad)}
     ev = {k: cuda_ms(f, 20) for k, f in calls.items()}
     kernel_ms, plain_ms, library_ms = (queued_ms(f) for f in calls.values())
-    nbytes = len(p.values) * 5 + p.n_pad
+    # the runs the chunk needs: up to the one holding byte n_pad - 1 (the
+    # power-of-two padding runs after it are never read)
+    r_used = int(np.searchsorted(p.ends, p.n_pad - 1, side="right")) + 1
+    nbytes = r_used * 5 + p.n_pad
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"[kernel] rle_decode {name}: device time (calls queued behind a "
         f"spin) "
@@ -1998,7 +2180,8 @@ def check_rle(W, name, arr, timed=False):
         f"library_ms={library_ms:.4f} (torch.repeat_interleave(values, "
         f"counts, output_size=n_pad)); CUDA events over back-to-back calls "
         f"{ev['kernel']:.4f} / {ev['plain']:.4f} / {ev['library']:.4f}; "
-        f"bound_ms={bound_ms:.4f} (bytes: R*5 + n_pad) "
+        f"bound_ms={bound_ms:.4f} (bytes: 5 R_used + n_pad, R_used={r_used}"
+        f" of R={len(p.values)}) "
         f"roofline_share={bound_ms / kernel_ms:.3f}")
     return {"err": float(err), "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
@@ -2383,7 +2566,7 @@ def main() -> None:
         check_attention_bwd(A, (2, 128, 4, 32), "float32", False, seed=23),
         check_attention_bwd(A, (4, 256, 4, 128), "bfloat16", True, seed=24)]
 
-    # ---- 4-6. the paths --------------------------------------------------
+    # ---- 4-6. the paths (4b: JPEG bytes) ----------------------------------
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 256, size=(*SIZES[i % 3], 3), dtype=np.uint8)
               for i in range(N_IMAGES)]
@@ -2391,6 +2574,7 @@ def main() -> None:
     repo = ModelRepo(os.path.join(ROOT, "build", "model_repo"))
     n_chunks = sum(math.ceil(N_IMAGES / len(SIZES) / BATCH) for _ in SIZES)
     paths = [resnet_path(K, A, images, table, repo, n_chunks, card),
+             jpeg_path(repo, n_chunks, card),
              vit_path(K, A, images, table, repo, n_chunks, card),
              lm_path(K, A, card)]
 
@@ -2413,7 +2597,7 @@ def main() -> None:
         check_unroll(K, (3, 24, 24, 3), (120.0,), (64.0,), seed=32)]
     wire_launches, bench_chunk = compressed_wire_path(W, card)
     rle_main = check_rle(W, "feed_bench", bench_chunk, timed=True)
-    rle_extra = [check_rle(W, name, arr)
+    rle_extra = [check_rle(W, name, arr, timed=name == "uniform_64x224x224x3")
                  for name, arr in rle_cases(images).items()]
     paths += [stage_launches, wire_launches]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}

@@ -9,8 +9,10 @@ An "image row" is a dict with the Spark image schema fields
 (origin, height, width, nChannels, mode, data) where `data` is an
 HWC uint8 ndarray in **BGR** channel order (OpenCV/Spark convention).
 
-Encoded bytes decode through PIL, imported lazily; the native libjpeg
-fast path of the JAX package is not ported yet.
+Encoded JPEGs decode through the port's own native decoder
+(`mmlspark_tpu_torch.native`) first; anything else, and any native
+failure, goes through PIL, imported lazily — as the JAX package's
+`decode_image` does.
 """
 from __future__ import annotations
 
@@ -48,7 +50,16 @@ def image_row_to_array(row: Dict[str, Any]) -> np.ndarray:
 
 
 def decode_image(data: bytes, origin: str = "") -> Dict[str, Any]:
-    """Decode compressed bytes (png/jpeg/bmp/...) to a BGR image row."""
+    """Decode compressed bytes (png/jpeg/bmp/...) to a BGR image row.
+
+    JPEGs take the native decoder (BGR from the decoder, GIL released);
+    everything else, and any native failure, goes through PIL."""
+    if data[:3] == b"\xff\xd8\xff":
+        from .. import native
+
+        arr = native.decode_jpeg_bgr(data)
+        if arr is not None:
+            return array_to_image_row(arr, origin)
     from PIL import Image
 
     img = Image.open(_io.BytesIO(data))

@@ -11,15 +11,17 @@ backbone: a ResNet, or a ViT, whose attention runs the flash-attention
 kernel on the card; the output node is the bundle's
 `layer_names[cut_output_layers]`, taken from its module.
 
-The JAX package's JPEG-bytes fast path (native libjpeg decode into chunk
-buffers) is not ported yet: a mostly-JPEG bytes column raises
-NotImplementedError.  Image rows and uint8 arrays take the general path.
-The JAX package's `use_pallas` Param has no counterpart: every CUDA
-batch goes through the kernel, every CPU batch through its plain version.
+A mostly-JPEG bytes column takes the JAX package's fast path where the
+port's native decoder builds (`mmlspark_tpu_torch.native`): header-only
+shape probe, shape groups, each row decoded straight into its chunk
+buffer on the HostPipeline workers.  Image rows, uint8 arrays, other
+codecs and machines without a decoder take the general path.  The JAX
+package's `use_pallas` Param has no counterpart: every CUDA batch goes
+through the kernel, every CPU batch through its plain version.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 
@@ -28,7 +30,7 @@ from ..core.pipeline import Transformer
 from ..core.registry import register_stage
 from ..core.schema import Table, find_unused_column_name
 from ..device import resolve_device
-from ..io.image import decode_cells, image_row_to_array
+from ..io.image import decode_cells, image_row_to_array, safe_read
 from .bundle import TorchBundle
 from .torch_model import ImagePreprocess, TorchModel
 
@@ -43,7 +45,8 @@ IMAGENET_STD_BGR = [57.375, 57.12, 58.395]
 class ImageFeaturizer(Transformer):
     bundle = ComplexParam("TorchBundle backbone", default=None)
     model_name = Param("zoo model name (used when bundle unset)", default="resnet50")
-    input_col = Param("image column (image rows or arrays)", default="image")
+    input_col = Param("image column (image rows or encoded bytes)",
+                      default="image")
     output_col = Param("feature column", default="features")
     cut_output_layers = Param(
         "how many output layers to cut: 0 = logits, 1 = pooled features "
@@ -106,18 +109,21 @@ class ImageFeaturizer(Transformer):
             raise ValueError("ImageFeaturizer: bundle must declare input_shape")
         h, w, _c = bundle.input_shape
 
+        # Fast path for mostly-JPEG encoded-bytes columns: native JPEG decode
+        # straight into chunk buffers on the HostPipeline workers,
+        # overlapped with the device forward — the host never materializes
+        # per-image arrays or re-stacks them.  Columns dominated by other
+        # codecs keep the general path (thread-pooled PIL decode).
         col = table[self.input_col]
         if len(col) and all(v is None or isinstance(v, (bytes, bytearray))
                             for v in col):
+            from .. import native
+
             n_jpeg = sum(1 for v in col
                          if v is not None and bytes(v[:3]) == b"\xff\xd8\xff")
             n_other = sum(1 for v in col if v is not None) - n_jpeg
-            if n_jpeg and n_jpeg >= n_other:
-                # where the JAX package takes its native JPEG fast path
-                raise NotImplementedError(
-                    "ImageFeaturizer: mostly-JPEG bytes columns (the native "
-                    "decode fast path) are not ported yet; decode to image "
-                    "rows or uint8 arrays")
+            if n_jpeg and n_jpeg >= n_other and native.jpeg_available():
+                return self._transform_bytes_streaming(table, bundle)
         # general path: host decodes, then per shape group the device runs
         # the channel fix, the fused resize+normalize kernel and the
         # backbone forward, fed as uint8 (ImagePreprocess + TorchModel)
@@ -136,6 +142,93 @@ class ImageFeaturizer(Transformer):
         model = self._model_for(bundle, tmp_feed)
         out = model.transform(feed)
         return out.drop(tmp_feed)
+
+    def _transform_bytes_streaming(self, table: Table,
+                                   bundle: TorchBundle) -> Table:
+        """JPEG-bytes fast path: header-only shape probe -> shape groups ->
+        native decode straight into [bs, H, W, C] chunk buffers on the
+        HostPipeline workers -> the device feed (TorchModel.run_grouped).
+        The full ImageFeaturizer.scala:137-184 stack with no intermediate
+        host copies."""
+        from .. import native
+
+        col = table[self.input_col]
+        n = len(col)
+        shapes: List[Any] = [None] * n
+        decoded: dict = {}  # idx -> ndarray for non-JPEG (PIL-decoded) rows
+        others: List[int] = []  # PNG/BMP/corrupt-header rows
+        for i, v in enumerate(col):
+            if v is None:
+                continue
+            b = bytes(v)
+            if b[:3] == b"\xff\xd8\xff":
+                shapes[i] = native.jpeg_probe(b)
+            if shapes[i] is None:
+                others.append(i)
+        if others:  # tolerant decode of the non-JPEG minority, thread-pooled
+            for i, row in zip(others,
+                              decode_cells(np.asarray(
+                                  [col[i] for i in others], dtype=object))):
+                if row is not None:
+                    arr = image_row_to_array(row)
+                    decoded[i] = arr
+                    shapes[i] = arr.shape
+
+        groups: "dict[tuple, List[int]]" = {}
+        for i, s in enumerate(shapes):
+            if s is not None:
+                groups.setdefault(tuple(s), []).append(i)
+
+        if not self.drop_na and any(s is None for s in shapes):
+            # fail before any decode/compute, like the general path does
+            raise ValueError(
+                "ImageFeaturizer: undecodable rows and drop_na=False")
+
+        device = resolve_device(self.device)
+        model = self._model_for(bundle, self.input_col)
+        _module, forward = model._executor(
+            bundle, model._fetch_name(bundle), device)
+        # `failed` is appended by the decode workers (list.append is
+        # atomic) and read only after run_grouped returns
+        failed: List[int] = []  # rows whose pixel decode failed every way
+
+        def build_chunk(shape, sel):
+            gh, gw, gc = shape
+            buf = np.zeros((len(sel), gh, gw, gc), np.uint8)
+            for j, i in enumerate(sel):
+                if i in decoded:
+                    buf[j] = decoded[i]
+                elif not native.decode_jpeg_bgr_into(bytes(col[i]), buf[j]):
+                    # the native decoder rejected it (CMYK/YCCK,
+                    # truncation): PIL fallback like decode_image before
+                    # dropping
+                    row = safe_read(bytes(col[i]))
+                    arr = (image_row_to_array(row)
+                           if row is not None else None)
+                    if arr is not None and arr.shape == (gh, gw, gc):
+                        buf[j] = arr
+                    else:
+                        failed.append(i)
+            return buf
+
+        feed_order, out_rows = model.run_grouped(
+            groups, build_chunk, forward, device)
+        results: List[Any] = [None] * n
+        for i, y in zip(feed_order, out_rows):
+            results[i] = np.asarray(y).reshape(-1)
+
+        bad = {i for i, s in enumerate(shapes) if s is None} | set(failed)
+        if bad:
+            if not self.drop_na:
+                raise ValueError(
+                    f"ImageFeaturizer: {len(bad)} undecodable rows and "
+                    "drop_na=False")
+            keep = np.array([i not in bad for i in range(n)])
+            table = table.filter(keep)
+            results = [r for i, r in enumerate(results) if i not in bad]
+        out = (np.stack(results) if results
+               else np.zeros((0,), np.float32))  # same empty shape as TorchModel
+        return table.with_column(self.output_col, out)
 
     def transform_schema(self, columns: List[str]) -> List[str]:
         if self.input_col not in columns:

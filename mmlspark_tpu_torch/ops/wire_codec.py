@@ -182,6 +182,10 @@ def decode_bytes(values: torch.Tensor, ends: torch.Tensor,
         raise ValueError("decode_bytes: values and ends must be contiguous")
     if n_pad >= 2 ** 31:
         raise ValueError("decode_bytes: n_pad must fit the int32 ends table")
+    if ends.data_ptr() % 16 or values.data_ptr() % 4:
+        raise ValueError("decode_bytes: the kernel reads ends 16 bytes and "
+                         "values 4 bytes at a time: ends must be 16-byte and "
+                         "values 4-byte aligned")
     out = torch.empty(int(n_pad), dtype=torch.uint8, device=values.device)
     lib = _kernel_lib()
     with torch.cuda.device(values.device):

@@ -28,8 +28,23 @@ B4's bf16 rounding of P, unnormalised against normalised; observed
 1.5e-2 at 2 layers); the normalize+unroll kernel 1e-6 abs (the JAX
 package's own limit; both sides round the same two f32 ops, so it is
 bit-exact); the RLE decode kernel exact to the byte.
+
+The port's JPEG decoder (`mmlspark_tpu_torch.native`) against the
+libjpeg digests of tests/jpeg_fixtures/: byte-exact where it builds on
+libjpeg; on nvJPEG (a machine without libjpeg's headers) a mean absolute
+difference of at most 16 levels on the digests' pixel sample and a mean
+of at most 1 level a channel — nvJPEG's chroma upsampling and colour
+rounding are not libjpeg's, which on the fixtures' uniform noise (the
+worst case for 4:2:0 chroma) gave 13.1-13.5 and -0.46..-0.50 on an H100
+machine; a channel swap or a wrong image would give tens of levels.  The
+JPEG featurizer on the card against its CPU run on the same decoded
+pixels at the featurizer test's f32 limits.
 """
+import base64
 import functools
+import hashlib
+import json
+import os
 
 import numpy as np
 import pytest
@@ -732,6 +747,82 @@ def test_rle_decode_kernel_is_byte_exact_on_card(cuda_device, name):
     np.testing.assert_array_equal(raw, arr)
 
 
+def _upper_bound_decode(values, ends, n_pad):
+    """The kernel's rule on any table: out[p] = values[r], r the first of
+    the first R-1 runs with ends[r] > p, else R-1."""
+    idx = np.searchsorted(ends[:-1], np.arange(n_pad), side="right")
+    return values[np.minimum(idx, len(values) - 1)]
+
+
+def _rle_tables():
+    """Tables the encoder does not make, (values, ends, n_pad)."""
+    rng = np.random.default_rng(5)
+    one = np.full(256, 3 * 8192, np.int32)  # one run over three tiles
+    inside = np.sort(rng.integers(0, 8192, 1 << 15)).astype(np.int32)
+    inside[-1] = 8192  # zero-length runs inside a tile: a huge window
+    short = np.sort(rng.integers(0, 20000, 4096)).astype(np.int32)
+    return {
+        "one_run": (np.arange(5, 261).astype(np.uint8), one, 3 * 8192),
+        "zero_length_inside": (rng.integers(0, 256, 1 << 15).astype(
+            np.uint8), inside, 8192),
+        "ends_short_of_n_pad": (rng.integers(0, 256, 4096).astype(np.uint8),
+                                short, 24576),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["straddle", "noise_one_tile", "one_tile"])
+def test_rle_decode_kernel_at_tile_edges(cuda_device, name):
+    """Runs that straddle the 8 KB tiles, R far above the tile count
+    (one tile of one-byte runs), and n_pad of exactly one tile."""
+    rng = np.random.default_rng(6)
+    arr = {"straddle": np.repeat(rng.integers(0, 256, 4000).astype(np.uint8),
+                                 37),
+           "noise_one_tile": rng.integers(0, 256, 8192, dtype=np.uint8),
+           "one_tile": np.repeat(rng.integers(0, 256, 64).astype(np.uint8),
+                                 128)}[name]
+    p = W.rle_encode(arr)
+    v = torch.from_numpy(p.values).to(cuda_device)
+    e = torch.from_numpy(p.ends).to(cuda_device)
+    got = W.decode_bytes(v, e, p.n_pad)
+    assert torch.equal(got, W.decode_bytes_plain(v, e, p.n_pad))
+    assert got.cpu().numpy()[:p.nbytes_raw].tobytes() == arr.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_rle_tables()))
+def test_rle_decode_kernel_follows_its_rule_on_any_table(cuda_device, name):
+    values, ends, n_pad = _rle_tables()[name]
+    got = W.decode_bytes(torch.from_numpy(values).to(cuda_device),
+                         torch.from_numpy(ends).to(cuda_device), n_pad)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _upper_bound_decode(values, ends, n_pad))
+
+
+@pytest.mark.cuda
+def test_rle_decode_kernel_one_word_and_out_of_order_ends(cuda_device):
+    fn = W._kernel_lib().mmk_rle_decode
+    stream = torch.cuda.current_stream().cuda_stream
+    # n_pad of one 16-byte word, through the C entry (the wire pads to 128)
+    values = np.arange(4, dtype=np.uint8)
+    ends = np.array([3, 7, 16, 16], np.int32)
+    v = torch.from_numpy(values).to(cuda_device)
+    e = torch.from_numpy(ends).to(cuda_device)
+    out = torch.empty(16, dtype=torch.uint8, device=cuda_device)
+    assert fn(v.data_ptr(), e.data_ptr(), 4, out.data_ptr(), 16, stream) == 0
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  _upper_bound_decode(values, ends, 16))
+    # ends out of order: any output, but no fault (every access in bounds)
+    rng = np.random.default_rng(7)
+    e = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, 1 << 15,
+                                      dtype=np.int64).astype(np.int32)
+                         ).to(cuda_device)
+    v = torch.from_numpy(rng.integers(0, 256, 1 << 15).astype(np.uint8)
+                         ).to(cuda_device)
+    assert W.decode_bytes(v, e, 1 << 20).numel() == 1 << 20
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_rle_decode_kernel_rejects_what_it_cannot_take(cuda_device):
     p = W.rle_encode(np.zeros(300, np.uint8))
@@ -743,6 +834,85 @@ def test_rle_decode_kernel_rejects_what_it_cannot_take(cuda_device):
         W.decode_bytes(torch.stack([v, v], 1)[:, 0], e, p.n_pad)  # strided
     with pytest.raises(ValueError):
         W.decode_bytes(v, e.cpu(), p.n_pad)
+    # the kernel's vector loads: ends 16-byte, values 4-byte aligned
+    e_off = torch.zeros(e.numel() + 1, dtype=torch.int32,
+                        device=cuda_device)[1:].copy_(e)
+    v_off = torch.zeros(v.numel() + 1, dtype=torch.uint8,
+                        device=cuda_device)[1:].copy_(v)
+    with pytest.raises(ValueError, match="aligned"):
+        W.decode_bytes(v, e_off, p.n_pad)
+    with pytest.raises(ValueError, match="aligned"):
+        W.decode_bytes(v_off, e, p.n_pad)
+
+
+# nvJPEG against libjpeg on the fixtures (see the module docstring)
+NVJPEG_SAMPLE_MEAN_ABS = 16.0
+NVJPEG_CHANNEL_MEAN = 1.0
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "jpeg_fixtures")
+
+
+def _jpeg_digests():
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_jpeg_digests()["fixtures"]))
+def test_native_jpeg_decoder_against_the_fixture_digests(cuda_device, name):
+    from mmlspark_tpu_torch import native
+
+    assert native.jpeg_available(), native.build_error()
+    d = _jpeg_digests()
+    want = d["fixtures"][name]
+    with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+        blob = f.read()
+    got = native.decode_jpeg_bgr(blob)
+    if want is None:  # CMYK: refused; the featurizer falls back to PIL
+        assert got is None
+        return
+    assert list(got.shape) == want["shape"]
+    if native.jpeg_backend() == "libjpeg":
+        assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
+        return
+    k = d["sample_stride"]
+    sample = np.frombuffer(base64.b64decode(want["sample"]), np.uint8)
+    diff = np.abs(got[::k, ::k].astype(np.int16).ravel()
+                  - sample.astype(np.int16))
+    channel = ((got.reshape(-1, got.shape[2]).sum(0, np.int64)
+                - np.array(want["channel_sums"])) / got[..., 0].size)
+    assert diff.mean() <= NVJPEG_SAMPLE_MEAN_ABS, diff.mean()
+    assert np.abs(channel).max() <= NVJPEG_CHANNEL_MEAN, channel
+    out = np.zeros_like(got)
+    assert native.decode_jpeg_bgr_into(blob, out)
+    np.testing.assert_array_equal(out, got)
+
+
+@pytest.mark.cuda
+def test_jpeg_featurizer_on_card_matches_its_cpu_run(cuda_device):
+    blobs = []
+    for n in sorted(os.listdir(JPEG_FIXTURES)):
+        if n.startswith("bench_") or n == "cmyk_40x30.jpg":
+            with open(os.path.join(JPEG_FIXTURES, n), "rb") as f:
+                blobs.append(f.read())
+    blobs = blobs * 2 + [b"not an image"]
+    state = init_state_dict(get_builder("resnet18")(num_classes=10), seed=0,
+                            random_bn=True)
+    bundle = TorchBundle("resnet18", {"num_classes": 10}, state_dict=state,
+                         input_shape=(64, 64, 3), dtype="float32")
+    table = Table({"image": blobs, "id": np.arange(len(blobs))})
+    K.LAUNCHES = 0
+    got = ImageFeaturizer(bundle=bundle, batch_size=3).transform(table)
+    # the three fixture sizes and the CMYK 40x30 (by PIL or dropped),
+    # chunks of 3: 256^2 (4 rows) 2, 224^2 2, 320x240 2, 40x30 1
+    ref = ImageFeaturizer(bundle=bundle, batch_size=3,
+                          device="cpu").transform(table)
+    np.testing.assert_array_equal(got["id"], ref["id"])
+    assert got["features"].shape[1] == 512 and 12 <= got.num_rows <= 14
+    assert K.LAUNCHES == 6 + (got.num_rows > 12)
+    scale = float(np.abs(ref["features"]).max())
+    np.testing.assert_allclose(got["features"], ref["features"], rtol=1e-3,
+                               atol=1e-3 * scale)
 
 
 @pytest.mark.cuda

@@ -45,6 +45,13 @@ def test_blocked_names_are_exact():
     assert not _blocked("jaxtyping")
 
 
+def test_the_native_jpeg_decoder_is_covered():
+    """The port's host JPEG decoder is one of the modules both checks
+    below scan and import."""
+    assert "mmlspark_tpu_torch.native" in _modules()
+    assert os.path.join(PKG, "native", "__init__.py") in _sources()
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_source_imports_jax_or_the_jax_package(path):
     with open(path, encoding="utf-8") as f:
