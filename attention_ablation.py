@@ -20,7 +20,6 @@ from __future__ import annotations
 import ctypes
 import math
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -109,32 +108,15 @@ VARIANTS = {
 }
 
 
-def build_all(_build):
-    """Start one nvcc per variant, all together; name -> loaded library."""
-    out_dir = os.path.join(_build.BUILD_DIR, "ablation")
-    os.makedirs(out_dir, exist_ok=True)
-    nvcc = _build._nvcc()
-    procs = {}
+def build_all():
+    """name -> loaded library of each variant, built all together."""
+    from mmlspark_tpu_torch.ops import _ablation, _build
+
+    texts = {}
     for name, (src, patches, _shapes) in VARIANTS.items():
         text = open(os.path.join(_build.CSRC, src), encoding="utf-8").read()
-        for old, new in patches:
-            if old not in text:
-                raise SystemExit(f"{name}: the source no longer holds {old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w", encoding="utf-8") as f:
-            f.write(text)
-        so = os.path.join(out_dir, f"{name}.so")
-        procs[name] = (so, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        libs[name] = ctypes.CDLL(so)
-    return libs
+        texts[name] = _ablation.patched(text, patches, name)
+    return _ablation.build_variants(texts, "attention", ("-I", _build.CSRC))
 
 
 def launcher(lib, name, src, q, k, v, do, lse, delta, causal):
@@ -209,10 +191,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("attention_ablation: needs a CUDA card")
     sys.path.insert(0, ROOT)
-    from mmlspark_tpu_torch.ops import _build
+    from mmlspark_tpu_torch.ops import _ablation
     from mmlspark_tpu_torch.ops import attention_kernels as A
 
-    libs = build_all(_build)
+    libs = build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape, causal in (VIT, PREFILL, TRAIN):
         q, k, v, do = (torch.randn(shape, device="cuda", generator=gen)
@@ -229,10 +211,7 @@ def main() -> None:
             for name, call in calls.items():
                 print(f"[ablation] {name} {list(shape)} causal={causal} "
                       f"round {rnd}: {cuda_ms(call):.4f} ms", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout else "")
+    print(_ablation.card())
 
 
 if __name__ == "__main__":

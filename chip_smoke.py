@@ -9,7 +9,9 @@ exit, no result line) if anything in it fails:
 1. device: a CUDA card must be present; its name and power limit are
    read with nvidia-smi.
 2. build: every kernel of `mmlspark_tpu_torch/csrc/` is compiled (one
-   nvcc per source, all at once) into `mmlspark_tpu_torch/csrc/build/`;
+   nvcc per source, all at once, beside the nvJPEG decoder with its C2
+   kernel, `mmlspark_tpu_torch/native/`) into `mmlspark_tpu_torch/csrc/
+   build/` (and `native/build/`);
    each one's register and spill report is printed, and for the TMA /
    wgmma kernels of B4, B5 and B6 (bf16, D <= 128) their registers at
    launch, spills (the run fails on any) and shared memory a block; the
@@ -40,11 +42,14 @@ exit, no result line) if anything in it fails:
    else nvJPEG from the CUDA toolkit; the run fails without one) holds
    each committed fixture of tests/jpeg_fixtures/ (bench.py's recipe:
    uniform noise, quality 85) against its libjpeg digest — byte-exact on
-   libjpeg, within a stated mean difference on nvJPEG, whose max abs
-   difference and share of differing values are printed.  Then
+   libjpeg; on nvJPEG, whose planes C2 upsamples and converts with
+   libjpeg's arithmetic, within a sample mean abs difference of 0.089
+   levels and 0.0077 a channel (its max difference and share of
+   differing values printed); the run fails on another backend.  Then
    `ImageFeaturizer.transform` with phase 4's ResNet-50 over a bytes
    column of 192 JPEGs, 64 per size (phase 4's three shape groups): B1
-   launches once per chunk and nothing else; the features are (192,
+   launches once per chunk, C2 once per JPEG, nothing else; the features
+   are (192,
    2048), finite, within 1e-3 relative L2 of phase 4's uint8 path on the
    same decoded pixels and within 3e-2 of an f32 CPU run of the port on
    12 rows; images/s over 3 runs, bytes and uint8 in turns, with the
@@ -137,11 +142,32 @@ exit, no result line) if anything in it fails:
    feed_bench chunk and at the worst case beside its bound (the bytes of
    the runs the chunk needs and of the output) and
    `torch.repeat_interleave`.
-9. record: a `{"kernels": [...]}` JSON line (all eight kernels), the
-   nvidia-smi line, and last the `{"ok": true, "device": ...}` line.
+11. resumable training and C2 (after phase 10; cuDNN's deterministic
+   algorithms from here, cuBLAS's `:4096:8` workspace set at the top):
+   (a) ResNet-18 CIFAR (bf16, SGD 0.1 / 0.9, batch 256, 40 steps over 2
+   epochs of 5,120 images) through `fit_epochs_resumable` with a
+   checkpoint every 10 steps, killed by `fault_point("training.step")`
+   at step 25 and resumed: every number of the state equal to the
+   uninterrupted run's, bit for bit; a guard drill (`training.loss_nan`
+   at step 5: quarantined, rolled back to the floor checkpoint, a finite
+   final loss, `quarantine.json` holding the step); the checkpoint's
+   bytes and save / restore / verify seconds.
+   (b) `DeepVisionClassifier(resnet18, 224x224, batch 64)` on a bytes
+   column of the six bench fixtures repeated to 256 rows: 2 epochs, then
+   1 and 2 on one `checkpoint_dir`, the resumed fit equal to the
+   uninterrupted one bit for bit; B1 once a step and C2 once a row,
+   exactly.
+   (c) C2 against its plain version, byte for byte, on every colour
+   fixture's nvJPEG planes and against the decoder's own pixels; timed
+   at one image of each size.
+9. record: a `{"kernels": [...]}` JSON line (the eight TPU kernels and
+   C2), the nvidia-smi line, and last the `{"ok": true, "device": ...}`
+   line.
 
-Imports nothing of JAX or of the JAX package, and no PIL: the images,
-tokens and weights are made from seeds.
+Imports nothing of JAX or of the JAX package, and no PIL itself (phase
+11 (b) resizes through the port, which uses PIL as the JAX package
+does): the images, tokens and weights are made from seeds, the JPEGs
+are the committed fixtures.
 """
 import json
 import re
@@ -150,6 +176,10 @@ import os
 import subprocess
 import sys
 import time
+
+# phase 11 compares training runs bit for bit: cuBLAS takes a fixed
+# workspace (its deterministic setting) before torch initialises it
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -202,14 +232,15 @@ TIMED_RUNS = 5
 # the JPEG path (phase 4b): its features against phase 4's uint8 path on
 # the same decoded pixels (the same forward, so only cuDNN's choice of
 # algorithm between two calls can differ); nvJPEG against the libjpeg
-# digests: its chroma upsampling and colour rounding are not libjpeg's,
-# which on the fixtures' uniform noise (the worst case for 4:2:0 chroma)
-# gave a mean absolute difference of 13.1-13.5 levels on the digests'
-# pixel sample and -0.46..-0.50 a channel on an H100 machine; a channel
-# swap or a wrong image gives tens of levels
+# digests: with the C2 kernel upsampling and converting nvJPEG's planes by
+# libjpeg's arithmetic, only nvJPEG's IDCT differs from libjpeg's, which
+# on the fixtures' uniform noise gave a mean absolute difference of
+# 0.030-0.059 levels on the digests' pixel sample (max 3) and at most
+# 0.0051 a channel on an H100 machine; the limits are 1.5x the worst of
+# those (nvJPEG's own chroma path gave 13.1-13.5 and 0.46-0.50)
 JPEG_UINT8_RTOL = 1e-3
-NVJPEG_SAMPLE_MEAN_ABS = 16.0
-NVJPEG_CHANNEL_MEAN = 1.0
+NVJPEG_SAMPLE_MEAN_ABS = 0.089
+NVJPEG_CHANNEL_MEAN = 0.0077
 
 IMG = 224
 BATCH = 64
@@ -242,6 +273,11 @@ PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_merge_kernel")
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 16, 1024, 8, 3e-4
 CIFAR_BATCH, CIFAR_STEPS = 256, 40
 DV_ROWS, DV_CLASSES, DV_BATCH, DV_EPOCHS = 2048, 10, 256, 2
+# resumable training (phase 11): the CIFAR configuration through
+# fit_epochs_resumable, checkpoints every 10 steps, killed at step 25;
+# DeepVisionClassifier at 224x224 on a bytes column of the JPEG fixtures
+RESUME_EVERY, RESUME_KILL_AT, RESUME_NAN_AT = 10, 25, 5
+DVJ_ROWS, DVJ_BATCH = 256, 64
 
 
 # image stages and the compressed wire (phase 10): UnrollImage's B2
@@ -257,12 +293,15 @@ PROFILE_LEAD_S = 0.5
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
            "paged_decode_attention_int8", "flash_attention_bwd_dkdv",
-           "flash_attention_bwd_dq", "fused_normalize_unroll", "rle_decode")
+           "flash_attention_bwd_dq", "fused_normalize_unroll", "rle_decode",
+           "ycc_to_bgr")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 def zero_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0 (C2's counter lives in the
+    decoder library)."""
+    from mmlspark_tpu_torch import native
     from mmlspark_tpu_torch.ops import attention_kernels as A
     from mmlspark_tpu_torch.ops import image_kernels as K
     from mmlspark_tpu_torch.ops import paged_attention as PA
@@ -271,10 +310,12 @@ def zero_launches() -> None:
     K.LAUNCHES = A.LAUNCHES = PA.LAUNCHES = PA.LAUNCHES_INT8 = 0
     A.LAUNCHES_BWD_DKDV = A.LAUNCHES_BWD_DQ = 0
     K.LAUNCHES_UNROLL = W.LAUNCHES = 0
+    native.reset_ycc_launches()
 
 
 def read_launches() -> dict:
     """{kernel name: launches since zero_launches()}."""
+    from mmlspark_tpu_torch import native
     from mmlspark_tpu_torch.ops import attention_kernels as A
     from mmlspark_tpu_torch.ops import image_kernels as K
     from mmlspark_tpu_torch.ops import paged_attention as PA
@@ -283,7 +324,7 @@ def read_launches() -> dict:
     return dict(zip(KERNELS, (K.LAUNCHES, A.LAUNCHES, PA.LAUNCHES,
                               PA.LAUNCHES_INT8, A.LAUNCHES_BWD_DKDV,
                               A.LAUNCHES_BWD_DQ, K.LAUNCHES_UNROLL,
-                              W.LAUNCHES)))
+                              W.LAUNCHES, native.ycc_launches())))
 
 
 def fail(msg: str) -> None:
@@ -907,6 +948,7 @@ def check_jpeg_decoder(native, blobs, digests):
     backend = native.jpeg_backend()
     stride = digests["sample_stride"]
     by_size = {}
+    worst = {"max": 0, "mean": 0.0, "channel": 0.0}
     for name, want in sorted(digests["fixtures"].items()):
         t0 = time.perf_counter()
         got = native.decode_jpeg_bgr(blobs[name])
@@ -929,9 +971,13 @@ def check_jpeg_decoder(native, blobs, digests):
             f": sha256 equals libjpeg's: {exact}; on the every-{stride}th-"
             f"pixel sample max abs diff {int(diff.max())}, share differing "
             f"{float(np.mean(diff > 0)):.4f}, mean abs diff "
-            f"{float(diff.mean()):.3f} (limit {NVJPEG_SAMPLE_MEAN_ABS}); "
+            f"{float(diff.mean()):.4f} (limit {NVJPEG_SAMPLE_MEAN_ABS}); "
             f"channel mean diff {np.round(channel, 4).tolist()} (limit "
             f"{NVJPEG_CHANNEL_MEAN})")
+        worst = {"max": max(worst["max"], int(diff.max())),
+                 "mean": max(worst["mean"], float(diff.mean())),
+                 "channel": max(worst["channel"],
+                                float(np.abs(channel).max()))}
         if backend == "libjpeg" and not exact:
             fail(f"jpeg {name}: libjpeg pixels differ from the digest")
         if diff.mean() > NVJPEG_SAMPLE_MEAN_ABS or \
@@ -939,6 +985,9 @@ def check_jpeg_decoder(native, blobs, digests):
             fail(f"jpeg {name}: the decoder is past its stated difference")
         if name.startswith("bench_"):
             by_size.setdefault(tuple(want["shape"][:2]), []).append(got)
+    log(f"[jpeg] worst over the fixtures by {backend}: max abs diff "
+        f"{worst['max']}, sample mean abs diff {worst['mean']:.4f}, channel "
+        f"mean diff {worst['channel']:.4f}")
     return by_size
 
 
@@ -956,6 +1005,9 @@ def jpeg_path(repo, n_chunks, card):
     t0 = time.perf_counter()
     if not native.jpeg_available():
         fail(f"no JPEG decoder on the card's machine: {native.build_error()}")
+    if native.jpeg_backend() != "nvjpeg":
+        fail(f"the decoder built on {native.jpeg_backend()}: the C2 kernel "
+             "is the nvJPEG backend's")
     log(f"[jpeg] decoder: {native.jpeg_backend()}, ready in "
         f"{time.perf_counter() - t0:.2f} s")
     blobs, digests = jpeg_fixtures()
@@ -980,9 +1032,11 @@ def jpeg_path(repo, n_chunks, card):
     feats = out["features"]
     log(f"[jpeg] bytes column of {N_IMAGES} JPEGs: transform {first_s:.3f} "
         f"s; launches {launches} (chunks={n_chunks})")
-    if launches != dict(NO_LAUNCHES, affine_resample=n_chunks):
+    if launches != dict(NO_LAUNCHES, affine_resample=n_chunks,
+                        ycc_to_bgr=N_IMAGES):
         fail(f"the JPEG path launched the kernels {launches} times, "
-             f"expected affine_resample once per chunk ({n_chunks})")
+             f"expected affine_resample once per chunk ({n_chunks}) and "
+             f"ycc_to_bgr once per JPEG ({N_IMAGES})")
     if feats.shape != (N_IMAGES, 2048) or not np.isfinite(feats).all():
         fail(f"JPEG features: shape {feats.shape}, "
              f"finite={np.isfinite(feats).all()}")
@@ -2391,6 +2445,293 @@ def compressed_wire_path(W, card):
     return launches, chunks[0]
 
 
+def ycc_bound(layout, planes) -> tuple:
+    """(bound ms, "bytes") of C2 on one image: its planes read once and
+    the BGR image written once, over the card's memory rate (a few integer
+    operations a byte: far below the compute bound)."""
+    nbytes = sum(p.size for p in planes) + layout.height * layout.width * 3
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_ycc(native, blobs):
+    """Phase 11 (c): C2 against its plain version on every colour
+    fixture's nvJPEG planes, byte for byte, and against the decoder's own
+    output; timed at the JPEG path's three image sizes (one of each,
+    summed).  Returns the record's numbers."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.ops.jpeg_color import ycc_to_bgr, ycc_to_bgr_plain
+
+    timed = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    sizes_timed = set()
+    err = 0
+    for name in sorted(blobs):
+        got = native.decode_jpeg_planes(blobs[name])
+        if got is None or len(got[1]) != 3:
+            continue  # gray: no C2; CMYK: refused
+        layout, planes = got
+        args = ([torch.from_numpy(p).cuda() for p in planes], layout.factors,
+                layout.height, layout.width, layout.color)
+        kern = ycc_to_bgr(*args)
+        plain = ycc_to_bgr_plain(*args)
+        torch.cuda.synchronize()
+        decoded = native.decode_jpeg_bgr(blobs[name])
+        e = int((kern.int() - plain.int()).abs().max())
+        err = max(err, e)
+        same_route = np.array_equal(kern.cpu().numpy(), decoded)
+        log(f"[c2] {name} {layout.height}x{layout.width} factors "
+            f"{layout.factors} planes {[p.shape for p in planes]}: kernel vs "
+            f"plain max abs diff {e}; kernel == the decoder's pixels: "
+            f"{same_route}")
+        if e != 0 or not same_route:
+            fail(f"C2 on {name}: the kernel differs from its plain version "
+                 f"({e}) or from the decode ({same_route})")
+        hw = (layout.height, layout.width)
+        if name.startswith("bench_") and hw not in sizes_timed:
+            sizes_timed.add(hw)
+            ms = queued_ms(lambda: ycc_to_bgr(*args))
+            plain_ms = cuda_ms(lambda: ycc_to_bgr_plain(*args), 10)
+            bound, _ = ycc_bound(layout, planes)
+            log(f"[c2] {hw}: kernel {ms:.4f} ms (queued behind a spin), "
+                f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes) on "
+                f"one image")
+            timed = {"ms": timed["ms"] + ms,
+                     "plain_ms": timed["plain_ms"] + plain_ms,
+                     "bound_ms": timed["bound_ms"] + bound}
+    if len(sizes_timed) != len(SIZES):
+        fail(f"C2 timed at {sorted(sizes_timed)}, not the three sizes")
+    return dict(timed, err=err, bound_by="bytes", library_ms=None)
+
+
+def _state_numbers(state):
+    """{name: host tensor} of every number a TrainState holds: masters and
+    buffers, optimizer state, the bf16 working copy, the step."""
+    out = {f"module/{k}": v.detach().cpu().clone()
+           for k, v in state.module.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            out[f"optimizer/{i}/{k}"] = v.detach().cpu().clone()
+    for i, p in enumerate(state.work.parameters()):
+        out[f"work/{i}"] = p.detach().cpu().clone()
+    return out
+
+
+def _max_diff(a, b) -> tuple:
+    """(leaves not bit-equal, max abs difference) of two number dicts."""
+    import torch
+
+    if sorted(a) != sorted(b):
+        fail(f"the states hold other leaves: {sorted(set(a) ^ set(b))}")
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    diff = max([float((a[k].double() - b[k].double()).abs().max())
+                for k in bad] or [0.0])
+    return bad, diff
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _sub, files in os.walk(path) for f in files)
+
+
+def resumable_train_path(card):
+    """Phase 11 (a); returns {kernel: launches} of the counted runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import telemetry
+    from mmlspark_tpu_torch.models import training as TR
+    from mmlspark_tpu_torch.models.checkpoint import CheckpointManager
+    from mmlspark_tpu_torch.models.guard import TrainingGuard
+    from mmlspark_tpu_torch.models.resnet import resnet18
+    from mmlspark_tpu_torch.utils.faults import (FAULTS, FaultPlan,
+                                                 InjectedCrash)
+
+    steps_per_epoch = CIFAR_STEPS // 2
+    rng = np.random.default_rng(0)
+    n = steps_per_epoch * CIFAR_BATCH
+    images = rng.standard_normal((n, 32, 32, 3), dtype=np.float32)
+    labels = rng.integers(0, 10, n).astype(np.int32)
+    root = tempfile.mkdtemp(prefix="resume-", dir=os.path.join(ROOT, "build"))
+
+    def fresh():
+        return TR.init_train_state(resnet18(num_classes=10),
+                                   TR.sgd(0.1, 0.9), seed=0,
+                                   compute_dtype="bfloat16")
+
+    def fit(name, **kw):
+        kw = dict(dict(epochs=2, checkpoint_every=RESUME_EVERY, seed=0), **kw)
+        step = None if "step_factory" in kw else TR.make_train_step(10)
+        return TR.fit_epochs_resumable(step, fresh(), images, labels,
+                                       CIFAR_BATCH, os.path.join(root, name),
+                                       **kw)
+
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        ref, ref_m = fit("ref")
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        crash = FaultPlan(seed=1).on("training.step", nth=[RESUME_KILL_AT],
+                                     error=InjectedCrash)
+        try:
+            with FAULTS.arm(crash):
+                fit("kill")
+            fail("the injected kill at step "
+                 f"{RESUME_KILL_AT} did not stop fit_epochs_resumable")
+        except InjectedCrash:
+            pass
+        kept = sorted(int(d) for d in os.listdir(os.path.join(root, "kill"))
+                      if d.isdigit())
+        resumes = telemetry.counters().get("training.resume", 0)
+        res, res_m = fit("kill")
+        torch.cuda.synchronize()
+        resumed = telemetry.counters().get("training.resume", 0) - resumes
+        launches = read_launches()
+        bad, diff = _max_diff(_state_numbers(ref), _state_numbers(res))
+        log(f"[resume] ResNet-18 CIFAR (bf16, SGD 0.1 / 0.9, batch "
+            f"{CIFAR_BATCH}) through fit_epochs_resumable, {CIFAR_STEPS} "
+            f"steps, a checkpoint every {RESUME_EVERY}: uninterrupted "
+            f"{ref_s:.3f} s, loss {ref_m['loss']:.6f}; killed at step "
+            f"{RESUME_KILL_AT} (checkpoints left {kept}), resumed "
+            f"({resumed} resume) to step {res.step}, loss "
+            f"{res_m['loss']:.6f}; {len(bad)} leaves differ, max abs diff "
+            f"{diff:.3e}; launches {launches} on {card}")
+        if kept != [RESUME_EVERY, 2 * RESUME_EVERY] or resumed != 1:
+            fail(f"the kill left checkpoints {kept}, resumed {resumed}")
+        if bad or res.step != ref.step or res_m != ref_m:
+            fail(f"the resumed run is not the uninterrupted one bit for "
+                 f"bit: {bad[:5]} (max abs diff {diff:.3e})")
+        if launches != NO_LAUNCHES:
+            fail(f"the CIFAR train path launched ported kernels: {launches}")
+
+        # the guard drill: a poisoned batch before the first periodic
+        # checkpoint rolls back to the floor checkpoint (step 0)
+        guard = TrainingGuard(hang_timeout_s=600.0)
+        rollbacks = telemetry.counters().get("training.rollback", 0)
+        drill = FaultPlan(seed=5).on("training.loss_nan", nth=[RESUME_NAN_AT])
+        with FAULTS.arm(drill):
+            g_state, g_m = fit("guard", guard=guard, step_factory=lambda s:
+                               TR.make_train_step(10, lr_scale=s))
+        with open(os.path.join(root, "guard", "quarantine.json")) as f:
+            quarantined = json.load(f)["quarantined"]
+        spans = [sp for sp in telemetry.recent_spans()
+                 if sp.get("name") == "training.guard.rollback"]
+        restored = spans[-1]["attrs"].get("restored_step") if spans else None
+        log(f"[resume] guard drill: training.loss_nan at step "
+            f"{RESUME_NAN_AT}: quarantined {sorted(guard.quarantined)}, "
+            f"rollbacks {guard.rollbacks} (to step {restored}), lr scale "
+            f"{guard.lr_scale}, final step {g_state.step}, loss "
+            f"{g_m['loss']:.6f}; quarantine.json {quarantined}")
+        if (guard.quarantined != {RESUME_NAN_AT} or guard.rollbacks != 1 or
+                telemetry.counters().get("training.rollback", 0)
+                != rollbacks + 1 or restored != 0 or
+                quarantined != [RESUME_NAN_AT] or
+                g_state.step != CIFAR_STEPS - 1 or
+                not math.isfinite(g_m["loss"])):
+            fail("the guard drill did not quarantine, roll back to the "
+                 "floor and finish")
+        if not all(torch.isfinite(v).all() for v in
+                   _state_numbers(g_state).values()):
+            fail("the guard drill left a non-finite number in the state")
+
+        # checkpoint costs: a save of the final state, its verified
+        # restore into a live state, the verification alone
+        mgr = CheckpointManager(os.path.join(root, "cost"))
+        t0 = time.perf_counter()
+        mgr.save(ref, step=CIFAR_STEPS)
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(os.path.join(root, "cost", str(CIFAR_STEPS)))
+        hist = telemetry.histogram("checkpoint.verify.latency")
+        v0 = hist.snapshot()
+        target = fresh()
+        t0 = time.perf_counter()
+        mgr.restore(CIFAR_STEPS, template=target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        v1 = hist.snapshot()
+        verify_s = v1["sum"] - v0["sum"]
+        bad, _ = _max_diff(_state_numbers(ref), _state_numbers(target))
+        log(f"[resume] checkpoint of the ResNet-18 state: {nbytes} bytes "
+            f"in {len(os.listdir(os.path.join(root, 'cost', str(CIFAR_STEPS))))}"
+            f" files, save {save_s:.4f} s (synchronous, fsync'd), restore "
+            f"{restore_s:.4f} s of which crc32 verification {verify_s:.4f} s;"
+            f" restored state bit-equal: {not bad}")
+        if bad:
+            fail(f"a checkpoint round trip changed {bad[:5]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def deep_vision_resume_path(card):
+    """Phase 11 (b); returns {kernel: launches} of the counted fits."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.deep_vision import DeepVisionClassifier
+
+    blobs, _digests = jpeg_fixtures()
+    names = sorted(n for n in blobs if n.startswith("bench_"))
+    column = [blobs[names[i % len(names)]] for i in range(DVJ_ROWS)]
+    labels = np.array([i % len(names) % 2 for i in range(DVJ_ROWS)])
+    table = Table({"image": column, "label": labels})
+    root = tempfile.mkdtemp(prefix="dv-", dir=os.path.join(ROOT, "build"))
+    steps = math.ceil(DVJ_ROWS / DVJ_BATCH)
+    kw = dict(backbone="resnet18", height=IMG, width=IMG,
+              batch_size=DVJ_BATCH, seed=0)
+    counted = dict(NO_LAUNCHES)
+    try:
+        runs = {}
+        for name, epochs, ckpt in (("full", 2, ""), ("first", 1, root),
+                                   ("resumed", 2, root)):
+            zero_launches()
+            t0 = time.perf_counter()
+            runs[name] = DeepVisionClassifier(
+                epochs=epochs, checkpoint_dir=ckpt, **kw).fit(table)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = read_launches()
+            trained = epochs if name != "resumed" else 1
+            want = dict(NO_LAUNCHES, affine_resample=steps * trained,
+                        ycc_to_bgr=DVJ_ROWS)
+            log(f"[dv-resume] {name}: DeepVisionClassifier(resnet18, "
+                f"{IMG}x{IMG}, batch {DVJ_BATCH}, epochs={epochs}"
+                f"{', checkpoint_dir' if ckpt else ''}) on {DVJ_ROWS} JPEG "
+                f"bytes rows in {dt:.3f} s; loss_history "
+                f"{runs[name].loss_history}; launches {launches}")
+            if launches != want:
+                fail(f"DeepVisionClassifier {name}: launches {launches}, "
+                     f"expected {want} (B1 once a step, C2 once a row)")
+            counted = {k: counted[k] + launches[k] for k in KERNELS}
+        a = runs["full"].bundle.state_dict
+        b = runs["resumed"].bundle.state_dict
+        bad = [k for k in a if not np.array_equal(np.asarray(a[k]),
+                                                  np.asarray(b[k]))]
+        diff = max([float(np.abs(np.asarray(a[k], np.float64)
+                                 - np.asarray(b[k], np.float64)).max())
+                    for k in bad] or [0.0])
+        log(f"[dv-resume] 1 + 1 epochs on one checkpoint_dir "
+            f"(checkpoints {sorted(os.listdir(root))}) against 2 epochs: "
+            f"{len(bad)} tensors differ, max abs diff {diff:.3e} on {card}")
+        if bad or runs["resumed"].loss_history != \
+                runs["full"].loss_history[1:] or \
+                runs["first"].loss_history != runs["full"].loss_history[:1]:
+            fail(f"the resumed DeepVisionClassifier fit is not the "
+                 f"uninterrupted one: {bad[:5]} (max abs diff {diff:.3e})")
+        if not all(math.isfinite(v) for v in runs["full"].loss_history):
+            fail("DeepVisionClassifier on JPEG bytes: non-finite loss")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counted
+
+
 def ptxas_entries(report: str):
     """[(entry, registers, spill store bytes, spill load bytes)] from an
     `nvcc -Xptxas -v` report."""
@@ -2480,10 +2821,37 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 2. build ------------------------------------------------------
+    # the decoder library (nvJPEG with the C2 kernel) builds beside the
+    # kernels of csrc/, all at once
+    import threading
+    from mmlspark_tpu_torch import native
+
+    decoder = {}
+
+    def build_decoder():
+        t = time.perf_counter()
+        try:
+            decoder["ok"] = native.jpeg_available()
+        except native.DecoderError as e:
+            decoder["error"] = str(e)
+        decoder["s"] = time.perf_counter() - t
+
+    builder = threading.Thread(target=build_decoder)
     t0 = time.perf_counter()
+    builder.start()
     secs = _build.build()
+    builder.join()
     log(f"[build] {len(secs)} kernel source(s) in "
-        f"{time.perf_counter() - t0:.2f} s: {secs}")
+        f"{time.perf_counter() - t0:.2f} s: {secs}; the JPEG decoder "
+        f"({native.jpeg_backend()}) in {decoder['s']:.2f} s")
+    if not decoder.get("ok") or native.jpeg_backend() != "nvjpeg":
+        fail(f"the nvJPEG decoder with the C2 kernel did not build: "
+             f"{decoder.get('error') or native.build_error()}")
+    for entry, regs, st, ld in ptxas_entries(native.build_log()):
+        log(f"[build] native jpeg_ycc.cu {entry}: {regs} registers, spill "
+            f"stores {st} B, loads {ld} B")
+        if st or ld:
+            fail(f"{entry} spills registers")
     for name in secs:
         for line in _build.ptxas_report(name).splitlines():
             if "Compiling entry" in line or "registers" in line or \
@@ -2600,6 +2968,16 @@ def main() -> None:
     rle_extra = [check_rle(W, name, arr, timed=name == "uniform_64x224x224x3")
                  for name, arr in rle_cases(images).items()]
     paths += [stage_launches, wire_launches]
+
+    # ---- 11. resumable training and C2 ---------------------------------
+    # both resume checks compare runs bit for bit: cuDNN's deterministic
+    # algorithms from here on (cuBLAS's workspace is set at the top)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    paths += [resumable_train_path(card), deep_vision_resume_path(card)]
+    from mmlspark_tpu_torch import native
+
+    ycc = check_ycc(native, jpeg_fixtures()[0])
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------
@@ -2696,6 +3074,22 @@ def main() -> None:
         "bound_ms": rle_main["bound_ms"],
         "bound_by": rle_main["bound_by"],
         "library_ms": rle_main["library_ms"],
+    }, {
+        "name": "ycc_to_bgr",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/native/src/jpeg_ycc.cu",
+        # no pallas_call: the JAX package's host libjpeg decode, whose
+        # upsampling and colour conversion this kernel computes
+        "replaces": "mmlspark_tpu/native/src/native.cpp:248",
+        "launches": launches["ycc_to_bgr"],
+        "max_abs_err": ycc["err"],
+        # one image of each of the JPEG path's three sizes, summed; no
+        # PyTorch call computes libjpeg's upsampling and conversion
+        "ms": ycc["ms"],
+        "plain_ms": ycc["plain_ms"],
+        "bound_ms": ycc["bound_ms"],
+        "bound_by": ycc["bound_by"],
+        "library_ms": ycc["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

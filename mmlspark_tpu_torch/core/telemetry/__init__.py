@@ -7,7 +7,11 @@ ported slices record: ``log_verb`` (stage verbs), ``incr`` / ``gauge`` /
 instruments), ``span`` / ``record_span`` (worker-thread spans attached
 to the caller's trace), and what the serving endpoints expose
 (``render_prometheus`` at ``/metrics``, ``export_snapshot`` at
-``/metrics.json``, ``render_chrome_trace`` at ``/trace.json``).
+``/metrics.json``, ``render_chrome_trace`` at ``/trace.json``), and the
+training loop's goodput plane: the step-timeline ledger ``LEDGER``
+(``goodput.py``) and the sampled series store ``STORE``
+(``timeseries.py``), copies of the JAX package's modules, with their
+fleet merge helpers.
 """
 from __future__ import annotations
 
@@ -22,6 +26,20 @@ from .metrics import (
     is_declared,
 )
 from .exposition import export_snapshot, render_chrome_trace, render_prometheus
+from .goodput import (
+    GoodputLedger,
+    LEDGER,
+    LOST_KINDS,
+    StepTimeline,
+    detect_straggler,
+    merge_goodput_exports,
+)
+from .timeseries import (
+    SAMPLED_SERIES,
+    STORE,
+    TimeSeriesStore,
+    merge_timeseries_exports,
+)
 from .records import clear_records, log_verb, recent_records
 from .spans import (
     clear_spans,
@@ -43,6 +61,9 @@ __all__ = [
     "span", "record_span", "use_trace", "current_context", "get_trace",
     "extract_trace", "span_tree", "recent_spans", "clear_spans",
     "render_prometheus", "export_snapshot", "render_chrome_trace",
+    "GoodputLedger", "LEDGER", "LOST_KINDS", "StepTimeline",
+    "detect_straggler", "merge_goodput_exports",
+    "SAMPLED_SERIES", "STORE", "TimeSeriesStore", "merge_timeseries_exports",
 ]
 
 

@@ -46,6 +46,19 @@ DECLARED_METRICS: Dict[str, str] = {
     "serving.deadline_expired": "counter",
     "batcher.shed": "counter",
     "batcher.deadline_expired": "counter",
+    "checkpoint.corrupt": "counter",
+    "checkpoint.fallback": "counter",
+    "checkpoint.quarantine": "counter",
+    "checkpoint.write_failed": "counter",
+    "training.autosave": "counter",
+    "training.resume": "counter",
+    "training.anomaly": "counter",        # + .<kind> variants
+    "training.quarantine": "counter",     # + .skip variant (replay skips)
+    "training.rollback": "counter",
+    "training.abort": "counter",
+    "training.hang": "counter",
+    "training.straggler": "counter",      # + .<host> variants (merge side)
+    "timeseries.samples": "counter",      # one per TimeSeriesStore sweep
     # -- histograms
     "io.feed.transfer.latency": "histogram",
     "io.feed.transfer.bytes": "histogram",
@@ -55,6 +68,7 @@ DECLARED_METRICS: Dict[str, str] = {
     "serving.batch.fill": "histogram",
     "serving.batcher.batch_fill": "histogram",  # one observation per tick
     "models.training.step_latency": "histogram",  # seconds per optimizer step
+    "checkpoint.verify.latency": "histogram",
     # -- gauges
     "io.feed.queue.depth": "gauge",
     "io.pipeline.queue.depth": "gauge",   # + .<stage> variants
@@ -62,6 +76,11 @@ DECLARED_METRICS: Dict[str, str] = {
     "serving.queue.depth": "gauge",
     "serving.batcher.queue_depth": "gauge",
     "models.training.examples_per_sec": "gauge",
+    "training.guard.lr_scale": "gauge",
+    "training.goodput.frac": "gauge",         # productive / wall, whole run
+    "training.goodput.window_frac": "gauge",  # same over the last K steps
+    "training.goodput.lost_s": "gauge",       # + .<kind> variants
+    "training.straggler.ratio": "gauge",      # p_max/p_median at detection
 }
 
 
@@ -107,6 +126,7 @@ HISTOGRAM_FAMILY: Dict[str, str] = {
     "serving.batch.fill": "fill",
     "serving.batcher.batch_fill": "fill",
     "models.training.step_latency": "latency",
+    "checkpoint.verify.latency": "latency",
 }
 
 

@@ -53,7 +53,9 @@ def decode_image(data: bytes, origin: str = "") -> Dict[str, Any]:
     """Decode compressed bytes (png/jpeg/bmp/...) to a BGR image row.
 
     JPEGs take the native decoder (BGR from the decoder, GIL released);
-    everything else, and any native failure, goes through PIL."""
+    everything else, and a JPEG the decoder refuses (CMYK, truncation),
+    goes through PIL.  A failure of the decoder itself
+    (`native.DecoderError`) raises."""
     if data[:3] == b"\xff\xd8\xff":
         from .. import native
 
@@ -72,11 +74,17 @@ def decode_image(data: bytes, origin: str = "") -> Dict[str, Any]:
 
 
 def safe_read(data: Optional[bytes], origin: str = "") -> Optional[Dict[str, Any]]:
-    """Tolerant decode: None on failure (ImageUtils.safeRead)."""
+    """Tolerant decode: None on failure (ImageUtils.safeRead).  A decoder
+    that failed to build or failed on the card (`native.DecoderError`) is
+    not a bad image and raises."""
+    from ..native import DecoderError
+
     if data is None:
         return None
     try:
         return decode_image(data, origin)
+    except DecoderError:
+        raise
     except Exception:  # noqa: BLE001 — by contract: any decode failure -> None
         return None
 

@@ -6,20 +6,30 @@ momentum 0.9, ImageNet normalisation, seed 0), the same class mapping
 (sorted label values), the same shuffle stream
 (`np.random.default_rng(seed)`, one permutation an epoch) and the same
 tail handling (the last batch padded to the full batch size with -1
-labels of zero loss weight).  Each step runs, as the JAX step does,
-`ImagePreprocess` (kernel B1 on the card: cast, resize, normalise) ->
-the backbone in train mode (bf16 compute over f32 state,
-models/training.py) -> weighted softmax cross-entropy -> backward -> SGD.
-Each epoch is fed in slices of stacked uint8 batches through
-`DeviceFeed.stream`.  `DeepVisionModel` scores through the port's
-`TorchModel` (B1 and the bf16 forward).
+labels of zero loss weight).  The input column takes image rows, HWC
+arrays and encoded bytes; bytes decode through the port's own decoder
+(`io.image.decode_cells`: libjpeg where its headers exist, nvJPEG with
+the C2 kernel on the card's machine, PIL for other formats).  A training
+row whose size differs from (height, width) is resized on the host by
+PIL's `Image.resize((width, height))` with its default filter, on the
+BGR -> RGB -> BGR round trip, on HostPipeline workers — the JAX
+package's own call (PIL imports on both machines), so the pixels are
+its pixels.  Each step runs, as the JAX step does, `ImagePreprocess`
+(kernel B1 on the card: cast, resize, normalise) -> the backbone in
+train mode (bf16 compute over f32 state, models/training.py) -> weighted
+softmax cross-entropy -> backward -> SGD.  Each epoch is fed in slices
+of stacked uint8 batches through `DeviceFeed.stream`.
 
-Not ported yet, each raising `NotImplementedError` that names ROADMAP
-A16: training rows whose size differs from (height, width) and
-encoded-bytes inputs (the JAX package resizes and decodes them with PIL,
-which the card's machine lacks); `checkpoint_dir` (orbax checkpoints);
-the backbones of `models/convnets.py` (alexnet, vgg*, convnet_cifar).
-Ragged sizes at scoring time are fine: the device preprocess resizes.
+With `checkpoint_dir` the fit saves the state after each epoch, at step
+= epochs completed (models/checkpoint.py: verified, synchronous), and a
+fit on a directory that holds a checkpoint restores the latest one,
+skips the epochs it covers and replays their shuffle draws, so a fit
+resumed after an interruption ends where an uninterrupted fit ends.
+`DeepVisionModel` scores through the port's `TorchModel` (B1 and the
+bf16 forward); ragged sizes at scoring time are resized on the device.
+
+Not ported yet: the backbones of `models/convnets.py` (alexnet, vgg*,
+convnet_cifar), which raise `NotImplementedError` naming ROADMAP A17.
 """
 from __future__ import annotations
 
@@ -40,38 +50,32 @@ from .torch_model import ImagePreprocess, TorchModel
 
 __all__ = ["DeepVisionClassifier", "DeepVisionModel"]
 
-_WAITS = "ROADMAP A16"
 # the JAX package's backbones that live in models/convnets.py (not ported)
 _CONVNETS = ("alexnet", "vgg11", "vgg16", "convnet_cifar")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"DeepVisionClassifier: {what} is not ported to mmlspark_tpu_torch "
-        f"yet ({_WAITS})")
-
-
 def _decode_column(col) -> List[Optional[np.ndarray]]:
-    """Image rows / arrays -> HWC uint8 arrays (None for undecodable
-    rows).  Encoded bytes raise: their decode needs PIL."""
-    if any(isinstance(v, (bytes, bytearray)) for v in col):
-        raise _not_ported("encoded-bytes image input")
+    """Image rows / encoded bytes / arrays -> HWC uint8 arrays (None for
+    undecodable rows) — the ImageFeaturizer host contract."""
     cells = decode_cells(col)
     return [None if c is None else image_row_to_array(c) for c in cells]
 
 
-def _to_hwc3(a: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Gray -> 3 channels, BGRA -> BGR; a row of another size raises."""
+def _to_hw(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Gray -> 3 channels, BGRA -> BGR, then a row of another size than
+    (h, w) resized by PIL's default filter, as the JAX package does."""
     if a.ndim == 2:
         a = a[:, :, None]
     if a.shape[2] == 1:
         a = np.repeat(a, 3, axis=2)
     elif a.shape[2] > 3:
         a = a[:, :, :3]
-    if a.shape[:2] != (h, w):
-        raise _not_ported(f"a training image of {a.shape[0]}x{a.shape[1]} "
-                          f"(not {h}x{w}: the host resize)")
-    return a
+    if a.shape[:2] == (h, w):
+        return a
+    from PIL import Image
+
+    img = Image.fromarray(np.ascontiguousarray(a[:, :, ::-1]))  # BGR->RGB
+    return np.asarray(img.resize((w, h)))[:, :, ::-1]
 
 
 def _initial_state(module: torch.nn.Module, seed: int) -> None:
@@ -92,7 +96,8 @@ class DeepVisionClassifier(Estimator):
 
     backbone = Param("any registered vision builder (resnet18/34/50/101/152, "
                      "vit_tiny/small/base)", default="resnet18")
-    input_col = Param("image column (image rows / arrays)", default="image")
+    input_col = Param("image column (image rows / encoded bytes / arrays)",
+                      default="image")
     label_col = Param("label column", default="label")
     prediction_col = Param("prediction column", default="prediction")
     probability_col = Param("probability column", default="probability")
@@ -112,8 +117,9 @@ class DeepVisionClassifier(Estimator):
     seed = Param("shuffle/init seed", default=0, converter=TypeConverters.to_int)
     drop_na = Param("drop undecodable rows", default=True,
                     converter=TypeConverters.to_bool)
-    checkpoint_dir = Param("checkpoint directory (not ported: must stay "
-                           "empty)", default="")
+    checkpoint_dir = Param("checkpoint directory: saves per epoch and "
+                           "resumes an interrupted fit from the latest step "
+                           "(models/checkpoint.py)", default="")
     device = Param("'cuda' (default) or 'cpu'; without CUDA only an explicit "
                    "'cpu' runs", default=None)
 
@@ -123,11 +129,11 @@ class DeepVisionClassifier(Estimator):
         from .training import (TrainState, _per_example_ce, scan_slice_steps,
                                sgd)
 
-        if self.checkpoint_dir:
-            raise _not_ported("checkpoint_dir (orbax checkpoints)")
         if self.backbone in _CONVNETS:
-            raise _not_ported(f"the {self.backbone} backbone "
-                              "(models/convnets.py)")
+            raise NotImplementedError(
+                f"DeepVisionClassifier: the {self.backbone} backbone "
+                "(models/convnets.py) is not ported to mmlspark_tpu_torch "
+                "yet (ROADMAP A17)")
         device = resolve_device(self.device)
         labels_raw = np.asarray(table[self.label_col])
         classes = sorted({v for v in labels_raw.tolist()})
@@ -146,7 +152,12 @@ class DeepVisionClassifier(Estimator):
         y = np.asarray([class_of[labels_raw[i].item()
                                  if hasattr(labels_raw[i], "item")
                                  else labels_raw[i]] for i in keep], np.int32)
-        x = np.stack([_to_hwc3(arrays[i], h, w) for i in keep]).astype(np.uint8)
+        # PIL's resize releases the GIL: the ragged-input fixups run
+        # thread-parallel through the input pipeline (order-preserving)
+        resize_pipe = HostPipeline([PipelineStage(
+            "resize", lambda i: _to_hw(arrays[i], h, w),
+            workers=pipeline_workers() if len(keep) > 32 else 1)])
+        x = np.stack(list(resize_pipe.run(keep))).astype(np.uint8)
 
         kwargs = _builder_kwargs(self.backbone, {"num_classes": num_classes},
                                  (h, w, 3))
@@ -169,11 +180,29 @@ class DeepVisionClassifier(Estimator):
 
         bs = max(1, int(self.batch_size))
         rng = np.random.default_rng(int(self.seed))
+        ckpt = None
+        start_epoch = 0
+        if self.checkpoint_dir:
+            from .checkpoint import CheckpointManager
+
+            ckpt = CheckpointManager(self.checkpoint_dir)
+            latest = ckpt.latest_step()
+            if latest is not None:
+                # the manager's step IS the completed-epoch count, so a
+                # resume never depends on this run's batch math; a dir
+                # checkpointed at >= epochs yields zero further epochs
+                # (clear it to retrain from scratch)
+                ckpt.restore(latest, template=state)
+                start_epoch = min(int(latest), int(self.epochs))
+        # the shuffle stream must be reproducible across a resume: replay
+        # the epochs already consumed
+        for _ in range(start_epoch):
+            rng.permutation(len(x))
         n_steps = -(-len(x) // bs)
         k = scan_slice_steps(n_steps, bs * int(np.prod(x.shape[1:])) + bs * 4)
         feed = DeviceFeed(device)
         history = []
-        for _epoch in range(int(self.epochs)):
+        for _epoch in range(start_epoch, int(self.epochs)):
             order = rng.permutation(len(x))
             # pad the tail batch to the full batch size; -1 labels carry
             # zero loss
@@ -194,6 +223,8 @@ class DeepVisionClassifier(Estimator):
                       for dxb, dyb in feed.stream(pipe.run(bounds))
                       for i in range(dxb.shape[0])]
             history.append(float(torch.stack(losses).mean()))
+            if ckpt is not None:
+                ckpt.save(state, step=_epoch + 1)
 
         bundle = TorchBundle.from_module(self.backbone, state.module, kwargs,
                                          input_shape=(h, w, 3))

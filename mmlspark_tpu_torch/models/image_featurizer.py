@@ -199,9 +199,9 @@ class ImageFeaturizer(Transformer):
                 if i in decoded:
                     buf[j] = decoded[i]
                 elif not native.decode_jpeg_bgr_into(bytes(col[i]), buf[j]):
-                    # the native decoder rejected it (CMYK/YCCK,
-                    # truncation): PIL fallback like decode_image before
-                    # dropping
+                    # the native decoder refused the stream (CMYK/YCCK,
+                    # truncation): PIL like decode_image before dropping;
+                    # a failure of the decoder raises DecoderError
                     row = safe_read(bytes(col[i]))
                     arr = (image_row_to_array(row)
                            if row is not None else None)

@@ -20,13 +20,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPES = [(64, 256, 256, 3), (64, 224, 224, 3), (64, 320, 240, 3)]
 SKIP = "if (a.n_tiles < 0) "  # never true: the guarded work is left out
-SPIN_CYCLES = 20_000_000
 
 # name -> [(text, replacement)] of the tile route
 VARIANTS = {
@@ -45,33 +43,17 @@ VARIANTS["stores_only"] = (VARIANTS["no_width"] + VARIANTS["no_height_taps"]
                            + VARIANTS["no_staging"])
 
 
-def build_all(_build):
-    """Start one nvcc per variant, all together; name -> C entry."""
-    out_dir = os.path.join(_build.BUILD_DIR, "ablation")
-    os.makedirs(out_dir, exist_ok=True)
-    nvcc = _build._nvcc()
+def build_all():
+    """name -> C entry of each variant, built all together."""
+    from mmlspark_tpu_torch.ops import _ablation, _build
+
     src = open(os.path.join(_build.CSRC, "resize_normalize.cu"),
                encoding="utf-8").read()
-    procs = {}
-    for name, patches in VARIANTS.items():
-        text = src
-        for old, new in patches:
-            if old not in text:
-                raise SystemExit(f"{name}: the source no longer holds {old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"resample_{name}.cu")
-        with open(cu, "w", encoding="utf-8") as f:
-            f.write(text)
-        so = os.path.join(out_dir, f"resample_{name}.so")
-        procs[name] = (so, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    texts = {name: _ablation.patched(src, patches, name)
+             for name, patches in VARIANTS.items()}
     entries = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(so).mmk_affine_resample
+    for name, lib in _ablation.build_variants(texts, "resample").items():
+        fn = lib.mmk_affine_resample
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 7
                        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
@@ -82,34 +64,16 @@ def build_all(_build):
     return entries
 
 
-def queued_ms(fn, iters: int = 20) -> float:
-    """Device time of one fn(): events around `iters` calls enqueued while
-    a spin kernel holds the card."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("resample_ablation: needs a CUDA card")
     sys.path.insert(0, ROOT)
-    from mmlspark_tpu_torch.ops import _build
+    from mmlspark_tpu_torch.ops import _ablation
     from mmlspark_tpu_torch.ops import image_kernels as K
 
-    entries = build_all(_build)
+    entries = build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape in SHAPES:
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
@@ -151,14 +115,11 @@ def main() -> None:
                 lambda t=b_ty, s=b_span: K._launch(x, plan, t, s))
         calls["pixel_route"] = lambda: K._launch(x, plan, 0, 0)
         for rnd in range(2):
-            times = {name: round(queued_ms(call), 4)
+            times = {name: round(_ablation.queued_ms(call), 4)
                      for name, call in calls.items()}
             print(f"[ablation] {list(shape)} uint8 -> 224x224 (rule TY {ty} "
                   f"span {span}) round {rnd}: {times}", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout else "")
+    print(_ablation.card())
 
 
 if __name__ == "__main__":

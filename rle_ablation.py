@@ -29,11 +29,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SPIN_CYCLES = 20_000_000
 HBM_BYTES_PER_S = 3.35e12
 WINDOW = "const int q_begin = win[0], q_end = max(win[3], win[0]) + 1;"
 
@@ -53,63 +51,24 @@ VARIANTS = {
 UNCHECKED = ("search_only", "stores_only")
 
 
-def build_all(_build, first):
-    """Start one nvcc per variant, all together; name -> C entry."""
-    out_dir = os.path.join(_build.BUILD_DIR, "ablation")
-    os.makedirs(out_dir, exist_ok=True)
-    nvcc = _build._nvcc()
+def build_all(first):
+    """name -> C entry of each variant, built all together."""
+    from mmlspark_tpu_torch.ops import _ablation, _build
+
     src = open(os.path.join(_build.CSRC, "rle_decode.cu"),
                encoding="utf-8").read()
-    texts = {}
-    for name, patches in VARIANTS.items():
-        text = src
-        for old, new in patches:
-            if old not in text:
-                raise SystemExit(f"{name}: the source no longer holds {old!r}")
-            text = text.replace(old, new)
-        texts[name] = text
+    texts = {name: _ablation.patched(src, patches, name)
+             for name, patches in VARIANTS.items()}
     if first:
         texts["first"] = open(first, encoding="utf-8").read()
-    procs = {}
-    for name, text in texts.items():
-        cu = os.path.join(out_dir, f"rle_{name}.cu")
-        with open(cu, "w", encoding="utf-8") as f:
-            f.write(text)
-        so = os.path.join(out_dir, f"rle_{name}.so")
-        procs[name] = (so, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     entries = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        regs = [ln.strip() for ln in log.splitlines() if "Used" in ln]
-        print(f"[build] {name}: {regs}", flush=True)
-        fn = ctypes.CDLL(so).mmk_rle_decode
+    for name, lib in _ablation.build_variants(texts, "rle").items():
+        fn = lib.mmk_rle_decode
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         entries[name] = fn
     return entries
-
-
-def queued_ms(fn, iters: int = 20) -> float:
-    """Device time of one fn(): events around `iters` calls enqueued while
-    a spin kernel holds the card."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def chunks():
@@ -138,10 +97,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("rle_ablation: needs a CUDA card")
     sys.path.insert(0, ROOT)
-    from mmlspark_tpu_torch.ops import _build
+    from mmlspark_tpu_torch.ops import _ablation
     from mmlspark_tpu_torch.ops import wire_codec as W
 
-    entries = build_all(_build, args.first)
+    entries = build_all(args.first)
     stream = torch.cuda.current_stream().cuda_stream
     for cname, arr in chunks().items():
         p = W.rle_encode(arr)
@@ -170,14 +129,12 @@ def main() -> None:
         bound_ms = (5 * r_used + p.n_pad) / HBM_BYTES_PER_S * 1e3
         for rnd in range(2):
             names = list(calls) if rnd == 0 else list(calls)[::-1]
-            times = {name: round(queued_ms(calls[name]), 4) for name in names}
+            times = {name: round(_ablation.queued_ms(calls[name]), 4)
+                     for name in names}
             print(f"[ablation] {cname} R={len(p.values)} R_used={r_used} "
                   f"n_pad={p.n_pad} bound_ms={bound_ms:.4f} round {rnd}: "
                   f"{ {n: times[n] for n in calls} }", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout else "")
+    print(_ablation.card())
 
 
 if __name__ == "__main__":

@@ -32,13 +32,16 @@ bit-exact); the RLE decode kernel exact to the byte.
 The port's JPEG decoder (`mmlspark_tpu_torch.native`) against the
 libjpeg digests of tests/jpeg_fixtures/: byte-exact where it builds on
 libjpeg; on nvJPEG (a machine without libjpeg's headers) a mean absolute
-difference of at most 16 levels on the digests' pixel sample and a mean
-of at most 1 level a channel — nvJPEG's chroma upsampling and colour
-rounding are not libjpeg's, which on the fixtures' uniform noise (the
-worst case for 4:2:0 chroma) gave 13.1-13.5 and -0.46..-0.50 on an H100
-machine; a channel swap or a wrong image would give tens of levels.  The
-JPEG featurizer on the card against its CPU run on the same decoded
-pixels at the featurizer test's f32 limits.
+difference of at most 0.089 levels on the digests' pixel sample and a
+mean of at most 0.0077 a channel — the C2 kernel upsamples and converts
+nvJPEG's planes with libjpeg's arithmetic, so only nvJPEG's IDCT differs,
+which gave at most 0.059 and 0.0051 on an H100 machine (the limits are
+1.5x those; nvJPEG's own chroma path gave 13.1-13.5 and 0.46-0.50).  C2
+against its plain version byte for byte, on the fixtures' planes and on
+4:4:4, 4:2:2 and 4:2:0 images of odd sizes.  The JPEG featurizer on the
+card against its CPU run on the same decoded pixels at the featurizer
+test's f32 limits.  A CUDA TrainState round-trips a checkpoint bit for
+bit, also into a live state a poisoned step filled with NaN.
 """
 import base64
 import functools
@@ -846,8 +849,8 @@ def test_rle_decode_kernel_rejects_what_it_cannot_take(cuda_device):
 
 
 # nvJPEG against libjpeg on the fixtures (see the module docstring)
-NVJPEG_SAMPLE_MEAN_ABS = 16.0
-NVJPEG_CHANNEL_MEAN = 1.0
+NVJPEG_SAMPLE_MEAN_ABS = 0.089
+NVJPEG_CHANNEL_MEAN = 0.0077
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "jpeg_fixtures")
 
@@ -1135,3 +1138,186 @@ def test_b1_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError):                     # > 4 channels
         K.affine_resample(torch.zeros(2, 8, 8, 5, dtype=torch.uint8,
                                       device=cuda_device), wide)
+
+
+def _pil_jpeg(shape, subsampling, seed):
+    import io
+
+    from PIL import Image
+
+    arr = np.random.default_rng(seed).integers(0, 255, shape).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", quality=85,
+                              subsampling=subsampling)
+    return buf.getvalue()
+
+
+def _ycc_blobs():
+    blobs = {n: open(os.path.join(JPEG_FIXTURES, n), "rb").read()
+             for n in sorted(_jpeg_digests()["fixtures"])}
+    for ss in (0, 1, 2):
+        for i, hw in enumerate([(17, 23), (3, 5), (33, 17), (9, 2)]):
+            blobs[f"pil_ss{ss}_{hw[0]}x{hw[1]}"] = _pil_jpeg(hw + (3,), ss, i)
+    return blobs
+
+
+@pytest.mark.cuda
+def test_c2_kernel_equals_its_plain_version_and_the_decode(cuda_device):
+    from mmlspark_tpu_torch import native
+    from mmlspark_tpu_torch.ops.jpeg_color import ycc_to_bgr, ycc_to_bgr_plain
+
+    if native.jpeg_backend() != "nvjpeg":
+        pytest.skip("the C2 kernel is the nvJPEG decoder's")
+    checked = 0
+    for name, blob in _ycc_blobs().items():
+        got = native.decode_jpeg_planes(blob)
+        if got is None or len(got[1]) != 3:
+            continue
+        layout, planes = got
+        args = ([torch.from_numpy(p).to(cuda_device) for p in planes],
+                layout.factors, layout.height, layout.width, layout.color)
+        n0 = native.ycc_launches()
+        kern = ycc_to_bgr(*args)
+        torch.cuda.synchronize()
+        assert native.ycc_launches() == n0 + 1
+        assert torch.equal(kern, ycc_to_bgr_plain(*args)), name
+        decoded = native.decode_jpeg_bgr(blob)
+        assert native.ycc_launches() == n0 + 2
+        np.testing.assert_array_equal(kern.cpu().numpy(), decoded,
+                                      err_msg=name)
+        checked += 1
+    assert checked == 6 + 12
+    with pytest.raises(ValueError, match="expected"):
+        ycc_to_bgr(args[0][:2] + [args[0][0]], layout.factors, layout.height,
+                   layout.width, layout.color)
+
+
+@pytest.mark.cuda
+def test_nvjpeg_route_on_odd_sizes_is_within_the_limits_of_pil(cuda_device):
+    """PIL decodes with libjpeg-turbo's own upsampling and conversion: on
+    4:4:4, 4:2:2 and 4:2:0 images of odd sizes the nvJPEG route differs
+    from it only by the IDCT."""
+    from PIL import Image
+    import io
+
+    from mmlspark_tpu_torch import native
+
+    for name, blob in _ycc_blobs().items():
+        if not name.startswith("pil_"):
+            continue
+        got = native.decode_jpeg_bgr(blob)
+        pil = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))[
+            :, :, ::-1]
+        assert got.shape == pil.shape, name
+        diff = np.abs(got.astype(np.int16) - pil.astype(np.int16))
+        assert diff.max() <= 3 and diff.mean() <= 0.2, (name, diff.max(),
+                                                         diff.mean())
+
+
+def _cuda_train_state(cuda_device, opt):
+    from mmlspark_tpu_torch.models import training as TR
+    from mmlspark_tpu_torch.models.resnet import resnet18
+
+    factory = TR.sgd(0.1, 0.9) if opt == "sgd" else TR.adam(1e-3)
+    return TR.init_train_state(resnet18(num_classes=10), factory, seed=0,
+                               compute_dtype="bfloat16")
+
+
+def _numbers(state):
+    out = {f"m/{k}": v.detach().cpu().clone()
+           for k, v in state.module.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            out[f"o/{i}/{k}"] = v.detach().cpu().clone()
+    for i, p in enumerate(state.work.parameters()):
+        out[f"w/{i}"] = p.detach().cpu().clone()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_cuda_train_state_round_trips_a_checkpoint(cuda_device, tmp_path,
+                                                   opt):
+    from mmlspark_tpu_torch.models import training as TR
+    from mmlspark_tpu_torch.models.checkpoint import CheckpointManager
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((3, 16, 32, 32, 3), device="cuda", generator=gen)
+    y = torch.randint(0, 10, (3, 16), device="cuda", generator=gen)
+    step = TR.make_train_step(10)
+    state = _cuda_train_state(cuda_device, opt)
+    for i in range(2):
+        state, _ = step(state, x[i], y[i])
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state, step=2)
+    saved = _numbers(state)
+    # a poisoned step writes NaN into the live state in place
+    state, m = step(state, torch.full_like(x[2], float("nan")), y[2])
+    assert not np.isfinite(float(m["loss"]))
+    restored = mgr.restore(step=2, template=state)
+    got = _numbers(restored)
+    assert sorted(got) == sorted(saved)
+    for k in saved:
+        assert torch.equal(got[k], saved[k]), k
+    assert restored.device.type == "cuda" and restored.step == 2
+    # and it continues as the saved state does
+    fresh = mgr.restore(step=2, template=_cuda_train_state(cuda_device, opt))
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, m1 = step(restored, x[2], y[2])
+        _, m2 = step(fresh, x[2], y[2])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert float(m1["loss"]) == float(m2["loss"])
+
+
+@pytest.mark.cuda
+def test_a_device_failure_in_the_decoder_raises(cuda_device, monkeypatch):
+    """A failure of the card in a decode is the decoder's, not the
+    stream's: with the card's memory taken, a decode that needs larger
+    device buffers raises DecoderError from decode_image and from the
+    featurizer's JPEG path, and no row is decoded by PIL instead; with
+    the memory given back, the same bytes decode."""
+    from PIL import Image
+    import io
+
+    from mmlspark_tpu_torch import native
+    from mmlspark_tpu_torch.io.image import decode_image
+
+    if native.jpeg_backend() != "nvjpeg":
+        pytest.skip("the device buffers are the nvJPEG decoder's")
+
+    def jpeg(h, w):
+        y, x = np.mgrid[0:h, 0:w]
+        arr = np.stack([x % 256, y % 256, (x + y) % 256], -1).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="JPEG", quality=85)
+        return buf.getvalue()
+
+    small, big = jpeg(48, 40), jpeg(6000, 6000)  # big: 108 MB of BGR
+    state = init_state_dict(get_builder("resnet18")(num_classes=10), seed=0)
+    bundle = TorchBundle("resnet18", {"num_classes": 10}, state_dict=state,
+                         input_shape=(64, 64, 3), dtype="float32")
+    featurizer = ImageFeaturizer(bundle=bundle, batch_size=2)
+    # the handle, a slot and the model are on the card before the memory
+    # is taken
+    assert featurizer.transform(Table({"image": [small] * 2})).num_rows == 2
+    monkeypatch.setattr(Image, "open",
+                        lambda *a, **k: pytest.fail("decoded by PIL"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    hog = torch.empty(free - (64 << 20), dtype=torch.uint8, device="cuda")
+    try:
+        with pytest.raises(native.DecoderError, match="code -5"):
+            decode_image(big)
+        with pytest.raises(native.DecoderError, match="code -5"):
+            featurizer.transform(Table({"image": [big, big]}))
+    finally:
+        del hog
+        torch.cuda.empty_cache()
+    monkeypatch.undo()
+    got = native.decode_jpeg_bgr(big)
+    pil = np.asarray(Image.open(io.BytesIO(big)).convert("RGB"))[:, :, ::-1]
+    assert got.shape == pil.shape
+    assert np.abs(got.astype(np.int16) - pil.astype(np.int16)).max() <= 3

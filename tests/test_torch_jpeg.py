@@ -10,6 +10,11 @@ featurizer's JPEG-bytes fast path against the JAX ImageFeaturizer on the
 same bridged ResNet-18 weights, in the cases of
 tests/test_featurizer_streaming.py, at the f32 tolerance of
 test_torch_featurizer.py (rtol 1e-4, atol 1e-4 of the largest feature).
+Last, C2's witnesses: the plain version of the nvJPEG decoder's
+upsampling and colour conversion (ops/jpeg_color.py) on libjpeg's raw
+planes equals libjpeg's BGR byte for byte (4:4:4, 4:2:2, 4:2:0 and RGB
+streams of odd sizes, and the fixtures); a decoder that fails to build
+raises.
 """
 import base64
 import hashlib
@@ -36,6 +41,7 @@ from mmlspark_tpu_torch.io.image import (decode_image, image_row_to_array,
                                          safe_read)
 from mmlspark_tpu_torch.models.bundle import from_flax_variables
 from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+from mmlspark_tpu_torch.ops.jpeg_color import ycc_to_bgr
 
 from torch_port_util import random_flax_variables
 
@@ -359,3 +365,184 @@ def test_fixture_column_matches_the_reference(bundles):
     got, ref = _both(bundles, blobs, batch_size=2)
     assert got["features"].shape == (6, 512)
     _assert_same(got, ref)
+
+
+# ---- C2: libjpeg's upsampling and colour conversion ----------------------
+# ops/jpeg_color.py's plain version (the oracle of the C2 kernel on the
+# card) on libjpeg's raw component planes (`raw_data_out`) must give
+# libjpeg's own BGR byte for byte: odd sizes exercise the last row pair
+# and column of 4:2:0 / 4:2:2 chroma and the edge replication, widths of
+# 1-2 chroma samples libjpeg's box-replication branch.
+
+C2_SIZES = [(17, 23), (33, 17), (3, 5), (9, 2), (1, 1)]
+
+
+def _c2_case(blob):
+    layout, planes = native.decode_jpeg_planes(blob)
+    got = ycc_to_bgr([torch.from_numpy(p) for p in planes], layout.factors,
+                     layout.height, layout.width, layout.color)
+    return layout, planes, got.numpy()
+
+
+@pytest.mark.parametrize("size", C2_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("subsampling", ["4:4:4", "4:2:2", "4:2:0"])
+def test_c2_plain_upsample_and_convert_equals_libjpeg(subsampling, size):
+    rng = np.random.default_rng(sum(size))
+    buf = io.BytesIO()
+    Image.fromarray(_noise(rng, size + (3,))).save(
+        buf, format="JPEG", quality=85, subsampling=subsampling)
+    blob = buf.getvalue()
+    layout, planes, got = _c2_case(blob)
+    h, w = size
+    hs, vs = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2)}[subsampling]
+    assert layout.factors == ((hs, vs), (1, 1), (1, 1)) and layout.color == 1
+    assert [p.shape for p in planes] == [
+        (h, w), (-(-h // vs), -(-w // hs)), (-(-h // vs), -(-w // hs))]
+    np.testing.assert_array_equal(got, native.decode_jpeg_bgr(blob))
+    np.testing.assert_array_equal(got, jnative.decode_jpeg_bgr(blob))
+
+
+@pytest.mark.parametrize("name", sorted(n for n in _digests()["fixtures"]
+                                        if n.startswith("bench_")))
+def test_c2_plain_on_the_fixtures_gives_their_digest(name):
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        blob = f.read()
+    _layout, _planes, got = _c2_case(blob)
+    want = _digests()["fixtures"][name]
+    assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
+
+
+def test_c2_rgb_stream_is_upsampled_without_conversion():
+    """An RGB JPEG (R, G, B component ids, no JFIF marker): libjpeg only
+    swaps its components into BGR."""
+    buf = io.BytesIO()
+    Image.fromarray(_noise(np.random.default_rng(5), (13, 11, 3))).save(
+        buf, format="JPEG", quality=90, keep_rgb=True)
+    blob = buf.getvalue()
+    layout, _planes, got = _c2_case(blob)
+    assert layout.color == 2
+    np.testing.assert_array_equal(got, native.decode_jpeg_bgr(blob))
+
+
+def test_c2_layout_and_planes_of_gray_and_cmyk():
+    gray = _jpeg(np.linspace(0, 255, 12 * 7).reshape(12, 7).astype(np.uint8),
+                 mode="L")
+    layout, planes = native.decode_jpeg_planes(gray)
+    assert layout.color == 0 and layout.factors == ((1, 1),)
+    np.testing.assert_array_equal(planes[0],
+                                  native.decode_jpeg_bgr(gray)[:, :, 0])
+    cmyk = _cmyk(np.random.default_rng(6))
+    assert native.jpeg_layout(cmyk).color == -1
+    assert native.decode_jpeg_planes(cmyk) is None
+    assert native.decode_jpeg_planes(b"\xff\xd8\xffjunk") is None
+    assert native.ycc_launches() == 0  # the kernel is the nvJPEG backend's
+
+
+def test_c2_wrapper_checks_its_planes():
+    blob = _jpeg(_noise(np.random.default_rng(7), (9, 7, 3)))
+    layout, planes = native.decode_jpeg_planes(blob)
+    t = [torch.from_numpy(p) for p in planes]
+    args = (layout.factors, layout.height, layout.width)
+    with pytest.raises(ValueError, match="expected"):
+        ycc_to_bgr([t[0], t[0], t[2]], *args)
+    with pytest.raises(ValueError, match="uint8"):
+        ycc_to_bgr([t[0], t[1].int(), t[2]], *args)
+    with pytest.raises(ValueError, match="color"):
+        ycc_to_bgr(t, *args, color=0)
+    with pytest.raises(ValueError, match="integer ratios"):
+        ycc_to_bgr(t, ((3, 1), (2, 1), (1, 1)), 9, 7)
+
+
+def test_a_decoder_that_fails_to_build_raises(monkeypatch, tmp_path):
+    """No other route decodes in place of a backend the machine has: a
+    failed build raises DecoderError from every entry, and safe_read
+    does not turn it into a dropped row."""
+    monkeypatch.setattr(native, "_STATE", {})
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_choose", lambda cxx: (
+        "nvjpeg", (str(tmp_path / "no-nvcc"), "-O3")))
+    blob = _jpeg(_noise(np.random.default_rng(8), (8, 8, 3)))
+    for call in (native.jpeg_available, lambda: native.decode_jpeg_bgr(blob),
+                 lambda: safe_read(blob), native.ycc_launches):
+        with pytest.raises(native.DecoderError, match="did not build"):
+            call()
+    assert "did not build" in native.build_error()
+
+
+class _Failing:
+    """The built decoder library with some C entries returning a code."""
+
+    def __init__(self, lib, **codes):
+        self._lib, self._codes = lib, codes
+
+    def __getattr__(self, name):
+        if name in self._codes:
+            return lambda *args: self._codes[name]
+        return getattr(self._lib, name)
+
+
+@pytest.fixture
+def no_pil(monkeypatch):
+    """PIL.Image.open fails the test: no row is decoded by PIL instead.
+    (pytest.fail's exception is not an Exception, so safe_read's
+    catch-all does not swallow it.)"""
+    monkeypatch.setattr(Image, "open",
+                        lambda *a, **k: pytest.fail("decoded by PIL"))
+
+
+@pytest.mark.parametrize("code", [-5, -6])
+def test_a_decode_that_fails_on_the_card_raises_from_every_caller(
+        bundles, monkeypatch, no_pil, code):
+    """-5 (the card or nvJPEG failed) and -6 (nvJPEG's sizes disagree
+    with the header) are the decoder's failures, not a refused stream:
+    decode_image, safe_read, decode_jpeg_bgr(_into) and the featurizer's
+    JPEG path raise DecoderError, and nothing decodes the row instead."""
+    native._load()
+    monkeypatch.setitem(native._STATE, "lib", _Failing(
+        native._STATE["lib"], mml_jpeg_decode_bgr=code,
+        mml_jpeg_decode_planes=code))
+    blob = _jpeg(_noise(np.random.default_rng(20), (12, 10, 3)))
+    assert native.jpeg_probe(blob) == (12, 10, 3)
+    for call in (lambda: decode_image(blob), lambda: safe_read(blob),
+                 lambda: native.decode_jpeg_bgr(blob),
+                 lambda: native.decode_jpeg_bgr_into(
+                     blob, np.empty((12, 10, 3), np.uint8)),
+                 lambda: native.decode_jpeg_planes(blob)):
+        with pytest.raises(native.DecoderError, match=f"code {code}"):
+            call()
+    featurizer = ImageFeaturizer(bundle=bundles[1], device="cpu",
+                                 batch_size=2)
+    with pytest.raises(native.DecoderError, match=f"code {code}"):
+        featurizer.transform(Table({"image": [blob, blob, blob]}))
+
+
+@pytest.mark.parametrize("code", [-5, -6])
+def test_a_probe_that_fails_on_the_card_raises(bundles, monkeypatch, no_pil,
+                                               code):
+    """The featurizer probes every JPEG before any decode: a failed probe
+    raises instead of sending the row to the PIL path."""
+    native._load()
+    monkeypatch.setitem(native._STATE, "lib", _Failing(
+        native._STATE["lib"], mml_jpeg_probe=code))
+    blob = _jpeg(_noise(np.random.default_rng(21), (12, 10, 3)))
+    for call in (lambda: native.jpeg_probe(blob),
+                 lambda: native.decode_jpeg_bgr(blob), lambda: safe_read(blob)):
+        with pytest.raises(native.DecoderError, match="probe"):
+            call()
+    featurizer = ImageFeaturizer(bundle=bundles[1], device="cpu")
+    with pytest.raises(native.DecoderError, match="probe"):
+        featurizer.transform(Table({"image": [blob, blob]}))
+
+
+def test_a_refused_stream_still_goes_to_pil(bundles, monkeypatch):
+    """-1, a stream the decoder refuses, keeps its meaning: None from the
+    decoder, and the row decoded by PIL as in the JAX package."""
+    native._load()
+    monkeypatch.setitem(native._STATE, "lib", _Failing(
+        native._STATE["lib"], mml_jpeg_decode_bgr=-1))
+    blob = _jpeg(_noise(np.random.default_rng(22), (12, 10, 3)))
+    assert native.decode_jpeg_bgr(blob) is None
+    row = decode_image(blob)
+    np.testing.assert_array_equal(
+        image_row_to_array(row),
+        np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))[:, :, ::-1])
