@@ -41,7 +41,11 @@ exit, no result line) if anything in it fails:
 4b. JPEG path: the port's JPEG decoder (libjpeg where its headers exist,
    else nvJPEG from the CUDA toolkit; the run fails without one) holds
    each committed fixture of tests/jpeg_fixtures/ (bench.py's recipe:
-   uniform noise, quality 85) against its libjpeg digest — byte-exact on
+   uniform noise, quality 85; and progressive and restart-interval
+   streams, of which nvJPEG refuses a progressive one with restarts
+   (fault C3) to PIL, held to the same limits; a decoder failure,
+   `DecoderError`, fails the run) against
+   its libjpeg digest — byte-exact on
    libjpeg; on nvJPEG, whose planes C2 upsamples and converts with
    libjpeg's arithmetic, within a sample mean abs difference of 0.089
    levels and 0.0077 a channel (its max difference and share of
@@ -160,6 +164,28 @@ exit, no result line) if anything in it fails:
    (c) C2 against its plain version, byte for byte, on every colour
    fixture's nvJPEG planes and against the decoder's own pixels; timed
    at one image of each size.
+12. persistence and int8 weights (after phase 11, under its cuDNN
+   settings):
+   (a) each stage saved to a directory under build/, the executor caches
+   cleared (they key on `bundle_id`, which a saved bundle keeps),
+   loaded, and transformed on the card: phase 4's ResNet-50 `TorchModel`
+   over the uint8 table, the ResNet-50 `ImageFeaturizer` over phase 4b's
+   JPEG bytes, phase 10's fitted `PipelineModel` and phase 11 (b)'s
+   fitted `DeepVisionModel` over its bytes column; each output equal to
+   the unsaved stage's bit for bit, with B1, B2 and C2's launches exact;
+   the save and load seconds and bytes on disk.
+   (b) `ImageFeaturizer` over ViT-B/16 with `quant=True` (bf16 outside
+   the int8 layers) on phase 4's table: B1 and B4 as phase 5, four int8
+   GEMMs a block a chunk; features correlated > 0.98 with the bf16 ViT's
+   on the same weights (tests/test_quant.py's bound) and within 1e-2
+   relative L2 of an f32 CPU run of the same quant bundle on 6 images;
+   images/s, bf16 and int8 in turns.  Phase 6's GPT-small with
+   `quant=True`, prequantized: `generate` (B4 once a layer, 49 int8 GEMMs
+   a forward), prefill logits within 5e-2 of an f32 CPU run, eager
+   decode tokens/s beside bf16's in turns; then 8 requests through a
+   paged `ContinuousBatcher`: every stream finishes, B7 once a layer a
+   tick and the int8 GEMMs exact.  `torch._int_mm` timed at the ViT's
+   qkv shape (12544 x 768 x 2304) beside a bf16 `torch.matmul`.
 9. record: a `{"kernels": [...]}` JSON line (the eight TPU kernels and
    C2), the nvidia-smi line, and last the `{"ok": true, "device": ...}`
    line.
@@ -289,6 +315,15 @@ RLE_CHUNKS, RLE_CHUNK, RLE_SIDE = 16, 16, 224
 # boost clock, and the idle lead of phase 10's profiled run
 SPIN_CYCLES = 20_000_000
 PROFILE_LEAD_S = 0.5
+
+# persistence and int8 weights (phase 12): the int8 ViT (bf16 + int8 on
+# the card) against an f32 CPU run of the same quant bundle, relative L2;
+# its features against the unquantized ViT's, the JAX package's own bound
+# (tests/test_quant.py:43-57); the batcher's requests; the GEMM timed
+INT8_VIT_CPU_RTOL = 1e-2   # 5.728e-03 on an H100 80GB HBM3, 700.00 W
+INT8_CORR = 0.98
+INT8_SERVE_REQUESTS, INT8_SERVE_NEW = 8, 32
+INT8_GEMM_SHAPE = (BATCH * 196, 768, 2304)
 
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
@@ -951,6 +986,7 @@ def check_jpeg_decoder(native, blobs, digests):
     worst = {"max": 0, "mean": 0.0, "channel": 0.0}
     for name, want in sorted(digests["fixtures"].items()):
         t0 = time.perf_counter()
+        # a DecoderError (the decoder failing, not refusing) ends the run
         got = native.decode_jpeg_bgr(blobs[name])
         dt_ms = (time.perf_counter() - t0) * 1e3
         if want is None:  # CMYK: the decoder refuses it (PIL decodes it)
@@ -958,6 +994,16 @@ def check_jpeg_decoder(native, blobs, digests):
                 fail(f"jpeg {name}: decoded a stream libjpeg refuses")
             log(f"[jpeg] {name}: refused, as libjpeg refuses it")
             continue
+        route = backend
+        if got is None and backend == "nvjpeg" and \
+                name.startswith("progressive_restart_"):
+            # nvJPEG refuses a progressive stream with restart markers
+            # (fault C3), which goes to PIL, as io.image.decode_image
+            # sends it
+            from mmlspark_tpu_torch.io.image import (decode_image,
+                                                     image_row_to_array)
+
+            got, route = image_row_to_array(decode_image(blobs[name])), "PIL"
         if got is None or list(got.shape) != want["shape"]:
             fail(f"jpeg {name}: decoded {None if got is None else got.shape}"
                  f", digest {want['shape']}")
@@ -967,7 +1013,7 @@ def check_jpeg_decoder(native, blobs, digests):
                       - sample.astype(np.int16))
         channel = ((got.reshape(-1, got.shape[2]).sum(0, np.int64)
                     - np.array(want["channel_sums"])) / got[..., 0].size)
-        log(f"[jpeg] {name} {tuple(got.shape)} by {backend} in {dt_ms:.2f} ms"
+        log(f"[jpeg] {name} {tuple(got.shape)} by {route} in {dt_ms:.2f} ms"
             f": sha256 equals libjpeg's: {exact}; on the every-{stride}th-"
             f"pixel sample max abs diff {int(diff.max())}, share differing "
             f"{float(np.mean(diff > 0)):.4f}, mean abs diff "
@@ -978,7 +1024,7 @@ def check_jpeg_decoder(native, blobs, digests):
                  "mean": max(worst["mean"], float(diff.mean())),
                  "channel": max(worst["channel"],
                                 float(np.abs(channel).max()))}
-        if backend == "libjpeg" and not exact:
+        if route == "libjpeg" and not exact:
             fail(f"jpeg {name}: libjpeg pixels differ from the digest")
         if diff.mean() > NVJPEG_SAMPLE_MEAN_ABS or \
                 np.abs(channel).max() > NVJPEG_CHANNEL_MEAN:
@@ -2667,7 +2713,8 @@ def resumable_train_path(card):
 
 
 def deep_vision_resume_path(card):
-    """Phase 11 (b); returns {kernel: launches} of the counted fits."""
+    """Phase 11 (b); returns ({kernel: launches} of the counted fits, the
+    uninterrupted fit's DeepVisionModel, its bytes table)."""
     import shutil
     import tempfile
 
@@ -2729,7 +2776,407 @@ def deep_vision_resume_path(card):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    return counted
+    return counted, runs["full"], table
+
+
+def _clear_executor_caches() -> None:
+    """Drop every cached device module: the caches key on `bundle_id`,
+    which a saved bundle keeps, so a loaded stage would otherwise reuse
+    the unsaved stage's module."""
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+    from mmlspark_tpu_torch.models import torch_model as TM
+
+    TM._EXEC_CACHE.clear()
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+
+
+def _save_load_check(label, stage, table, want_launches, card):
+    """Save `stage`, clear the executor caches, load it, transform `table`
+    on the card; the output must equal the unsaved stage's bit for bit
+    and launch exactly `want_launches`.  Returns (launches, save s, load
+    s, bytes on disk)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core.pipeline import PipelineStage
+
+    want = stage.transform(table)
+    root = tempfile.mkdtemp(prefix="persist-", dir=os.path.join(ROOT, "build"))
+    try:
+        path = os.path.join(root, "stage")
+        t0 = time.perf_counter()
+        stage.save(path)
+        save_s = time.perf_counter() - t0
+        size = _dir_bytes(path)
+        _clear_executor_caches()
+        t0 = time.perf_counter()
+        loaded = PipelineStage.load(path)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    zero_launches()
+    got = loaded.transform(table)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    same = got.approx_equals(want, rtol=0.0, atol=0.0)
+    diffs = [float(np.abs(got[c].astype(np.float64)
+                          - want[c].astype(np.float64)).max())
+             for c in want.column_names
+             if c in got.column_names and want[c].dtype.kind == "f"
+             and got[c].shape == want[c].shape]
+    log(f"[persist] {label}: saved in {save_s:.4f} s ({size} bytes on "
+        f"disk), loaded in {load_s:.4f} s; the loaded stage's transform "
+        f"equals the unsaved one's bit for bit: {same} (largest float "
+        f"difference {max(diffs or [0.0]):.3e}); launches {launches} on "
+        f"{card}")
+    if not same:
+        fail(f"{label}: the loaded stage's output differs from the unsaved "
+             f"stage's")
+    if launches != want_launches:
+        fail(f"{label}: the loaded stage launched {launches}, expected "
+             f"{want_launches}")
+    return launches, save_s, load_s, size
+
+
+def persistence_path(table, repo, n_chunks, dv_model, dv_table, card):
+    """Phase 12 (a); returns {kernel: launches} of the loaded stages'
+    transforms."""
+    import numpy as np
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.torch_model import (ImagePreprocess,
+                                                       TorchModel)
+    from mmlspark_tpu_torch.models.zoo import get_or_create_resnet
+    from mmlspark_tpu_torch.ops import image_stages as S
+
+    bundle = get_or_create_resnet("resnet50", (IMG, IMG, 3), 1000, repo=repo)
+    total = dict(NO_LAUNCHES)
+
+    def add(launches):
+        for k in KERNELS:
+            total[k] += launches[k]
+
+    # the featurizer's own TorchModel over phase 4's uint8 table
+    model = TorchModel(bundle=bundle, input_col="image", fetch_node="pool",
+                       batch_size=BATCH,
+                       preprocess=ImagePreprocess(IMG, IMG, MEAN_BGR,
+                                                  STD_BGR),
+                       group_by_shape=True, feed_dtype="uint8")
+    launches, save_s, load_s, size = _save_load_check(
+        "ResNet-50 TorchModel (uint8 table)", model, table,
+        dict(NO_LAUNCHES, affine_resample=n_chunks), card)
+    add(launches)
+    log(f"[persist] ResNet-50 TorchModel: save {save_s:.4f} s, load "
+        f"{load_s:.4f} s, {size} bytes on disk ({size / 2**20:.1f} MiB; the "
+        f"f32 state dict {sum(v.nbytes for v in bundle.state_dict.values())}"
+        f" bytes) on {card}")
+
+    # the featurizer over phase 4b's JPEG bytes column
+    blobs, _digests = jpeg_fixtures()
+    by_size = {hw: [n for n in sorted(blobs) if n.startswith("bench_") and
+                    n.endswith(f"_{hw[0]}x{hw[1]}.jpg")] for hw in SIZES}
+    column = [blobs[by_size[SIZES[i % 3]][(i // 3) % 2]]
+              for i in range(N_IMAGES)]
+    add(_save_load_check(
+        "ResNet-50 ImageFeaturizer (JPEG bytes)",
+        ImageFeaturizer(bundle=bundle, batch_size=BATCH),
+        Table({"image": column, "id": np.arange(N_IMAGES)}),
+        dict(NO_LAUNCHES, affine_resample=n_chunks, ycc_to_bgr=N_IMAGES),
+        card)[0])
+
+    # phase 10's fitted PipelineModel
+    pipeline_model = image_stage_pipeline(S, TorchModel, bundle).fit(table)
+    add(_save_load_check(
+        "phase 10's PipelineModel (ImageTransformer -> UnrollImage -> "
+        "TorchModel)", pipeline_model, table,
+        dict(NO_LAUNCHES, affine_resample=len(SIZES),
+             fused_normalize_unroll=1), card)[0])
+
+    # phase 11 (b)'s fitted DeepVisionModel over its bytes column: B1 once
+    # a scoring chunk (64 rows of one size), C2 once a row
+    size_of = {blobs[n]: n.rsplit("_", 1)[1] for n in blobs
+               if n.startswith("bench_")}
+    per_size = {}
+    for blob in dv_table["image"]:
+        per_size[size_of[bytes(blob)]] = per_size.get(
+            size_of[bytes(blob)], 0) + 1
+    chunks = sum(math.ceil(n / 64) for n in per_size.values())
+    add(_save_load_check(
+        "phase 11 (b)'s DeepVisionModel (JPEG bytes)", dv_model, dv_table,
+        dict(NO_LAUNCHES, affine_resample=chunks,
+             ycc_to_bgr=len(dv_table["image"])), card)[0])
+    _clear_executor_caches()
+    return total
+
+
+def int8_vit_path(images, table, repo, n_chunks, card):
+    """Phase 12 (b), the ViT: ImageFeaturizer over a ViT-B/16 with
+    quant=True (int8 blocks, bf16 elsewhere) on phase 4's table; returns
+    {kernel: launches}."""
+    import numpy as np
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.bundle import TorchBundle
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.zoo import get_or_create_resnet
+    from mmlspark_tpu_torch.ops import quant as Q
+
+    base = get_or_create_resnet("vit_base", (IMG, IMG, 3), 1000, repo=repo)
+    qbundle = TorchBundle("vit_base", dict(base.builder_kwargs, quant=True),
+                          state_dict=base.state_dict,
+                          input_shape=(IMG, IMG, 3))
+    bf16 = ImageFeaturizer(bundle=base, batch_size=BATCH)
+    int8 = ImageFeaturizer(bundle=qbundle, batch_size=BATCH)
+    layers = 12
+    zero_launches()
+    Q.INT8_GEMMS = 0
+    out = int8.transform(table)
+    launches, gemms = read_launches(), Q.INT8_GEMMS
+    feats = out["features"]
+    want = dict(NO_LAUNCHES, affine_resample=n_chunks,
+                flash_attention_fwd=layers * n_chunks)
+    log(f"[int8-vit] ViT-B/16 quant=True (bf16 outside the int8 layers): "
+        f"launches {launches}, int8 GEMMs {gemms} (chunks={n_chunks})")
+    if launches != want or gemms != 4 * layers * n_chunks:
+        fail(f"the int8 ViT launched {launches} and {gemms} int8 GEMMs, "
+             f"expected {want} and 4 a block a chunk ({4 * layers * n_chunks})")
+    if feats.shape != (N_IMAGES, 768) or not np.isfinite(feats).all():
+        fail(f"int8 ViT features: shape {feats.shape}, "
+             f"finite={np.isfinite(feats).all()}")
+    if not (out["id"] == np.arange(N_IMAGES)).all():
+        fail("the int8 ViT path changed the row order")
+
+    # the reference's own bound (tests/test_quant.py:43-57): correlated
+    # with the unquantized model's output on the same weights
+    plain = bf16.transform(table)["features"]
+    corr = float(np.corrcoef(feats.ravel(), plain.ravel())[0, 1])
+    log(f"[int8-vit] features vs the bf16 ViT-B/16 on the same weights: "
+        f"correlation {corr:.5f} (bound > {INT8_CORR}), rel_l2 "
+        f"{rel_l2(feats, plain):.3e}")
+    if not corr > INT8_CORR:
+        fail("the int8 ViT's features are not correlated with the bf16 "
+             "ViT's")
+
+    # the card (bf16 + int8) against an f32 CPU run of the same quant
+    # bundle on the same few images: a chunk's rows share one activation
+    # scale a layer, so both sides run the same chunks
+    few = [i for s in range(len(SIZES)) for i in range(s, 6, len(SIZES))]
+    few_table = Table({"image": [images[i] for i in few]})
+    card_few = int8.transform(few_table)["features"]
+    cpu_bundle = TorchBundle("vit_base", qbundle.builder_kwargs,
+                             state_dict=base.state_dict,
+                             input_shape=(IMG, IMG, 3), dtype="float32")
+    cpu_few = ImageFeaturizer(bundle=cpu_bundle, batch_size=BATCH,
+                              device="cpu").transform(few_table)["features"]
+    err_cpu = rel_l2(card_few, cpu_few)
+    log(f"[int8-vit] features (bf16 + int8 on the card) vs an f32 CPU run "
+        f"of the same quant bundle on {len(few)} images: rel_l2="
+        f"{err_cpu:.3e} (bound {INT8_VIT_CPU_RTOL})")
+    if err_cpu > INT8_VIT_CPU_RTOL:
+        fail("the int8 ViT's features disagree with the f32 CPU run")
+
+    walls = {}
+    for label, f in (("vit bf16", bf16), ("vit int8", int8),
+                     ("vit bf16", bf16), ("vit int8", int8)):
+        walls.setdefault(label, []).append(
+            timed_transforms(f, table, label, card, n_runs=3))
+    log(f"[int8-vit] median walls in turns: bf16 {walls['vit bf16']} s, "
+        f"int8 {walls['vit int8']} s = images/s bf16 "
+        f"{[round(N_IMAGES / w) for w in walls['vit bf16']]}, int8 "
+        f"{[round(N_IMAGES / w) for w in walls['vit int8']]} on {card}")
+    del bf16, int8
+    _clear_executor_caches()
+    return launches
+
+
+def int8_lm_path(card):
+    """Phase 12 (b), the LM: phase 6's GPT-small with quant=True,
+    prequantized, through `generate` and a paged ContinuousBatcher;
+    returns {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+    from mmlspark_tpu_torch.models.bundle import TorchBundle, prequantize
+    from mmlspark_tpu_torch.ops import quant as Q
+    from mmlspark_tpu_torch.serving import batcher as SB
+
+    layers = LM["num_layers"]
+    per_forward = 4 * layers + 1  # qkv, proj, mlp_in, mlp_out; the head
+    base = TorchBundle("transformer_lm", LM, input_shape=(LM_PROMPT,),
+                       seed=0)
+    t0 = time.perf_counter()
+    qbundle = prequantize(TorchBundle(
+        "transformer_lm", dict(LM, quant=True), state_dict=base.state_dict,
+        input_shape=(LM_PROMPT,)))
+    log(f"[int8-lm] prequantized GPT-small in "
+        f"{time.perf_counter() - t0:.2f} s (int8 bytes "
+        f"{sum(v.nbytes for k, v in qbundle.state_dict.items() if k.endswith('.wq'))})")
+    prompt = np.random.default_rng(0).integers(
+        0, LM["vocab_size"], (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    total = dict(NO_LAUNCHES)
+
+    zero_launches()
+    Q.INT8_GEMMS = 0
+    out = G.generate(qbundle, prompt, LM_NEW)
+    torch.cuda.synchronize()
+    launches, gemms = read_launches(), Q.INT8_GEMMS
+    log(f"[int8-lm] generate (batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{LM_NEW} new tokens): launches {launches}, int8 GEMMs {gemms}")
+    want = dict(NO_LAUNCHES, flash_attention_fwd=layers)
+    if launches != want or gemms != per_forward * LM_NEW:
+        fail(f"the int8 LM launched {launches} and {gemms} int8 GEMMs, "
+             f"expected {want} and {per_forward} a forward over 1 prefill "
+             f"and {LM_NEW - 1} decode steps")
+    for k in KERNELS:
+        total[k] += launches[k]
+    toks = out.cpu().numpy()
+    if toks.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or \
+            not (toks[:, :LM_PROMPT] == prompt).all() or \
+            toks.min() < 0 or toks.max() >= LM["vocab_size"]:
+        fail(f"int8 generate returned {toks.shape}, or tokens outside the "
+             f"vocab or a changed prompt")
+    module = G._module_for(qbundle, torch.device("cuda"))
+    if module.blocks[0].qkv.weight.dtype != torch.float32 or \
+            module.blocks[0].qkv.wq.dtype != torch.int8 or \
+            module.ln_f.weight.dtype != torch.bfloat16:
+        fail("the int8 LM's layers are not f32 master + int8 copy in a "
+             "bf16 module")
+    cpu_bundle = TorchBundle("transformer_lm", qbundle.builder_kwargs,
+                             state_dict=qbundle.state_dict,
+                             input_shape=(LM_PROMPT,), dtype="float32")
+    short = torch.from_numpy(prompt[:2, :LM_CPU_PROMPT])
+    with torch.inference_mode():
+        card_short = module(short.cuda())[0].cpu().numpy()
+        cpu_short = cpu_bundle.module(torch.device("cpu"))(short)[0].numpy()
+    err_cpu = rel_l2(card_short, cpu_short)
+    log(f"[int8-lm] prefill logits (bf16 + int8 on the card) vs an f32 CPU "
+        f"prefill of the same prequantized bundle, {LM_CPU_PROMPT}-token "
+        f"prompt, batch 2: rel_l2={err_cpu:.3e} (bound {LM_CPU_RTOL})")
+    if err_cpu > LM_CPU_RTOL:
+        fail("the int8 LM's prefill logits disagree with the f32 CPU run")
+
+    # decode tokens/s, bf16 and int8 in turns after one untimed turn each
+    # (eager decode steps after one prefill), and whole generate walls
+    modules = {"bf16": G._module_for(base, torch.device("cuda")),
+               "int8": module}
+    p_cuda = torch.from_numpy(prompt).cuda()
+    steps = LM_NEW - 1
+    rates = {"bf16": [], "int8": []}
+    walls = {"bf16": [], "int8": []}
+    with torch.inference_mode():
+        for turn, name in enumerate(["bf16", "int8"] * 4):
+            m = modules[name]
+            _logits, cache = G._prefill_cache(m, p_cuda)
+            tok = torch.zeros((LM_BATCH, 1), dtype=torch.int32,
+                              device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                lg, cache = m.decode_step(tok, cache, LM_PROMPT + i)
+                tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            torch.cuda.synchronize()
+            rate = LM_BATCH * steps / (time.perf_counter() - t0)
+            del cache
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            G.generate(base if name == "bf16" else qbundle, prompt, LM_NEW)
+            torch.cuda.synchronize()
+            if turn >= 2:
+                rates[name].append(rate)
+                walls[name].append(time.perf_counter() - t0)
+    med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
+    log(f"[int8-lm] eager decode (batch {LM_BATCH}, {steps} steps after a "
+        f"{LM_PROMPT}-token prefill), 3 turns each after a warm-up turn: "
+        f"bf16 {[round(r) for r in rates['bf16']]} tokens/s, int8 "
+        f"{[round(r) for r in rates['int8']]} tokens/s (medians int8 / bf16"
+        f" {med['int8'] / med['bf16']:.3f}); whole generate walls bf16 "
+        f"{[round(w, 4) for w in walls['bf16']]} s, int8 "
+        f"{[round(w, 4) for w in walls['int8']]} s on {card}")
+    del modules
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+
+    # a paged ContinuousBatcher on the prequantized bundle
+    rng = np.random.default_rng(3)
+    lens = rng.integers(16, 301, INT8_SERVE_REQUESTS)
+    prompts = [rng.integers(0, LM["vocab_size"], n).astype(np.int32)
+               for n in lens]
+    batcher = SB.ContinuousBatcher(qbundle, max_slots=SERVE_SLOTS,
+                                   paged=True, page_size=PAGE).start()
+    prefills = []
+    real_prefill = SB._prefill_kv
+
+    def prefill_spy(module_, toks, kv_cache_dtype=None):
+        prefills.append(tuple(toks.shape))
+        return real_prefill(module_, toks, kv_cache_dtype)
+
+    SB._prefill_kv = prefill_spy
+    try:
+        zero_launches()
+        Q.INT8_GEMMS = 0
+        ticks0 = batch_fill_count()
+        t0 = time.perf_counter()
+        got = [st.tokens(timeout=STREAM_WAIT_S) for st in
+               [batcher.submit(p, INT8_SERVE_NEW) for p in prompts]]
+        wall = time.perf_counter() - t0
+        launches, gemms = read_launches(), Q.INT8_GEMMS
+        ticks = batch_fill_count() - ticks0
+    finally:
+        SB._prefill_kv = real_prefill
+        batcher.stop()
+    want = dict(NO_LAUNCHES, flash_attention_fwd=layers * len(prefills),
+                paged_decode_attention=layers * ticks)
+    log(f"[int8-lm] paged ContinuousBatcher ({SERVE_SLOTS} slots, page "
+        f"{PAGE}) on the prequantized bundle: {INT8_SERVE_REQUESTS} requests "
+        f"(prompts {lens.min()}..{lens.max()}), {INT8_SERVE_NEW} new tokens "
+        f"each in {wall:.3f} s = {INT8_SERVE_REQUESTS * INT8_SERVE_NEW / wall:.0f}"
+        f" tokens/s; {ticks} ticks, admission prefills {prefills}; launches "
+        f"{launches}, int8 GEMMs {gemms} on {card}")
+    if launches != want or ticks == 0:
+        fail(f"the int8 batcher launched {launches}, expected {want} (B7 "
+             f"once a layer a tick, B4 once a layer an admission prefill)")
+    if gemms != per_forward * (ticks + len(prefills)):
+        fail(f"the int8 batcher ran {gemms} int8 GEMMs, expected "
+             f"{per_forward} a forward over {ticks} ticks and "
+             f"{len(prefills)} prefills")
+    if any(len(t) != INT8_SERVE_NEW for t in got) or \
+            min(min(t) for t in got) < 0 or \
+            max(max(t) for t in got) >= LM["vocab_size"]:
+        fail(f"int8 batcher: stream lengths {[len(t) for t in got]} or "
+             f"tokens outside the vocabulary")
+    for k in KERNELS:
+        total[k] += launches[k]
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+    return total
+
+
+def int8_gemm_timing(card) -> None:
+    """`torch._int_mm` at the ViT-B/16 qkv shape of one chunk against a
+    bf16 `torch.matmul` at the same shape, each from calls queued behind
+    a spin (the device alone)."""
+    import torch
+
+    m, k, n = INT8_GEMM_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+    if not torch.equal(torch._int_mm(a, w.t()).float(),
+                       (a.float() @ w.float().t())):
+        fail("torch._int_mm disagrees with the f32 product of its inputs")
+    int8_ms = queued_ms(lambda: torch._int_mm(a, w.t()))
+    bf16_ms = queued_ms(lambda: torch.matmul(ab, wb.t()))
+    ops = 2.0 * m * k * n
+    log(f"[int8-gemm] ({m} x {k}) @ ({k} x {n}): torch._int_mm "
+        f"{int8_ms:.4f} ms ({ops / int8_ms / 1e9:.1f} TOPS), bf16 "
+        f"torch.matmul {bf16_ms:.4f} ms ({ops / bf16_ms / 1e9:.1f} TFLOP/s)"
+        f"; int8 / bf16 time {int8_ms / bf16_ms:.3f} on {card}")
 
 
 def ptxas_entries(report: str):
@@ -2974,10 +3421,19 @@ def main() -> None:
     # algorithms from here on (cuBLAS's workspace is set at the top)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    paths += [resumable_train_path(card), deep_vision_resume_path(card)]
+    paths.append(resumable_train_path(card))
+    dv_launches, dv_model, dv_table = deep_vision_resume_path(card)
+    paths.append(dv_launches)
     from mmlspark_tpu_torch import native
 
     ycc = check_ycc(native, jpeg_fixtures()[0])
+
+    # ---- 12. persistence and int8 weights --------------------------------
+    paths += [persistence_path(table, repo, n_chunks, dv_model, dv_table,
+                               card),
+              int8_vit_path(images, table, repo, n_chunks, card),
+              int8_lm_path(card)]
+    int8_gemm_timing(card)
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------

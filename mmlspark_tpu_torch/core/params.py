@@ -216,3 +216,17 @@ class Params:
         if extra:
             new.set(**extra)
         return new
+
+    # ---- serialization hooks (implemented in serialize.py) -------------
+    def simple_param_values(self) -> Dict[str, Any]:
+        return {
+            n: v
+            for n, v in self._param_map.items()
+            if not self.param(n).is_complex
+        }
+
+    def complex_param_values(self) -> Dict[str, Any]:
+        return {
+            n: v for n, v in self._param_map.items()
+            if self.param(n).is_complex and not self.param(n).transient
+        }

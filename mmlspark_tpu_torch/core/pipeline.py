@@ -29,14 +29,25 @@ __all__ = [
 
 
 class PipelineStage(Params):
-    """Common base: params + schema transform.  (The JAX package's
-    save/load persistence is not ported yet.)"""
+    """Common base: params + persistence + schema transform."""
 
     def transform_schema(self, columns: List[str]) -> List[str]:
         """Best-effort static schema check: given input column names, return
         output column names.  Subclasses override to validate inputs early
         (reference: transformSchema in every Spark stage)."""
         return columns
+
+    # persistence — implemented via serialize.py to avoid import cycles
+    def save(self, path: str, overwrite: bool = True) -> None:
+        from . import serialize
+
+        serialize.save_stage(self, path, overwrite=overwrite)
+
+    @staticmethod
+    def load(path: str) -> "PipelineStage":
+        from . import serialize
+
+        return serialize.load_stage(path)
 
 
 class Transformer(PipelineStage):

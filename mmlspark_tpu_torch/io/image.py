@@ -1,9 +1,11 @@
 """Image IO: image rows <-> arrays, and the host decode of an image column.
 
-A copy of the JAX package's `io/image.py` row helpers and of
+A copy of the JAX package's `io/image.py` (row helpers,
+`encode_image_row`, `read_binary_files`, `read_image_dir`) and of
 `ops/image_stages.py::decode_cells`, for this package.  Reference: core
 io/image/ImageUtils.scala:26-165 (decode bytes -> image row; `safeRead`
-tolerant decode).
+tolerant decode) and PatchedImageFileFormat.scala:154 (the image
+source).
 
 An "image row" is a dict with the Spark image schema fields
 (origin, height, width, nChannels, mode, data) where `data` is an
@@ -23,8 +25,11 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..core.schema import Table
+
 __all__ = ["array_to_image_row", "image_row_to_array", "decode_image",
-           "safe_read", "decode_cells"]
+           "safe_read", "decode_cells", "encode_image_row",
+           "read_binary_files", "read_image_dir"]
 
 OCV_8UC1 = 0
 OCV_8UC3 = 16
@@ -141,3 +146,38 @@ def decode_cells(col: np.ndarray) -> list:
     core_telemetry.histogram("io.pipeline.stage.latency",
                              stage="decode").observe(dt)
     return out
+
+
+def encode_image_row(row: Dict[str, Any], fmt: str = "PNG") -> bytes:
+    """Image row -> encoded bytes (PIL), BGR turned back to RGB."""
+    from PIL import Image
+
+    arr = image_row_to_array(row)
+    if arr.shape[2] == 3:
+        arr = arr[:, :, ::-1]  # BGR -> RGB
+    elif arr.shape[2] == 1:
+        arr = arr[:, :, 0]
+    buf = _io.BytesIO()
+    Image.fromarray(arr).save(buf, format=fmt)
+    return buf.getvalue()
+
+
+def read_binary_files(pattern: str, recursive: bool = True,
+                      sample_ratio: float = 1.0) -> Table:
+    """(path, bytes) table from a glob — BinaryFileFormat analog; delegates
+    to the canonical threaded reader in io/binary.py."""
+    from .binary import read_binary_files as _impl
+
+    return _impl(pattern, recursive=recursive, sample_ratio=sample_ratio)
+
+
+def read_image_dir(pattern: str, drop_invalid: bool = True) -> Table:
+    """Image-source analog (PatchedImageFileFormat.scala:154): decode every
+    file under the glob into an `image` column of image rows."""
+    files = read_binary_files(pattern)
+    rows = [safe_read(b, origin=p) for p, b in zip(files["path"], files["bytes"])]
+    t = Table({"image": rows})
+    if drop_invalid:
+        mask = np.array([r is not None for r in rows])
+        t = t.filter(mask)
+    return t

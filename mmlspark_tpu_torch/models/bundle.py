@@ -22,6 +22,25 @@ leaf on either side must be used exactly once.
 A bundle's taps (`layer_names`) and its input dtype (`input_dtype`:
 int32 token ids for the LM, float32 otherwise) come from its module, as
 the JAX package's FlaxBundle takes them.
+
+On disk a bundle is what `pickle` makes of it — the JAX package's
+pickle catch-all for complex params (core/serialize.py): a TorchBundle
+holds only plain attributes, `builder` (a registered name),
+`builder_kwargs`, `state_dict` (numpy arrays: f32 weights, int64
+BatchNorm counters, and after `prequantize` the int8 `wq` / f32 `ws` of
+each int8 layer), `input_shape`, `layer_names`, `input_dtype`, `dtype`
+(the compute dtype's name) and `bundle_id`.  No torch object is
+pickled, so a bundle saved on one machine loads on any other that has
+this package.
+
+`FunctionBundle` is the escape hatch for an arbitrary model: a
+picklable `fn(variables, batch)` over a dict of tensors, whose variables
+are kept as numpy and moved to the stage's device.
+
+`prequantize(bundle)` returns a NEW TorchBundle (a new `bundle_id`, so
+no executor cache confuses the two) whose int8 layers carry their int8
+weights; `from_flax_variables` takes the JAX package's 'quant'
+collection the same way.
 """
 from __future__ import annotations
 
@@ -34,12 +53,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.quant import QuantLinear
 from . import resnet as R
 from . import transformer as T
 from . import vit as V
 
-__all__ = ["TorchBundle", "register_builder", "get_builder",
-           "from_flax_variables", "init_state_dict"]
+__all__ = ["TorchBundle", "FunctionBundle", "register_builder",
+           "get_builder", "from_flax_variables", "init_state_dict",
+           "prequantize"]
 
 _BUILDERS: Dict[str, Callable[..., nn.Module]] = {}
 
@@ -122,16 +143,20 @@ def init_state_dict(module: nn.Module, seed: int = 0,
             for k, v in module.state_dict().items()}
 
 
-class TorchBundle:
-    """A registered nn.Module builder + its weights.
-
-    `bundle_id` is a stable identity for executor caching: unique per
+class _Bundle:
+    """`bundle_id` is a stable identity for executor caching: unique per
     construction, preserved through pickle (same weights -> same id)."""
 
     def __new__(cls, *args, **kwargs):
         obj = super().__new__(cls)
         obj.bundle_id = uuid.uuid4().hex
         return obj
+
+
+class TorchBundle(_Bundle):
+    """A registered nn.Module builder + its weights.  Saved as it pickles
+    (the module docstring's on-disk form): plain attributes and a numpy
+    state dict, no torch object."""
 
     def __init__(self, builder: str, builder_kwargs: Optional[dict] = None,
                  state_dict: Optional[Mapping[str, Any]] = None,
@@ -195,6 +220,52 @@ class TorchBundle:
         return {"output": out}
 
 
+class FunctionBundle(_Bundle):
+    """An arbitrary picklable `fn(variables, batch) -> dict | tensor` (a
+    module-level function, so it pickles by name): `variables` is a dict
+    of tensors, kept as numpy and handed to `fn` on the stage's device;
+    a tensor result is the tap "output"."""
+
+    input_dtype = "float32"
+
+    def __init__(self, fn: Callable, variables: Optional[Mapping] = None,
+                 input_shape: Optional[Sequence[int]] = None,
+                 layer_names: Optional[List[str]] = None):
+        self.fn = fn
+        self.variables = {
+            k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                else np.asarray(v))
+            for k, v in (variables or {}).items()}
+        self.input_shape = tuple(input_shape) if input_shape else None
+        self.layer_names = list(layer_names or ["output"])
+
+    def module(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        """The variables as tensors on `device` (what `apply` gets)."""
+        return {k: torch.from_numpy(np.array(v)).to(device)
+                for k, v in self.variables.items()}
+
+    def apply(self, variables: Dict[str, torch.Tensor],
+              batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = self.fn(variables, batch)
+        return out if isinstance(out, dict) else {"output": out}
+
+
+def prequantize(bundle: TorchBundle) -> TorchBundle:
+    """A NEW TorchBundle whose int8 layers (`ops.quant.QuantLinear`) hold
+    their int8 weights and scales, computed from the bundle's CURRENT f32
+    weights (an int8 copy already in the bundle is recomputed)."""
+    from ..ops.quant import prequantize as prequantize_module
+
+    module = bundle.build_module()
+    module.load_state_dict({k: torch.from_numpy(np.array(v))
+                            for k, v in bundle.state_dict.items()})
+    prequantize_module(module)
+    return TorchBundle.from_module(bundle.builder, module,
+                                   bundle.builder_kwargs,
+                                   input_shape=bundle.input_shape,
+                                   dtype=bundle.dtype)
+
+
 # ---------------------------------------------------------------------------
 # The weight bridge: flax ResNet variables -> TorchBundle.
 # ---------------------------------------------------------------------------
@@ -236,11 +307,13 @@ def from_flax_variables(builder: str, variables: Mapping[str, Any],
                         input_shape: Optional[Sequence[int]] = None,
                         dtype: str = "bfloat16") -> TorchBundle:
     """A flax ResNet's {'params', 'batch_stats'}, or a flax ViT's or
-    TransformerLM's {'params'}, numpy tree -> TorchBundle.
+    TransformerLM's {'params'}, numpy tree -> TorchBundle.  A 'quant'
+    collection (the JAX package's `prequantize`) gives each int8 layer
+    its `wq` [K, N] int8 (stored transposed, [N, K]) and `ws` [N].
 
     Raises KeyError on any flax leaf that maps nowhere and on any module
     weight no leaf fills, and ValueError on a shape mismatch."""
-    extra = set(variables) - {"params", "batch_stats"}
+    extra = set(variables) - {"params", "batch_stats", "quant"}
     if extra:
         raise KeyError(f"unexpected flax collections {sorted(extra)}")
     rename = {"kernel": None, "bias": "bias", "scale": "weight",
@@ -270,7 +343,21 @@ def from_flax_variables(builder: str, variables: Mapping[str, Any],
             out[name] = np.ascontiguousarray(v, np.float32)
     bundle_kwargs = _builder_kwargs(builder, builder_kwargs, input_shape)
     with torch.device("meta"):
-        want = get_builder(builder)(**bundle_kwargs).state_dict()
+        fresh = get_builder(builder)(**bundle_kwargs)
+    want = dict(fresh.state_dict())
+    quant_leaves = _flatten(variables.get("quant", {}))
+    for path, v in quant_leaves.items():
+        *mod, leaf = path
+        prefix = _torch_prefix(mod)
+        layer = fresh.get_submodule(prefix)
+        if leaf not in ("wq", "ws") or not isinstance(layer, QuantLinear):
+            raise KeyError(f"unexpected flax leaf quant/{'/'.join(path)}")
+        n, k = layer.weight.shape
+        name = f"{prefix}.{leaf}"
+        out[name] = (np.ascontiguousarray(v.T, np.int8) if leaf == "wq"
+                     else np.ascontiguousarray(v, np.float32))
+        want[name] = torch.empty((n, k) if leaf == "wq" else (n,),
+                                 device="meta")
     for name, t in want.items():
         if name.endswith("num_batches_tracked"):
             out[name] = np.zeros((), np.int64)

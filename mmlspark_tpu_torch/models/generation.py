@@ -20,7 +20,10 @@ from an explicit `torch.Generator` (its numbers differ from
 `kv_cache_dtype="int8"` keeps the cache as int8 rows with f32
 per-(position, head) scales (`ops.quant.quantize_kv_row`).
 `beam_search` and `speculative_generate` are not ported yet (ROADMAP
-A14).
+A14 item 3).  A quant bundle (`quant=True`, prequantized or not) runs
+as any other: the prefill runs the head over every prompt position and
+each step over the batch's rows, the JAX package's row sets, which
+matters because an int8 layer's activation scale is one per call.
 """
 from __future__ import annotations
 

@@ -10,6 +10,11 @@ and output coercion (:468-493) are handled host-side.  Token models
 (TransformerLM) take int32 rows of shape (S,) with `feed_dtype="int32"`,
 as the JAX package's TPUModel does.
 
+The bundle is a `TorchBundle` or a `FunctionBundle` (an arbitrary
+`fn(variables, batch)`): either gives the executor its device-side state
+(`bundle.module(device)`: a module, or the variables as tensors) and
+its taps (`bundle.apply`), under the same taps rule and `device` Param.
+
 Chunk sizing, padding and grouping (`chunk_plan`, `chunk_sizes`,
 `pad_to_batch`, `run_grouped`) keep the JAX package's semantics exactly,
 with a data-parallel degree of 1 (one card).  The device is the
@@ -19,7 +24,7 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,7 +34,7 @@ from ..core.pipeline import Transformer
 from ..core.registry import register_stage
 from ..core.schema import Table
 from ..device import resolve_device
-from .bundle import TorchBundle
+from .bundle import FunctionBundle, TorchBundle
 
 __all__ = ["TorchModel", "ImagePreprocess", "pad_to_multiple"]
 
@@ -122,7 +127,8 @@ def _gather_input(col: np.ndarray, input_shape,
 
 @register_stage
 class TorchModel(Transformer):
-    bundle = ComplexParam("TorchBundle (architecture + weights)")
+    bundle = ComplexParam("TorchBundle (architecture + weights) or "
+                          "FunctionBundle")
     input_col = Param("input column", default="features")
     output_col = Param("output column", default="output")
     fetch_node = Param("tap name or OUTPUT_i index to fetch", default=None)
@@ -147,7 +153,8 @@ class TorchModel(Transformer):
     device = Param("'cuda' (default) or 'cpu'; without CUDA only an explicit "
                    "'cpu' runs", default=None)
 
-    def __init__(self, bundle: Optional[TorchBundle] = None, **kw):
+    def __init__(self, bundle: Optional[Union[TorchBundle, FunctionBundle]]
+                 = None, **kw):
         super().__init__(**kw)
         if bundle is not None:
             self.set(bundle=bundle)

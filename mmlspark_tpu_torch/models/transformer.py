@@ -43,9 +43,12 @@ flash backward kernels) for CUDA tensors and its plain version, dense
 The caches are written IN PLACE (the JAX package returns updated
 copies; the port saves the copy) and returned.
 
-Not ported yet (they raise NotImplementedError naming ROADMAP A14):
-int8 inference (`quant=True`) and mixture-of-experts MLPs
-(`moe_experts > 0`).
+`quant=True` builds the layers the JAX package quantizes — `qkv` (or
+`q` and `kv` under GQA), `proj`, `mlp_in`, `mlp_out` and the LM `head` —
+as `ops.quant.QuantLinear` (int8 weights and activations, f32 weights
+kept under a bf16 module); inference only.  Not ported yet:
+mixture-of-experts MLPs (`moe_experts > 0` raises NotImplementedError
+naming ROADMAP A14 item 4).
 """
 from __future__ import annotations
 
@@ -57,15 +60,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import dense_cls
+
 __all__ = ["TransformerLM", "transformer_lm", "default_attn"]
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon
-_WAITS = "ROADMAP A14"
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to mmlspark_tpu_torch yet ({_WAITS})")
+        f"{what} is not ported to mmlspark_tpu_torch yet (ROADMAP A14 "
+        f"item {item})")
 
 
 def _cache_attention(q, k_cache, v_cache, q_pos, d, k_scale=None,
@@ -136,7 +141,7 @@ class _Block(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int,
                  attn_fn: Optional[Callable], kv_heads: Optional[int] = None,
-                 rope: bool = False):
+                 rope: bool = False, linear=nn.Linear):
         super().__init__()
         e, h = embed_dim, num_heads
         self.num_heads = h
@@ -146,15 +151,15 @@ class _Block(nn.Module):
         self.rope = rope
         self.ln1 = nn.LayerNorm(e, eps=LN_EPS)
         if self.kv_heads == h:
-            self.qkv = nn.Linear(e, 3 * e, bias=False)
+            self.qkv = linear(e, 3 * e, bias=False)
         else:
-            self.q = nn.Linear(e, e, bias=False)
-            self.kv = nn.Linear(e, 2 * self.kv_heads * self.head_dim,
-                                bias=False)
-        self.proj = nn.Linear(e, e, bias=False)
+            self.q = linear(e, e, bias=False)
+            self.kv = linear(e, 2 * self.kv_heads * self.head_dim,
+                             bias=False)
+        self.proj = linear(e, e, bias=False)
         self.ln2 = nn.LayerNorm(e, eps=LN_EPS)
-        self.mlp_in = nn.Linear(e, mlp_ratio * e)
-        self.mlp_out = nn.Linear(mlp_ratio * e, e)
+        self.mlp_in = linear(e, mlp_ratio * e)
+        self.mlp_out = linear(mlp_ratio * e, e)
 
     def forward(self, x: torch.Tensor, cache=None, pos=None, page_table=None,
                 kvcache: Optional[List] = None):
@@ -294,10 +299,8 @@ class TransformerLM(nn.Module):
                  pos_emb: str = "learned",
                  num_kv_heads: Optional[int] = None):
         super().__init__()
-        if quant:
-            raise _not_ported("int8 inference (quant=True)")
         if moe_experts > 0:
-            raise _not_ported("the mixture-of-experts MLP (moe_experts > 0)")
+            raise _not_ported("the mixture-of-experts MLP (moe_experts > 0)", 4)
         if pos_emb not in ("learned", "rope"):
             raise ValueError(
                 f"pos_emb must be 'learned' or 'rope', got {pos_emb!r} — "
@@ -313,16 +316,19 @@ class TransformerLM(nn.Module):
         self.max_len = max_len
         self.pos_emb = pos_emb
         self.num_kv_heads = num_kv_heads
+        self.quant = bool(quant)
+        linear = dense_cls(self.quant)
         attn = attn_fn if attn_fn is not None else default_attn(True)
         self.tok_embed = nn.Embedding(vocab_size, embed_dim)
         if pos_emb == "learned":
             self.pos_embed = nn.Embedding(max_len, embed_dim)
         self.blocks = nn.ModuleList(
             _Block(embed_dim, num_heads, mlp_ratio, attn,
-                   kv_heads=num_kv_heads, rope=pos_emb == "rope")
+                   kv_heads=num_kv_heads, rope=pos_emb == "rope",
+                   linear=linear)
             for _ in range(num_layers))
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.head = nn.Linear(embed_dim, vocab_size, bias=False)
+        self.head = linear(embed_dim, vocab_size, bias=False)
 
     @property
     def kv_heads(self) -> int:

@@ -12,8 +12,10 @@ otherwise patches would meet the wrong rows of `pos_embed`; and the
 position table's size depends on the image size, so the module is built
 for one `image_size` (a TorchBundle passes its input_shape's).
 
-Not ported yet (NotImplementedError, ROADMAP A14): `quant=True` and
-`moe_experts > 0`.
+`quant=True` runs the encoder blocks' linear layers as int8
+(`ops.quant.QuantLinear`); the classification `head` stays a plain
+linear layer, as in the JAX package.  Not ported yet: `moe_experts > 0`
+(NotImplementedError, ROADMAP A14 item 4).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..ops.quant import dense_cls
 from .transformer import LN_EPS, _Block, _not_ported, _torch_dtype, default_attn
 
 __all__ = ["VisionTransformer", "vit_tiny", "vit_small", "vit_base"]
@@ -55,10 +58,8 @@ class VisionTransformer(nn.Module):
                  image_size: Union[int, Tuple[int, int]] = 224,
                  attn_fn: Optional[Callable] = None):
         super().__init__()
-        if quant:
-            raise _not_ported("int8 inference (quant=True)")
         if moe_experts > 0:
-            raise _not_ported("the mixture-of-experts MLP (moe_experts > 0)")
+            raise _not_ported("the mixture-of-experts MLP (moe_experts > 0)", 4)
         p = int(patch_size)
         h, w = _pair(image_size)
         _check_divisible(h, w, p)
@@ -69,7 +70,8 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(
             torch.zeros(1, (h // p) * (w // p), embed_dim))
         self.blocks = nn.ModuleList(
-            _Block(embed_dim, num_heads, mlp_ratio, attn)
+            _Block(embed_dim, num_heads, mlp_ratio, attn,
+                   linear=dense_cls(quant))
             for _ in range(num_layers))
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.head = nn.Linear(embed_dim, num_classes)

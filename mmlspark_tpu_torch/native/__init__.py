@@ -26,7 +26,8 @@ the input of the upsampling and colour conversion, whose plain version
 Where neither backend's headers exist, `jpeg_available()` is False and
 the featurizer keeps its general path (PIL), as the JAX package does
 without libjpeg.  A stream the decoder refuses (not a JPEG, truncated,
-CMYK) gives None / False, and the caller may decode it another way, as
+CMYK; on nvJPEG also a progressive stream with a restart interval, which
+nvJPEG decodes into wrong pixels) gives None / False, and the caller may decode it another way, as
 the JAX package does with a stream libjpeg refuses.  Anything else raises
 `DecoderError`, and nothing decodes in its place: a backend the machine
 has that fails to build, a failure of the card or of nvJPEG in a probe or

@@ -24,8 +24,15 @@
 //
 // Return codes: -1 is kept for a stream that is refused (not a JPEG,
 // truncated, CMYK, non-integer sampling ratios, a format nvJPEG does not
-// decode), which the caller may hand to another decoder as it would a
-// stream libjpeg refuses.  Every failure of the card or of nvJPEG itself
+// decode, a progressive stream with a restart interval), which the caller
+// may hand to another decoder as it would a stream libjpeg refuses.
+// nvJPEG decodes a progressive stream whose scans carry restart markers
+// into wrong pixels without an error (fault C3, seen on an H100 80GB HBM3
+// with the CUDA 12.9 toolkit's nvJPEG: noise images with a restart every
+// 2 MCUs came out far past the IDCT's differences from libjpeg), so such
+// streams are refused before the decode; baseline streams with restart
+// markers and progressive ones without decode to libjpeg's pixels but
+// for the IDCT, like any baseline stream.  Every failure of the card or of nvJPEG itself
 // gives -5 (no nvJPEG handle, no decoder state or stream, a failed
 // cudaMalloc, an nvJPEG status other than a bad or unsupported stream, a
 // refused launch, a fault), and nvJPEG's view of a stream disagreeing with
@@ -130,6 +137,7 @@ int32_t finish(int32_t rc) {
 // frame's size and components, and its colour space by libjpeg-turbo's
 // rule (jdapimin.c default_decompress_parms).
 struct Layout {
+    bool progressive = false;  // SOF2, SOF6, SOF10 or SOF14
     int ncomp = 0;
     int height = 0;
     int width = 0;
@@ -170,6 +178,7 @@ bool parse_layout(const uint8_t* d, int64_t n, Layout* L) {
         } else if (!sof && m >= 0xC0 && m <= 0xCF && m != 0xC4 &&
                    m != 0xC8 && m != 0xCC) {
             if (plen < 6) return false;
+            L->progressive = (m & 0x03) == 0x02;
             L->height = (p[1] << 8) | p[2];
             L->width = (p[3] << 8) | p[4];
             L->ncomp = p[5];
@@ -273,17 +282,35 @@ int32_t decode_planes_on_card(nvjpegHandle_t hd, Slot* s,
                                       NVJPEG_OUTPUT_YUV, &img, s->stream));
 }
 
+// True when the stream defines a non-zero restart interval anywhere: a
+// progressive stream may define one between its scans, so the whole
+// stream is searched.  FF DD cannot occur inside entropy-coded data (an
+// FF there is followed by 00 or a restart marker); a match inside a
+// marker segment's payload (an embedded thumbnail) only refuses a stream
+// that nvJPEG might have decoded.
+bool has_restart_interval(const uint8_t* d, int64_t n) {
+    for (int64_t i = 2; i + 5 < n; ++i) {
+        if (d[i] == 0xFF && d[i + 1] == 0xDD && d[i + 2] == 0 &&
+            d[i + 3] == 4 && (d[i + 4] | d[i + 5]) != 0) {
+            return true;
+        }
+    }
+    return false;
+}
+
 // Checks shared by the decode entries: the stream's layout, nvJPEG's
 // view of it, an end-of-image marker, 1 or 3 components in a colour
-// space libjpeg converts to BGR and integer sampling ratios (else -1);
-// then nvJPEG's size and component count against the header's (else -6).
+// space libjpeg converts to BGR, integer sampling ratios and no restart
+// interval in a progressive stream (else -1); then nvJPEG's size and
+// component count against the header's (else -6).
 int32_t check_stream(nvjpegHandle_t hd, const uint8_t* data, int64_t len,
                      Layout* L, int* ws, int* hs) {
     int32_t H = 0, W = 0, C = 0;
     int ncomp = 0;
     if (info(hd, data, len, &H, &W, &C, &ncomp, ws, hs) != 0 ||
         (ncomp != 1 && ncomp != 3) || !has_eoi(data, len) ||
-        !parse_layout(data, len, L) || L->color < 0) {
+        !parse_layout(data, len, L) || L->color < 0 ||
+        (L->progressive && has_restart_interval(data, len))) {
         return kRefused;
     }
     if (L->ncomp != ncomp || L->height != H || L->width != W) {

@@ -23,7 +23,9 @@ The loop thread runs under `torch.inference_mode()` (a thread-local
 mode, so the thread enters it itself) and owns the pools, the page
 table and the free list; prefix registration and release reach it
 through a control queue.  Speculative mode (`draft_model`) is not ported
-yet (ROADMAP A14).
+yet (ROADMAP A14 item 2).  A quant bundle (`quant=True`, prequantized or
+not) serves as any other: each bucket and tick runs its int8 layers over
+the same rows as the JAX package's batcher.
 
 Compose with serving: `stream_reply(lambda row: batcher.stream_text(...))`
 gives token-by-token HTTP with cross-request batching on the device.
@@ -141,7 +143,7 @@ class ContinuousBatcher:
         if draft_model is not None:
             raise NotImplementedError(
                 "speculative continuous batching (draft_model) is not "
-                "ported to mmlspark_tpu_torch yet (ROADMAP A14)")
+                "ported to mmlspark_tpu_torch yet (ROADMAP A14 item 2)")
         self.device = resolve_device(device)
         self.model = _module_for(bundle, self.device)
         model = self.model

@@ -7,7 +7,11 @@ The six `bench_*.jpg` are the first six images of `bench.py`'s
 `_synthetic_jpeg_table` (uniform noise from seed 0, quality 85; two each
 at 256x256, 224x224 and 320x240); `gray_40x30.jpg` is a one-channel
 gradient and `cmyk_40x30.jpg` a CMYK stream, which libjpeg will not turn
-into BGR.  `digests.json` holds, for each fixture, what the JAX
+into BGR.  `progressive_*` (SOF2), `restart_*` (a restart interval, DRI,
+every 3 MCUs or every MCU row) and `progressive_restart_*` (both, a
+restart every 2 MCUs) are uniform noise from seed 1 at quality 85 at
+the bench sizes: the stream kinds a JPEG decoder on the card may handle
+differently from libjpeg.  `digests.json` holds, for each fixture, what the JAX
 package's `native.decode_jpeg_bgr` gives for it: the shape, the sha256
 of the pixel bytes, the per-channel sums, and the pixels on a grid of
 every SAMPLE-th row and column (base64), from which a decoder that is
@@ -45,6 +49,16 @@ def fixtures():
         out[f"bench_{i}_{h}x{w}.jpg"] = jpeg(arr, quality=85)
     gray = np.linspace(0, 255, 40 * 30).reshape(40, 30).astype(np.uint8)
     out["gray_40x30.jpg"] = jpeg(gray, quality=85)
+    rng = np.random.default_rng(1)
+    for name, (h, w), kw in (
+            ("progressive_224x224.jpg", (224, 224), {"progressive": True}),
+            ("restart_224x224.jpg", (224, 224), {"restart_marker_blocks": 3}),
+            ("restart_rows_320x240.jpg", (320, 240),
+             {"restart_marker_rows": 1}),
+            ("progressive_restart_256x256.jpg", (256, 256),
+             {"progressive": True, "restart_marker_blocks": 2})):
+        arr = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        out[name] = jpeg(arr, quality=85, **kw)
     cmyk = Image.new("CMYK", (30, 40))
     cmyk.putdata([(i % 256, 50, 100, 0) for i in range(30 * 40)])
     buf = io.BytesIO()

@@ -30,7 +30,9 @@ package's own limit; both sides round the same two f32 ops, so it is
 bit-exact); the RLE decode kernel exact to the byte.
 
 The port's JPEG decoder (`mmlspark_tpu_torch.native`) against the
-libjpeg digests of tests/jpeg_fixtures/: byte-exact where it builds on
+libjpeg digests of tests/jpeg_fixtures/ (progressive and restart-interval
+streams among them, which nvJPEG may also refuse to PIL, never raise
+on): byte-exact where it builds on
 libjpeg; on nvJPEG (a machine without libjpeg's headers) a mean absolute
 difference of at most 0.089 levels on the digests' pixel sample and a
 mean of at most 0.0077 a channel — the C2 kernel upsamples and converts
@@ -870,10 +872,21 @@ def test_native_jpeg_decoder_against_the_fixture_digests(cuda_device, name):
     want = d["fixtures"][name]
     with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
         blob = f.read()
-    got = native.decode_jpeg_bgr(blob)
+    got = native.decode_jpeg_bgr(blob)  # a DecoderError fails the test
     if want is None:  # CMYK: refused; the featurizer falls back to PIL
         assert got is None
         return
+    # nvJPEG refuses a progressive stream with a restart interval (fault
+    # C3), which goes to PIL, as decode_image sends it; libjpeg decodes it
+    refused = (native.jpeg_backend() == "nvjpeg"
+               and name.startswith("progressive_restart_"))
+    assert (got is None) == refused, name
+    routed = not refused
+    if refused:
+        from mmlspark_tpu_torch.io.image import decode_image, \
+            image_row_to_array
+
+        got = image_row_to_array(decode_image(blob))
     assert list(got.shape) == want["shape"]
     if native.jpeg_backend() == "libjpeg":
         assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
@@ -887,8 +900,9 @@ def test_native_jpeg_decoder_against_the_fixture_digests(cuda_device, name):
     assert diff.mean() <= NVJPEG_SAMPLE_MEAN_ABS, diff.mean()
     assert np.abs(channel).max() <= NVJPEG_CHANNEL_MEAN, channel
     out = np.zeros_like(got)
-    assert native.decode_jpeg_bgr_into(blob, out)
-    np.testing.assert_array_equal(out, got)
+    assert native.decode_jpeg_bgr_into(blob, out) == routed
+    if routed:
+        np.testing.assert_array_equal(out, got)
 
 
 @pytest.mark.cuda
@@ -1186,7 +1200,10 @@ def test_c2_kernel_equals_its_plain_version_and_the_decode(cuda_device):
         np.testing.assert_array_equal(kern.cpu().numpy(), decoded,
                                       err_msg=name)
         checked += 1
-    assert checked == 6 + 12
+    # the six bench fixtures, the progressive one and the two with restart
+    # intervals (the progressive one with restarts is refused, C3), and
+    # the twelve odd-size streams
+    assert checked == 9 + 12
     with pytest.raises(ValueError, match="expected"):
         ycc_to_bgr(args[0][:2] + [args[0][0]], layout.factors, layout.height,
                    layout.width, layout.color)
@@ -1212,6 +1229,52 @@ def test_nvjpeg_route_on_odd_sizes_is_within_the_limits_of_pil(cuda_device):
         diff = np.abs(got.astype(np.int16) - pil.astype(np.int16))
         assert diff.max() <= 3 and diff.mean() <= 0.2, (name, diff.max(),
                                                          diff.mean())
+
+
+@pytest.mark.cuda
+def test_progressive_streams_with_restarts_are_refused_to_pil(cuda_device):
+    """Fault C3: nvJPEG decoded a progressive stream whose scans carry
+    restart markers into wrong pixels without an error (on noise with a
+    restart every 2 MCUs, far past the IDCT's differences, on an H100
+    80GB HBM3 at 700 W).  The nvJPEG backend refuses such streams, so
+    decode_image takes PIL's pixels; every other stream kind decodes
+    within the odd-size limits of PIL (max 3, mean 0.2), and no stream
+    raises."""
+    from PIL import Image
+    import io
+
+    from mmlspark_tpu_torch import native
+    from mmlspark_tpu_torch.io.image import decode_image, image_row_to_array
+
+    kinds = {"restart": {"restart_marker_blocks": 3},
+             "restart_rows": {"restart_marker_rows": 1},
+             "progressive": {"progressive": True},
+             "progressive_restart": {"progressive": True,
+                                     "restart_marker_blocks": 2},
+             "progressive_restart_rows": {"progressive": True,
+                                          "restart_marker_rows": 1}}
+    rng = np.random.default_rng(11)
+    # (PIL 12.2 fails to write a progressive stream with restarts at
+    # 224x224; the committed 256x256 fixture covers a bench size)
+    for hw in ((61, 45), (64, 48)):
+        arr = rng.integers(0, 256, size=hw + (3,), dtype=np.uint8)
+        for kind, kw in kinds.items():
+            for ss in (0, 2):
+                buf = io.BytesIO()
+                Image.fromarray(arr).save(buf, format="JPEG", quality=85,
+                                          subsampling=ss, **kw)
+                blob = buf.getvalue()
+                pil = np.asarray(Image.open(io.BytesIO(blob)).convert(
+                    "RGB"))[:, :, ::-1]
+                got = native.decode_jpeg_bgr(blob)
+                refused = (native.jpeg_backend() == "nvjpeg"
+                           and kind.startswith("progressive_restart"))
+                assert (got is None) == refused, (hw, kind, ss)
+                for out in ([got] if got is not None else []) + [
+                        image_row_to_array(decode_image(blob))]:
+                    diff = np.abs(out.astype(np.int16) - pil.astype(np.int16))
+                    assert diff.max() <= 3 and diff.mean() <= 0.2, (
+                        hw, kind, ss, diff.max(), diff.mean())
 
 
 def _cuda_train_state(cuda_device, opt):
@@ -1321,3 +1384,96 @@ def test_a_device_failure_in_the_decoder_raises(cuda_device, monkeypatch):
     pil = np.asarray(Image.open(io.BytesIO(big)).convert("RGB"))[:, :, ::-1]
     assert got.shape == pil.shape
     assert np.abs(got.astype(np.int16) - pil.astype(np.int16)).max() <= 3
+
+
+# ---- int8 weight inference (ops/quant.py) and stage persistence -----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [((1, 24), 40), ((5, 20), 13),
+                                     ((2, 3, 64), 72), ((256, 768), 2304)])
+def test_int8_matmul_on_card_equals_the_cpu_bit_for_bit(cuda_device, shape,
+                                                         n):
+    """torch._int_mm wants M > 16 and K, N multiples of 8: the wrapper pads
+    with zeros, which changes no real output, so the card gives the CPU's
+    bits (the quantization is the same f32 arithmetic on both)."""
+    from mmlspark_tpu_torch.ops import quant as Q
+
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((n, shape[-1])) * 0.1)
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    want = Q.int8_dense(x, w, b)
+    Q.INT8_GEMMS = 0
+    got = Q.int8_dense(x.to(cuda_device), w.to(cuda_device), b.to(cuda_device))
+    assert Q.INT8_GEMMS == 1
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_quant_linear_on_card_runs_no_float_matmul(cuda_device, monkeypatch):
+    from mmlspark_tpu_torch.ops import quant as Q
+
+    layer = Q.QuantLinear(64, 48).to(device=cuda_device, dtype=torch.bfloat16)
+    assert layer.weight.dtype == torch.float32
+    x = torch.randn(3, 64, device=cuda_device, dtype=torch.bfloat16)
+    for fn in ("linear",):
+        monkeypatch.setattr(torch.nn.functional, fn,
+                            lambda *a, **k: pytest.fail("a float matmul"))
+    monkeypatch.setattr(torch, "matmul",
+                        lambda *a, **k: pytest.fail("a float matmul"))
+    Q.INT8_GEMMS = 0
+    for prequantized in (False, True):
+        if prequantized:
+            Q.prequantize(layer)
+        y = layer(x)
+        assert y.dtype == torch.bfloat16 and y.shape == (3, 48)
+    assert Q.INT8_GEMMS == 2
+
+
+@pytest.mark.cuda
+def test_quant_lm_generate_on_card_matches_the_cpu(cuda_device):
+    """A 2-layer f32 TransformerLM with quant=True, prequantized: greedy
+    tokens on the card equal the CPU's (attention is the flash kernel on
+    the card, its plain version on the CPU, so an activation may round to
+    a neighbouring int8 level; random weights give no near-ties here)."""
+    from mmlspark_tpu_torch.models.bundle import prequantize
+
+    kw = dict(vocab_size=256, embed_dim=128, num_layers=2, num_heads=2,
+              max_len=64, quant=True)
+    bundle = prequantize(TorchBundle("transformer_lm", kw, input_shape=(16,),
+                                     dtype="float32", seed=3))
+    prompt = np.random.default_rng(4).integers(0, 256, (2, 16)).astype(
+        np.int32)
+    got = generate(bundle, prompt, 8)
+    want = generate(bundle, prompt, 8, device="cpu")
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_a_loaded_torch_model_on_card_equals_the_unsaved_one(cuda_device,
+                                                             tmp_path):
+    from mmlspark_tpu_torch.core.pipeline import PipelineStage
+    from mmlspark_tpu_torch.models import torch_model as TM
+
+    state = init_state_dict(get_builder("resnet18")(num_classes=10), seed=0,
+                            random_bn=True)
+    bundle = TorchBundle("resnet18", {"num_classes": 10}, state_dict=state,
+                         input_shape=(64, 64, 3))
+    x = np.random.default_rng(5).integers(0, 256, (6, 64, 64, 3)).astype(
+        np.uint8)
+    stage = TM.TorchModel(bundle=bundle, input_col="x", fetch_node="pool",
+                          batch_size=4, feed_dtype="uint8",
+                          preprocess=TM.ImagePreprocess(64, 64))
+    table = Table({"x": x})
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        want = stage.transform(table)["output"]
+        stage.save(str(tmp_path / "m"))
+        TM._EXEC_CACHE.clear()
+        loaded = PipelineStage.load(str(tmp_path / "m"))
+        K.LAUNCHES = 0
+        got = loaded.transform(table)["output"]
+    assert K.LAUNCHES == 2  # B1 once per chunk of the loaded stage
+    np.testing.assert_array_equal(got, want)

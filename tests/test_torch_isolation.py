@@ -114,3 +114,15 @@ def test_the_scan_covers_the_image_stage_slice():
               "mmlspark_tpu_torch.ops.image_stages",
               "mmlspark_tpu_torch.ops.wire_codec", "mmlspark_tpu_torch.io.feed"):
         assert m in mods, m
+
+
+def test_the_scan_covers_the_persistence_and_int8_slice():
+    """... and so are stage persistence's, the file readers' and the int8
+    layers'."""
+    mods = set(_modules())
+    for m in ("mmlspark_tpu_torch.core.serialize",
+              "mmlspark_tpu_torch.core.params",
+              "mmlspark_tpu_torch.io.binary", "mmlspark_tpu_torch.io.image",
+              "mmlspark_tpu_torch.models.bundle",
+              "mmlspark_tpu_torch.ops.quant"):
+        assert m in mods, m

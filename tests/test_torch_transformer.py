@@ -193,8 +193,6 @@ def test_bridge_raises_on_leftover_and_missing_leaves(case):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.transformer_lm(quant=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.transformer_lm(moe_experts=2)
     m = PT.transformer_lm(vocab_size=8, embed_dim=16, num_layers=1,
                           num_heads=2, max_len=8)

@@ -1,0 +1,179 @@
+"""Serialization-fuzzing harness of mmlspark_tpu_torch: every registered
+stage gets, from one example object + table, (1) a save/load round trip
+with param equality, (2) transform equality after the round trip, bit
+for bit, (3) schema-transform consistency.
+
+The port's counterpart of tests/fuzzing.py (reference core test/fuzzing/
+Fuzzing.scala:222-325).  Two differences: the executor caches are
+cleared before a loaded stage transforms (they key on `bundle_id`, which
+pickle preserves, so a loaded stage would otherwise reuse the unsaved
+stage's device module and prove nothing), and the outputs must be equal,
+not close (the CPU path is deterministic).  The example stages and
+tables live here too, so that test_torch_fuzzing.py and
+test_torch_persistence.py share them.  Imports nothing of the JAX
+package.
+"""
+from __future__ import annotations
+
+import io as _io
+import os
+import tempfile
+
+import numpy as np
+
+from mmlspark_tpu_torch.core.pipeline import (Estimator, PipelineStage,
+                                              Transformer)
+from mmlspark_tpu_torch.core.schema import Table
+from mmlspark_tpu_torch.io.image import array_to_image_row
+
+
+def clear_executor_caches() -> None:
+    from mmlspark_tpu_torch.models import generation, torch_model
+
+    torch_model._EXEC_CACHE.clear()
+    generation._MODULES.clear()
+
+
+def roundtrip(stage: PipelineStage) -> PipelineStage:
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "stage")
+        stage.save(path)
+        loaded = PipelineStage.load(path)
+    clear_executor_caches()
+    return loaded
+
+
+def check_params_equal(a: PipelineStage, b: PipelineStage):
+    assert type(a) is type(b)
+    assert a.uid == b.uid
+    sa, sb = a.simple_param_values(), b.simple_param_values()
+    assert sa == sb, f"simple params differ: {sa} vs {sb}"
+    assert set(a.complex_param_values()) == set(b.complex_param_values())
+
+
+def check_schema(stage: PipelineStage, table: Table, out: Table):
+    want = stage.transform_schema(list(table.column_names))
+    assert set(want) <= set(out.column_names) | set(table.column_names), (
+        want, out.column_names)
+
+
+def fuzz_transformer(stage: Transformer, table: Table):
+    out1 = stage.transform(table)
+    check_schema(stage, table, out1)
+    loaded = roundtrip(stage)
+    check_params_equal(stage, loaded)
+    out2 = loaded.transform(table)
+    assert out1.approx_equals(out2, rtol=0.0, atol=0.0), (
+        f"{type(stage).__name__}: transform differs after save/load round-trip"
+    )
+    return out1
+
+
+def fuzz_estimator(stage: Estimator, table: Table):
+    model = stage.fit(table)
+    out1 = model.transform(table)
+    loaded_est = roundtrip(stage)
+    check_params_equal(stage, loaded_est)
+    model2 = roundtrip(model)
+    check_params_equal(model, model2)
+    out2 = model2.transform(table)
+    assert out1.approx_equals(out2, rtol=0.0, atol=0.0), (
+        f"{type(stage).__name__}: model transform differs after round-trip"
+    )
+    return model, out1
+
+
+def fuzz(stage: PipelineStage, table: Table):
+    if isinstance(stage, Estimator):
+        return fuzz_estimator(stage, table)
+    return fuzz_transformer(stage, table)
+
+
+# ----------------------------------------------------------------------
+# example stages and tables (tiny: the CPU path, f32)
+# ----------------------------------------------------------------------
+
+def img_table(n=6, h=16, w=12, seed=42) -> Table:
+    rng = np.random.default_rng(seed)
+    rows = np.empty(n, object)
+    for i in range(n):
+        rows[i] = array_to_image_row(
+            rng.integers(0, 255, size=(h, w, 3), dtype=np.uint8))
+    return Table({"image": rows})
+
+
+def png_table(n=3, seed=43) -> Table:
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    blobs = np.empty(n, object)
+    for i in range(n):
+        buf = _io.BytesIO()
+        Image.fromarray(rng.integers(0, 255, size=(10, 10, 3),
+                                     dtype=np.uint8)).save(buf, format="PNG")
+        blobs[i] = buf.getvalue()
+    return Table({"bytes": blobs})
+
+
+def tiny_bundle():
+    from mmlspark_tpu_torch.models.bundle import TorchBundle
+
+    return TorchBundle("resnet18", {"num_classes": 10},
+                       input_shape=(32, 32, 3), dtype="float32", seed=0)
+
+
+def example(name: str):
+    """(stage, table) for each of the port's registered stages."""
+    from mmlspark_tpu_torch.models.deep_vision import DeepVisionClassifier
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.ops import image_stages as S
+
+    cpu = {"device": "cpu"}
+    if name == "ImageTransformer":
+        return S.ImageTransformer(**cpu).resize(8, 8).flip(), img_table()
+    if name == "ResizeImageTransformer":
+        return S.ResizeImageTransformer(height=8, width=8, **cpu), img_table()
+    if name == "UnrollImage":
+        return S.UnrollImage(mean=[1.0, 2.0, 3.0], std=[2.0, 2.0, 2.0],
+                             **cpu), img_table()
+    if name == "UnrollBinaryImage":
+        return S.UnrollBinaryImage(height=4, width=4, **cpu), png_table()
+    if name == "ImageSetAugmenter":
+        return S.ImageSetAugmenter(flip_up_down=True, **cpu), img_table()
+    if name == "TorchModel":
+        x = np.random.default_rng(44).normal(size=(6, 32, 32, 3))
+        return TorchModel(bundle=tiny_bundle(), input_col="x", output_col="y",
+                          batch_size=4, **cpu), Table(
+                              {"x": x.astype(np.float32)})
+    if name == "ImageFeaturizer":
+        return ImageFeaturizer(bundle=tiny_bundle(), batch_size=4,
+                               **cpu), img_table(4)
+    if name == "DeepVisionClassifier":
+        rng = np.random.default_rng(45)
+        rows = np.empty(8, object)
+        for i in range(8):
+            base = np.array([30, 30, 200] if i % 2 else [200, 30, 30],
+                            np.uint8)
+            rows[i] = np.clip(rng.normal(base, 20, (32, 32, 3)), 0,
+                              255).astype(np.uint8)
+        t = Table({"image": rows,
+                   "label": np.asarray([float(i % 2) for i in range(8)])})
+        return DeepVisionClassifier(backbone="resnet18", epochs=1,
+                                    batch_size=8, seed=0, **cpu), t
+    if name == "DeepVisionModel":
+        from mmlspark_tpu_torch.models.bundle import TorchBundle
+        from mmlspark_tpu_torch.models.deep_vision import DeepVisionModel
+
+        bundle = TorchBundle("resnet18", {"num_classes": 2},
+                             input_shape=(32, 32, 3), dtype="float32", seed=1)
+        return DeepVisionModel(bundle=bundle, classes=["cat", "dog"],
+                               height=32, width=32, **cpu), img_table(5)
+    raise KeyError(name)
+
+
+def affine_fn(variables, batch):
+    """A FunctionBundle's function (module-level, so it pickles by name):
+    an affine map of flat rows and its row norms."""
+    y = batch.reshape(batch.shape[0], -1) @ variables["w"] + variables["b"]
+    return {"output": y, "norm": y.norm(dim=1, keepdim=True)}
