@@ -43,7 +43,9 @@ exit, no result line) if anything in it fails:
    each committed fixture of tests/jpeg_fixtures/ (bench.py's recipe:
    uniform noise, quality 85; and progressive and restart-interval
    streams, of which nvJPEG refuses a progressive one with restarts
-   (fault C3) to PIL, held to the same limits; a decoder failure,
+   (fault C3) and an arithmetic-coded one to PIL, held to the same
+   limits, and frames other than 8-bit SOF0/1/2 rewritten from a
+   fixture, which it refuses; a decoder failure,
    `DecoderError`, fails the run) against
    its libjpeg digest — byte-exact on
    libjpeg; on nvJPEG, whose planes C2 upsamples and converts with
@@ -186,6 +188,36 @@ exit, no result line) if anything in it fails:
    paged `ContinuousBatcher`: every stream finishes, B7 once a layer a
    tick and the int8 GEMMs exact.  `torch._int_mm` timed at the ViT's
    qkv shape (12544 x 768 x 2304) beside a bf16 `torch.matmul`.
+13. generation and serving, the rest (after phase 12; its seconds on a
+   line of their own):
+   (a) the Switch MoE GPT-small (8 experts, capacity 1.25, every block):
+   a 2-layer f32 MoE step on the card against the CPU's (phase 8's
+   limits); 1 + 3 steps of `make_lm_train_epoch` (bf16 over f32 masters,
+   the router kept f32, Adam, batch 16 x 1024): B4/B5/B6 12 a step, the
+   warm-up loss its cross-entropy plus 0.01 x the aux term, ms a step,
+   tokens/s and MFU on the dense count; the trained model through
+   `generate` (batch 8, prompt 1000; B4 12) and a paged batcher (8
+   requests; B7 12 a tick, exactly); at EXACT_LM width with capacity
+   8.0, f32 `generate` against the naive recompute and the paged
+   batcher's streams against `generate()` (ties under TIE_GAP).
+   (b) beam search: `num_beams=1` equals `generate()` at EXACT_LM in f32;
+   GPT-small bf16, batch 8, prompt 1000, 16 new, 4 beams: B4 12 and no
+   paged kernel, each row's summed log-probability (one f32 forward) at
+   least greedy's, eos tails frozen, output tokens/s.
+   (c) speculative decoding: f32 at EXACT_LM, `speculative_generate` with
+   a 1-layer draft and with the target as its own draft
+   (ceil((n-1)/(gamma+1)) rounds), and a paged speculative batcher over
+   phase 7 (a)'s requests and prefix: every stream `generate()`'s, no
+   paged kernel in its ticks, B4 once a layer an admission prefill of
+   the target and of the draft; then `tools/mfu_sweep.py`'s
+   8_streams_spec (the bf16 GPT-small, its int8 prequantized self-draft,
+   gamma 4, 8 slots, paged) on phase 7 (b)'s 16 requests: lengths, first
+   tokens, teacher-forced agreement, ticks and tokens a verify, and
+   tokens/s and ms a tick beside the plain paged batcher in turns.
+   (d) distillation: a 2-layer GPT-small-width student from the bf16
+   GPT-small teacher (batch 8 x 1024, 1 + 4 steps): B4 14, B5/B6 2 a step
+   (no teacher backward), losses falling, ms a step; the student as the
+   draft of an f32 `speculative_generate` at EXACT_LM.
 9. record: a `{"kernels": [...]}` JSON line (the eight TPU kernels and
    C2), the nvidia-smi line, and last the `{"ok": true, "device": ...}`
    line.
@@ -324,6 +356,17 @@ INT8_VIT_CPU_RTOL = 1e-2   # 5.728e-03 on an H100 80GB HBM3, 700.00 W
 INT8_CORR = 0.98
 INT8_SERVE_REQUESTS, INT8_SERVE_NEW = 8, 32
 INT8_GEMM_SHAPE = (BATCH * 196, 768, 2304)
+
+# generation and serving, the rest (phase 13): the Switch MoE at
+# Switch-Base-8's expert count and capacity factor in every block; its
+# f32 exactness at drop-free capacity; beam search; speculative decoding
+# (tools/mfu_sweep.py's 8_streams_spec: gamma 4); distillation
+MOE_LM = dict(LM, moe_experts=8, moe_capacity=1.25)
+EXACT_MOE_LM = dict(EXACT_LM, moe_experts=8, moe_capacity=8.0)
+MOE_TRAIN_STEPS, MOE_SERVE_REQUESTS, MOE_SERVE_NEW, MOE_EXACT_NEW = 3, 8, 32, 16
+BEAM_NEW, BEAM_K = 16, 4
+SPEC_GAMMA = 4
+DISTILL_LAYERS, DISTILL_BATCH, DISTILL_STEPS = 2, 8, 4
 
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
@@ -996,10 +1039,10 @@ def check_jpeg_decoder(native, blobs, digests):
             continue
         route = backend
         if got is None and backend == "nvjpeg" and \
-                name.startswith("progressive_restart_"):
+                name.startswith(("progressive_restart_", "arith_")):
             # nvJPEG refuses a progressive stream with restart markers
-            # (fault C3), which goes to PIL, as io.image.decode_image
-            # sends it
+            # (fault C3) and an arithmetic-coded one (SOF9), which go to
+            # PIL, as io.image.decode_image sends them
             from mmlspark_tpu_torch.io.image import (decode_image,
                                                      image_row_to_array)
 
@@ -1037,6 +1080,51 @@ def check_jpeg_decoder(native, blobs, digests):
     return by_size
 
 
+def check_refused_frames(native, blobs):
+    """The nvJPEG route takes only 8-bit SOF0 / SOF1 / SOF2 frames: a
+    baseline fixture with its SOF marker rewritten to a lossless,
+    hierarchical or arithmetic-coded frame, or its precision byte to 12
+    or 16, is refused (None) and never raises `DecoderError`, and
+    `safe_read` hands it to PIL; rewritten to SOF1 (the same Huffman
+    data) it decodes to the baseline's pixels."""
+    import numpy as np
+    from mmlspark_tpu_torch.io.image import safe_read
+
+    blob = blobs["bench_1_224x224.jpg"]
+    sof = blob.find(b"\xff\xc0")
+    base = native.decode_jpeg_bgr(blob)
+    seen = {}
+    for marker in (0xC1, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD,
+                   0xCE, 0xCF):
+        bad = bytearray(blob)
+        bad[sof + 1] = marker
+        got = native.decode_jpeg_bgr(bytes(bad))
+        pil = safe_read(bytes(bad))
+        seen[f"SOF {marker:02X}"] = ("decoded" if got is not None
+                                     else "refused") + (
+            ", PIL None" if pil is None else ", PIL pixels")
+        if marker == 0xC1:
+            # extended sequential, 8-bit Huffman: kept; nvJPEG may still
+            # refuse it itself, and then PIL decodes it
+            if got is not None and not np.array_equal(got, base):
+                fail("a SOF1 stream does not decode to its baseline pixels")
+        elif got is not None:
+            fail(f"nvJPEG decoded a SOF {marker:02X} frame instead of "
+                 "refusing it")
+    for precision in (12, 16):
+        bad = bytearray(blob)
+        bad[sof + 4] = precision
+        got = native.decode_jpeg_bgr(bytes(bad))
+        pil = safe_read(bytes(bad))
+        seen[f"precision {precision}"] = ("decoded" if got is not None
+                                          else "refused") + (
+            ", PIL None" if pil is None else ", PIL pixels")
+        if got is not None:
+            fail(f"nvJPEG decoded a {precision}-bit frame instead of "
+                 "refusing it")
+    log(f"[jpeg] rewritten frames of bench_1_224x224.jpg on nvJPEG: {seen}")
+
+
 def jpeg_path(repo, n_chunks, card):
     """Phase 4b; returns {kernel: launches}."""
     import numpy as np
@@ -1058,6 +1146,7 @@ def jpeg_path(repo, n_chunks, card):
         f"{time.perf_counter() - t0:.2f} s")
     blobs, digests = jpeg_fixtures()
     decoded = check_jpeg_decoder(native, blobs, digests)
+    check_refused_frames(native, blobs)
     by_size = {hw: [n for n in sorted(blobs) if n.startswith("bench_") and
                     n.endswith(f"_{hw[0]}x{hw[1]}.jpg")] for hw in SIZES}
     # phase 4's three shape groups, 64 rows each, the two fixtures of a
@@ -1597,7 +1686,9 @@ def batch_fill_count() -> int:
 def serve_exactness(card):
     """Phase 7a: f32 paged serving at GPT-small width (2 layers), plain
     and int8 pools, with a shared prefix, and over HTTP: every stream
-    equals `generate()` on the card."""
+    equals `generate()` on the card.  Returns the requests (prompts, the
+    prefix, its suffixes) and their f32 `generate()` references, which
+    phase 13 (c) serves again speculatively."""
     import threading
     import http.client
 
@@ -1705,6 +1796,7 @@ def serve_exactness(card):
                     refs[None], None)
     G._MODULES.clear()
     torch.cuda.empty_cache()
+    return prompts, prefix, suffixes, refs[None]
 
 
 def serving_path(A, PA, card):
@@ -3154,6 +3246,668 @@ def int8_lm_path(card):
     return total
 
 
+def first_mismatch_or_tie(label, module, prompt, got, ref):
+    """`got` against the reference tokens `ref` of `prompt`, with
+    compare_streams' tie rule; True when equal."""
+    compare_streams(label, module, [prompt], [list(got)], [list(ref)], None)
+    return list(got) == list(ref)
+
+
+def moe_train_path(card):
+    """Phase 13 (a), training: the MoE GPT-small (8 experts, capacity
+    1.25, every block) through `make_lm_train_epoch`, bf16 over f32
+    masters, Adam; returns ({kernel: launches}, the trained bundle)."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import training as TR
+    from mmlspark_tpu_torch.models.bundle import (TorchBundle, get_builder,
+                                                  init_state_dict)
+
+    cfg = dict(MOE_LM, max_len=TRAIN_SEQ)
+    layers = cfg["num_layers"]
+    builder = get_builder("transformer_lm")
+
+    # a 2-layer f32 MoE step on the card against the same step on the CPU
+    small = dict(cfg, num_layers=2, max_len=128)
+    weights = {k: torch.from_numpy(v) for k, v in init_state_dict(
+        builder(**small), seed=5).items()}
+    small_toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, small["vocab_size"], (2, 128)).astype(np.int32))
+    side = {}
+    for dev in ("cuda", "cpu"):
+        module = builder(**small)
+        module.load_state_dict(weights)
+        module = module.to(dev)
+        logits, aux = TR._forward(module, small_toks.to(dev))
+        loss = TR.lm_loss(logits, small_toks.to(dev)) + aux
+        loss.backward()
+        side[dev] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                   module.named_parameters()})
+    loss_rel = abs(side["cuda"][0] - side["cpu"][0]) / abs(side["cpu"][0])
+    grad_rel = max(rel_err(g, side["cpu"][1][n])
+                   for n, g in side["cuda"][1].items())
+    log(f"[moe] 2-layer f32 MoE LM step (batch 2 x 128, 8 experts, "
+        f"capacity 1.25) on the card vs the CPU: loss rel {loss_rel:.3e} "
+        f"(limit {TRAIN_CPU_LOSS_RTOL}), worst gradient rel_l2 "
+        f"{grad_rel:.3e} (limit {TRAIN_CPU_GRAD_RTOL})")
+    if loss_rel > TRAIN_CPU_LOSS_RTOL or grad_rel > TRAIN_CPU_GRAD_RTOL:
+        fail("the f32 MoE LM step on the card disagrees with the CPU's")
+    del side
+
+    t0 = time.perf_counter()
+    state = TR.init_train_state(builder(**cfg), TR.adam(TRAIN_LR), seed=0,
+                                compute_dtype="bfloat16")
+    n_params = sum(p.numel() for p in state.module.parameters())
+    router = state.work.blocks[0].moe.router.weight
+    log(f"[moe] MoE GPT-small {cfg}, {n_params / 1e6:.1f} M f32 parameters "
+        f"(bf16 working copy, router {router.dtype}), Adam {TRAIN_LR}: "
+        f"ready in {time.perf_counter() - t0:.2f} s")
+    if router.dtype != torch.float32 or \
+            state.work.blocks[0].moe.w_in.dtype != torch.bfloat16:
+        fail("the bf16 working copy does not keep the MoE router f32")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ)).astype(
+            np.int32)).cuda()
+    epoch = TR.make_lm_train_epoch()
+    batch = toks[None]
+    # the warm-up step's objective: its cross-entropy and aux term, read
+    # where the trainer adds them
+    seen = []
+    real_forward = TR._forward
+
+    def forward_spy(module, x):
+        logits, aux = real_forward(module, x)
+        seen.append((TR.lm_loss(logits.detach(), x), aux.detach()))
+        return logits, aux
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    TR._forward = forward_spy
+    try:
+        state, loss0 = epoch(state, batch)
+    finally:
+        TR._forward = real_forward
+    torch.cuda.synchronize()
+    losses, step_s = [loss0], []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = epoch(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = MOE_TRAIN_STEPS + 1
+    want = dict(NO_LAUNCHES, flash_attention_fwd=layers * steps,
+                flash_attention_bwd_dkdv=layers * steps,
+                flash_attention_bwd_dq=layers * steps)
+    losses = torch.cat(losses).cpu().numpy()
+    ce, aux = (float(t) for t in seen[0])
+    log(f"[moe] {steps} steps: launches {launches}; losses "
+        f"{np.array2string(losses, precision=4)}; the warm-up step's loss "
+        f"{losses[0]:.6f} = cross-entropy {ce:.6f} + 0.01 x aux "
+        f"{aux / 0.01:.6f}")
+    if launches != want:
+        fail(f"the MoE train path launched the kernels {launches} times, "
+             f"expected {want} (B4, B5 and B6 once per layer per step)")
+    if not np.isfinite(losses).all():
+        fail(f"MoE train losses not finite: {losses}")
+    if not aux > 0 or abs(losses[0] - (ce + aux)) > 1e-5 * abs(losses[0]):
+        fail(f"the MoE aux term is not in the loss: {losses[0]} against "
+             f"{ce} + {aux}")
+    med = float(np.median(step_s))
+    flops = lm_train_flops(TRAIN_BATCH, TRAIN_SEQ, cfg["embed_dim"], layers,
+                           cfg["vocab_size"])
+    log(f"[moe] MoE LM step (batch {TRAIN_BATCH} x {TRAIN_SEQ}, fwd + bwd + "
+        f"Adam, CUDA-synchronised host clock): {min(step_s) * 1e3:.3f}.."
+        f"{max(step_s) * 1e3:.3f} ms over {MOE_TRAIN_STEPS} steps, median "
+        f"{med * 1e3:.3f} ms = {TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s; "
+        f"{flops / 1e12:.3f} TFLOP a step counted as one expert a token (the "
+        f"dense step's count, tools/roofline.py) = MFU "
+        f"{flops / med / BF16_FLOPS:.4f}; peak memory {peak_gib:.2f} GiB on "
+        f"{card}")
+    bundle = TorchBundle.from_module("transformer_lm", state.module, cfg,
+                                     input_shape=(LM_PROMPT,))
+    del state, epoch, batch
+    torch.cuda.empty_cache()
+    return launches, bundle
+
+
+def moe_decode_path(bundle, card):
+    """Phase 13 (a), decode: `generate` and a plain paged batcher on the
+    trained MoE GPT-small (bf16), then the f32 exactness checks at
+    EXACT_LM width with drop-free capacity; returns {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+    from mmlspark_tpu_torch.models.bundle import TorchBundle
+    from mmlspark_tpu_torch.serving import batcher as SB
+
+    layers = MOE_LM["num_layers"]
+    total = dict(NO_LAUNCHES)
+    prompt = np.random.default_rng(0).integers(
+        0, LM["vocab_size"], (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = G.generate(bundle, prompt, LM_NEW)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    if launches != dict(NO_LAUNCHES, flash_attention_fwd=layers):
+        fail(f"MoE generate launched {launches}, expected B4 once a layer")
+    for k in KERNELS:
+        total[k] += launches[k]
+    toks = out.cpu().numpy()
+    if toks.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or \
+            toks.min() < 0 or toks.max() >= LM["vocab_size"]:
+        fail(f"MoE generate returned {toks.shape} or tokens outside the "
+             "vocabulary")
+    module = G._module_for(bundle, torch.device("cuda"))
+    if module.blocks[0].moe.router.weight.dtype != torch.float32:
+        fail("the bf16 MoE bundle's router is not f32")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        G.generate(bundle, prompt, LM_NEW)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with torch.inference_mode():
+        p_cuda = torch.from_numpy(prompt).cuda()
+        _lg, cache = G._prefill_cache(module, p_cuda)
+        tok = torch.zeros((LM_BATCH, 1), dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LM_NEW - 1):
+            lg, cache = module.decode_step(tok, cache, LM_PROMPT + i)
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (LM_NEW - 1)
+        del cache
+    log(f"[moe] generate (batch {LM_BATCH}, prompt {LM_PROMPT}, {LM_NEW} "
+        f"new, bf16 MoE GPT-small): first {first_s:.3f} s, launches "
+        f"{launches}; walls {min(walls):.4f}..{max(walls):.4f} s; eager "
+        f"decode {step_ms:.3f} ms a step = "
+        f"{LM_BATCH / step_ms * 1e3:.0f} tokens/s on {card}")
+
+    rng = np.random.default_rng(5)
+    lens = rng.integers(16, 901, MOE_SERVE_REQUESTS)
+    prompts = [rng.integers(0, LM["vocab_size"], n).astype(np.int32)
+               for n in lens]
+    batcher = SB.ContinuousBatcher(bundle, max_slots=SERVE_SLOTS,
+                                   paged=True, page_size=PAGE).start()
+    prefills = []
+    real_prefill = SB._prefill_kv
+
+    def prefill_spy(module_, toks_, kv_cache_dtype=None):
+        prefills.append(tuple(toks_.shape))
+        return real_prefill(module_, toks_, kv_cache_dtype)
+
+    SB._prefill_kv = prefill_spy
+    try:
+        zero_launches()
+        ticks0 = batch_fill_count()
+        t0 = time.perf_counter()
+        got = [st.tokens(timeout=STREAM_WAIT_S) for st in
+               [batcher.submit(p, MOE_SERVE_NEW) for p in prompts]]
+        wall = time.perf_counter() - t0
+        launches, ticks = read_launches(), batch_fill_count() - ticks0
+    finally:
+        SB._prefill_kv = real_prefill
+        batcher.stop()
+    want = dict(NO_LAUNCHES, flash_attention_fwd=layers * len(prefills),
+                paged_decode_attention=layers * ticks)
+    log(f"[moe] paged ContinuousBatcher ({SERVE_SLOTS} slots) on the MoE "
+        f"GPT-small: {MOE_SERVE_REQUESTS} requests (prompts {lens.min()}.."
+        f"{lens.max()}), {MOE_SERVE_NEW} new each in {wall:.3f} s = "
+        f"{MOE_SERVE_REQUESTS * MOE_SERVE_NEW / wall:.0f} tokens/s, {ticks} "
+        f"ticks, prefills {prefills}; launches {launches} on {card}")
+    if launches != want or ticks == 0:
+        fail(f"the MoE batcher launched {launches}, expected {want} (B7 "
+             "once a layer a tick, B4 once a layer an admission prefill)")
+    if any(len(t) != MOE_SERVE_NEW for t in got):
+        fail(f"MoE batcher stream lengths {[len(t) for t in got]}")
+    for k in KERNELS:
+        total[k] += launches[k]
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+
+    # f32 exactness at EXACT_LM width, drop-free capacity
+    exact = TorchBundle("transformer_lm", EXACT_MOE_LM, input_shape=(16,),
+                        dtype="float32", seed=0)
+    emod = G._module_for(exact, torch.device("cuda"))
+    prompt = rng.integers(0, LM["vocab_size"], (2, 100)).astype(np.int32)
+    got = G.generate(exact, prompt, MOE_EXACT_NEW).cpu().numpy()
+    seq = torch.from_numpy(prompt).cuda()
+    gaps = []
+    with torch.inference_mode():
+        for _ in range(MOE_EXACT_NEW):
+            lg = emod(seq)[0][:, -1]
+            top2 = lg.topk(2).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+            seq = torch.cat([seq, lg.argmax(-1, keepdim=True).to(
+                torch.int32)], dim=1)
+    naive = seq.cpu().numpy()
+    for r in range(prompt.shape[0]):
+        diff = np.flatnonzero(got[r] != naive[r])
+        if len(diff):
+            step = int(diff[0]) - prompt.shape[1]
+            if gaps[step][r] >= TIE_GAP:
+                fail(f"f32 MoE generate differs from the naive recompute "
+                     f"(row {r}, step {step}, top-2 gap {gaps[step][r]:.3e})")
+            log(f"[moe] f32 generate ties the naive recompute at row {r} "
+                f"step {step} (gap {gaps[step][r]:.2e})")
+    log(f"[moe] f32 MoE generate (EXACT_LM width, 8 experts, capacity 8.0, "
+        f"batch 2, prompt 100, {MOE_EXACT_NEW} new) equals the naive "
+        "recompute of full forwards, ties aside")
+    lens = [16, 900] + rng.integers(16, 901, EXACT_REQUESTS - 2).tolist()
+    prompts = [rng.integers(0, LM["vocab_size"], n).astype(np.int32)
+               for n in lens]
+    refs = [G.generate(exact, p[None], EXACT_NEW)[0, len(p):].cpu().tolist()
+            for p in prompts]
+    batcher = SB.ContinuousBatcher(exact, max_slots=EXACT_SLOTS, paged=True,
+                                   page_size=PAGE).start()
+    try:
+        got = [st.tokens(timeout=STREAM_WAIT_S) for st in
+               [batcher.submit(p, EXACT_NEW) for p in prompts]]
+    finally:
+        batcher.stop()
+    compare_streams("f32 MoE paged serving", emod, prompts, got, refs, None)
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+    return total
+
+
+def seq_logprob(module, seq, s_p):
+    """Summed log-probability of seq[:, s_p:] under one forward of
+    `module` over the whole sequence (f32 log-softmax), per row."""
+    import torch
+
+    with torch.inference_mode():
+        logits = module(seq)[0].float()
+        logp = torch.log_softmax(logits[:, :-1], dim=-1)
+        lp = logp.gather(-1, seq[:, 1:].long()[..., None])[..., 0]
+    return lp[:, s_p - 1:].sum(dim=1).double().cpu().numpy()
+
+
+def beam_path(card):
+    """Phase 13 (b): beam search; returns {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+    from mmlspark_tpu_torch.models.bundle import TorchBundle
+
+    exact = TorchBundle("transformer_lm", EXACT_LM, input_shape=(16,),
+                        dtype="float32", seed=0)
+    emod = G._module_for(exact, torch.device("cuda"))
+    prompt = np.random.default_rng(7).integers(
+        0, LM["vocab_size"], (2, 100)).astype(np.int32)
+    one = G.beam_search(exact, prompt, BEAM_NEW, num_beams=1).cpu().numpy()
+    greedy = G.generate(exact, prompt, BEAM_NEW).cpu().numpy()
+    for r in range(2):
+        first_mismatch_or_tie(f"f32 beam_search(num_beams=1) row {r}", emod,
+                              prompt[r], one[r, 100:], greedy[r, 100:])
+    log("[beam] f32 beam_search(num_beams=1) at EXACT_LM width equals "
+        "generate(), ties aside")
+    G._MODULES.clear()
+
+    layers = LM["num_layers"]
+    bundle = TorchBundle("transformer_lm", LM, input_shape=(LM_PROMPT,),
+                         seed=0)
+    prompt = np.random.default_rng(0).integers(
+        0, LM["vocab_size"], (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    beam = G.beam_search(bundle, prompt, BEAM_NEW, num_beams=BEAM_K)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    if launches != dict(NO_LAUNCHES, flash_attention_fwd=layers):
+        fail(f"beam search launched {launches}, expected B4 once a layer "
+             "(one prefill on B rows) and no paged kernel")
+    greedy = G.generate(bundle, prompt, BEAM_NEW)
+    f32 = TorchBundle("transformer_lm", LM, state_dict=bundle.state_dict,
+                      input_shape=(LM_PROMPT,), dtype="float32")
+    f32_mod = f32.module(torch.device("cuda"))
+    lp_b = seq_logprob(f32_mod, beam, LM_PROMPT)
+    lp_g = seq_logprob(f32_mod, greedy, LM_PROMPT)
+    bf16_mod = G._module_for(bundle, torch.device("cuda"))
+    lb16 = seq_logprob(bf16_mod, beam, LM_PROMPT)
+    lg16 = seq_logprob(bf16_mod, greedy, LM_PROMPT)
+    del f32_mod
+    log(f"[beam] GPT-small bf16 beam_search (batch {LM_BATCH}, prompt "
+        f"{LM_PROMPT}, {BEAM_NEW} new, {BEAM_K} beams): first {first_s:.3f} "
+        f"s, launches {launches}; summed log-probability (one f32 forward) "
+        f"beam - greedy per row {np.round(lp_b - lp_g, 4).tolist()} (bf16 "
+        f"forward: {np.round(lb16 - lg16, 4).tolist()})")
+    if (lp_b < lp_g - 1e-4).any():
+        fail(f"beam search's hypotheses score below greedy's: {lp_b} "
+             f"against {lp_g}")
+    eos = int(greedy[0, LM_PROMPT + 1])
+    out = G.beam_search(bundle, prompt, BEAM_NEW, num_beams=BEAM_K,
+                        eos_id=eos).cpu().numpy()[:, LM_PROMPT:]
+    hits = 0
+    for row in out:
+        at = np.flatnonzero(row == eos)
+        if len(at):
+            hits += 1
+            if not (row[at[0]:] == eos).all():
+                fail(f"beam search: a row un-finishes after eos: {row}")
+    log(f"[beam] with eos_id={eos}: {hits} of {LM_BATCH} rows end in eos, "
+        "every tail after its first eos is eos")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        G.beam_search(bundle, prompt, BEAM_NEW, num_beams=BEAM_K)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"[beam] 3 runs: {min(walls):.4f}..{max(walls):.4f} s = "
+        f"{LM_BATCH * BEAM_NEW / max(walls):.0f}.."
+        f"{LM_BATCH * BEAM_NEW / min(walls):.0f} output tokens/s "
+        f"({LM_BATCH * BEAM_K} rows a step, the prefill included) on {card}")
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def spec_exactness(target, draft, label, prompt, n, want_rounds=None):
+    """speculative_generate(target, draft) against generate() at f32 (the
+    tie rule); returns the rounds."""
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+
+    module = G._module_for(target, torch.device("cuda"))
+    got, rounds = G.speculative_generate(target, draft, prompt[None], n,
+                                         gamma=SPEC_GAMMA, return_stats=True)
+    ref = G.generate(target, prompt[None], n)
+    equal = first_mismatch_or_tie(label, module, prompt,
+                                  got[0, len(prompt):].cpu().tolist(),
+                                  ref[0, len(prompt):].cpu().tolist())
+    log(f"[spec] {label}: {n} tokens in {rounds} rounds (gamma "
+        f"{SPEC_GAMMA}); equal to generate(): {equal}")
+    if want_rounds is not None and rounds != want_rounds:
+        fail(f"{label}: {rounds} rounds, expected {want_rounds}")
+    return rounds
+
+
+class TickCounter:
+    """Counts a batcher's speculative ticks, the live slots each verified
+    and the tokens each emitted (through `_speculative_tick`).  A tick
+    holds the lock until its counts are in, so `read()` after the last
+    stream ended sees the tick that ended it."""
+
+    def __init__(self, batcher):
+        import threading
+
+        self.batcher, self.real = batcher, batcher._speculative_tick
+        self.ticks = self.verifies = self.tokens = 0
+        self.lock = threading.Lock()
+        batcher._speculative_tick = self
+
+    def __call__(self, active):
+        with self.lock:
+            reqs = [self.batcher._live[s] for s in active]
+            before = sum(r.emitted for r in reqs)
+            self.real(active)
+            self.ticks += 1
+            self.verifies += len(active)
+            self.tokens += sum(r.emitted for r in reqs) - before
+
+    def read(self):
+        with self.lock:
+            return self.ticks, self.verifies, self.tokens
+
+
+def speculative_path(requests, card):
+    """Phase 13 (c): speculative decoding; returns {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+    from mmlspark_tpu_torch.models.bundle import TorchBundle, prequantize
+    from mmlspark_tpu_torch.serving import batcher as SB
+
+    total = dict(NO_LAUNCHES)
+    target = TorchBundle("transformer_lm", EXACT_LM, input_shape=(16,),
+                         dtype="float32", seed=0)
+    draft = TorchBundle("transformer_lm", dict(EXACT_LM, num_layers=1),
+                        input_shape=(16,), dtype="float32", seed=1)
+    prompt = np.random.default_rng(8).integers(
+        0, LM["vocab_size"], 200).astype(np.int32)
+    spec_exactness(target, draft, "f32 speculative_generate, 1-layer draft",
+                   prompt, EXACT_NEW)
+    spec_exactness(target, target, "f32 speculative_generate, the target as "
+                   "its own draft", prompt, EXACT_NEW,
+                   want_rounds=math.ceil((EXACT_NEW - 1) / (SPEC_GAMMA + 1)))
+
+    # the paged speculative batcher over phase 7 (a)'s requests
+    prompts, prefix, suffixes, refs = requests
+    module = G._module_for(target, torch.device("cuda"))
+    batcher = SB.ContinuousBatcher(target, max_slots=EXACT_SLOTS, paged=True,
+                                   page_size=PAGE, draft_model=draft,
+                                   gamma=SPEC_GAMMA)
+    handle = batcher.register_prefix(prefix)
+    batcher.start()
+    prefills = {"target": 0, "draft": 0}
+    real_prefill = SB._prefill_kv
+
+    def prefill_spy(module_, toks_, kv_cache_dtype=None):
+        prefills["draft" if module_ is batcher.draft else "target"] += 1
+        return real_prefill(module_, toks_, kv_cache_dtype)
+
+    counter = TickCounter(batcher)
+    SB._prefill_kv = prefill_spy
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        streams = ([batcher.submit(p, EXACT_NEW) for p in prompts]
+                   + [batcher.submit(sfx, EXACT_NEW, prefix=handle)
+                      for sfx in suffixes])
+        got = [st.tokens(timeout=STREAM_WAIT_S) for st in streams]
+        wall = time.perf_counter() - t0
+        ticks, verifies, emitted = counter.read()
+        launches = read_launches()
+    finally:
+        SB._prefill_kv = real_prefill
+        batcher.stop()
+    want = dict(NO_LAUNCHES, flash_attention_fwd=EXACT_LM["num_layers"]
+                * prefills["target"] + prefills["draft"])
+    log(f"[spec] f32 paged speculative batcher ({EXACT_SLOTS} slots, gamma "
+        f"{SPEC_GAMMA}, 1-layer draft): {len(streams)} requests in "
+        f"{wall:.3f} s, {ticks} ticks, {verifies} slot verifies emitting "
+        f"{emitted} tokens; admission prefills {prefills}; launches "
+        f"{launches}")
+    if launches != want or ticks == 0:
+        fail(f"the speculative batcher launched {launches}, expected {want}"
+             " (no paged kernel in a speculative tick; B4 once a layer an "
+             "admission prefill of the target and of the draft)")
+    full = prompts + [np.concatenate([prefix, sfx]) for sfx in suffixes]
+    compare_streams("f32 paged speculative serving", module, full, got, refs,
+                    None)
+    for k in KERNELS:
+        total[k] += launches[k]
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+
+    # the serving configuration: tools/mfu_sweep.py's 8_streams_spec
+    layers = LM["num_layers"]
+    base = TorchBundle("transformer_lm", LM, input_shape=(16,), seed=0)
+    qdraft = prequantize(TorchBundle("transformer_lm", dict(LM, quant=True),
+                                     state_dict=base.state_dict,
+                                     input_shape=(16,)))
+    rng = np.random.default_rng(2)
+    lens = rng.integers(16, 901, SERVE_REQUESTS)
+    prompts = [rng.integers(0, LM["vocab_size"], n).astype(np.int32)
+               for n in lens]
+    spec = SB.ContinuousBatcher(base, max_slots=SERVE_SLOTS, paged=True,
+                                page_size=PAGE, draft_model=qdraft,
+                                gamma=SPEC_GAMMA).start()
+    plain = SB.ContinuousBatcher(base, max_slots=SERVE_SLOTS, paged=True,
+                                 page_size=PAGE).start()
+    try:
+        tprefills, dprefills = [], []
+
+        def prefill_spy2(module_, toks_, kv_cache_dtype=None):
+            logits, kv = real_prefill(module_, toks_, kv_cache_dtype)
+            if module_ is spec.draft:
+                dprefills.append(tuple(toks_.shape))
+            else:
+                tprefills.append((toks_.cpu().numpy(),
+                                  logits.argmax(-1).cpu().numpy()))
+            return logits, kv
+
+        counter = TickCounter(spec)
+        SB._prefill_kv = prefill_spy2
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            got = [st.tokens(timeout=STREAM_WAIT_S) for st in
+                   [spec.submit(p, SERVE_NEW) for p in prompts]]
+            first_s = time.perf_counter() - t0
+            ticks, verifies, emitted = counter.read()
+            launches = read_launches()
+        finally:
+            SB._prefill_kv = real_prefill
+        want = dict(NO_LAUNCHES, flash_attention_fwd=layers
+                    * (len(tprefills) + len(dprefills)))
+        log(f"[spec] serving (8_streams_spec: bf16 GPT-small, int8 "
+            f"prequantized self-draft, gamma {SPEC_GAMMA}, {SERVE_SLOTS} "
+            f"slots, paged): {SERVE_REQUESTS} requests, {SERVE_NEW} new "
+            f"each, first round {first_s:.3f} s, {ticks} ticks, "
+            f"{len(tprefills)} target and {len(dprefills)} draft admission "
+            f"prefills; launches {launches}")
+        if launches != want:
+            fail(f"speculative serving launched {launches}, expected {want}")
+        for k in KERNELS:
+            total[k] += launches[k]
+        if any(len(t) != SERVE_NEW for t in got) or \
+                min(min(t) for t in got) < 0 or \
+                max(max(t) for t in got) >= LM["vocab_size"]:
+            fail(f"speculative serving: stream lengths "
+                 f"{[len(t) for t in got]} or tokens outside the vocabulary")
+        for i, (p, toks) in enumerate(zip(prompts, got)):
+            hit = [am[r, len(p) - 1] for tk, am in tprefills
+                   for r in range(tk.shape[0])
+                   if tk.shape[1] >= len(p) and (tk[r, :len(p)] == p).all()]
+            if not hit or hit[0] != toks[0]:
+                fail(f"speculative serving: stream {i}'s first token "
+                     f"{toks[0]} is not its prefill's argmax ({hit[:1]})")
+        module = G._module_for(base, torch.device("cuda"))
+        agree = []
+        with torch.inference_mode():
+            for p, toks in zip(prompts, got):
+                seq = torch.as_tensor(np.concatenate([p, toks[:-1]]),
+                                      device="cuda")[None]
+                pred = module(seq)[0][0, len(p) - 1:].argmax(-1).cpu()
+                agree.append(float((pred.numpy() == np.asarray(toks)).mean()))
+        log(f"[spec] serving: first tokens equal their prefill's argmax; "
+            f"teacher-forced agreement with the target: mean "
+            f"{np.mean(agree):.4f}, min {min(agree):.4f} (bf16, "
+            f"informational); {emitted} tokens from {verifies} slot "
+            f"verifies in {ticks} ticks = {emitted / verifies:.4f} tokens a "
+            f"verify of {SPEC_GAMMA + 1} ({emitted / verifies - 1:.4f} "
+            f"draft tokens accepted)")
+        def serve_round(b):
+            ticks0 = batch_fill_count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for st in [b.submit(p, SERVE_NEW) for p in prompts]:
+                st.tokens(timeout=STREAM_WAIT_S)
+            return time.perf_counter() - t0, batch_fill_count() - ticks0
+
+        first_plain = serve_round(plain)  # warm-up (spec's: the counted run)
+        rates = {"plain": [], "spec": []}
+        tick_ms = {"plain": [], "spec": []}
+        for _ in range(3):
+            for name, b in (("spec", spec), ("plain", plain)):
+                w, n = serve_round(b)
+                rates[name].append(SERVE_REQUESTS * SERVE_NEW / w)
+                tick_ms[name].append(w * 1e3 / n)
+        log(f"[spec] serving, in turns after a warm-up round each: plain "
+            f"paged {[round(r) for r in rates['plain']]} tokens/s, "
+            f"{[round(t, 3) for t in tick_ms['plain']]} ms a tick; "
+            f"speculative {[round(r) for r in rates['spec']]} tokens/s, "
+            f"{[round(t, 3) for t in tick_ms['spec']]} ms a tick (host "
+            f"clock, admission prefills included; the plain warm-up "
+            f"{first_plain[0]:.3f} s, {first_plain[1]} ticks) on {card}")
+    finally:
+        SB._prefill_kv = real_prefill
+        spec.stop()
+        plain.stop()
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+    return total
+
+
+def distill_path(card):
+    """Phase 13 (d): a 2-layer student (GPT-small width) distilled from
+    the bf16 GPT-small teacher, then used as the draft of an f32
+    speculative decode at EXACT_LM width; returns {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+    from mmlspark_tpu_torch.models import training as TR
+    from mmlspark_tpu_torch.models.bundle import TorchBundle, get_builder
+
+    teacher = TorchBundle("transformer_lm", LM, input_shape=(16,), seed=0)
+    student_cfg = dict(LM, num_layers=DISTILL_LAYERS)
+    state = TR.init_train_state(get_builder("transformer_lm")(**student_cfg),
+                                TR.adam(TRAIN_LR), seed=7,
+                                compute_dtype="bfloat16")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, LM["vocab_size"], (DISTILL_BATCH, TRAIN_SEQ)).astype(
+            np.int32)).cuda()[None]
+    epoch = TR.make_distill_epoch(teacher)
+    zero_launches()
+    state, loss0 = epoch(state, toks)
+    torch.cuda.synchronize()
+    losses, step_s = [loss0], []
+    for _ in range(DISTILL_STEPS):
+        t0 = time.perf_counter()
+        state, loss = epoch(state, toks)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_launches()
+    steps = DISTILL_STEPS + 1
+    layers = LM["num_layers"]
+    want = dict(NO_LAUNCHES,
+                flash_attention_fwd=(layers + DISTILL_LAYERS) * steps,
+                flash_attention_bwd_dkdv=DISTILL_LAYERS * steps,
+                flash_attention_bwd_dq=DISTILL_LAYERS * steps)
+    losses = torch.cat(losses).cpu().numpy()
+    log(f"[distill] {DISTILL_LAYERS}-layer student from the bf16 GPT-small "
+        f"teacher (batch {DISTILL_BATCH} x {TRAIN_SEQ}, T 2.0, alpha 0.7, "
+        f"Adam {TRAIN_LR}): {steps} steps, launches {launches}; losses "
+        f"{np.array2string(losses, precision=4)}; "
+        f"{min(step_s) * 1e3:.3f}..{max(step_s) * 1e3:.3f} ms a step, median "
+        f"{float(np.median(step_s)) * 1e3:.3f} ms on {card}")
+    if launches != want:
+        fail(f"distillation launched {launches}, expected {want} (the "
+             "teacher's forward B4 once a layer, the student's B4, B5, B6 "
+             "once a layer; no backward for the teacher)")
+    if not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+        fail(f"distillation losses not finite or not falling: {losses}")
+    student = TorchBundle.from_module("transformer_lm", state.module,
+                                      student_cfg, input_shape=(16,),
+                                      dtype="float32")
+    del state, epoch
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+    target = TorchBundle("transformer_lm", EXACT_LM, input_shape=(16,),
+                         dtype="float32", seed=0)
+    prompt = np.random.default_rng(9).integers(
+        0, LM["vocab_size"], 200).astype(np.int32)
+    spec_exactness(target, student, "f32 speculative_generate, the distilled "
+                   "student as the draft", prompt, EXACT_NEW)
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def int8_gemm_timing(card) -> None:
     """`torch._int_mm` at the ViT-B/16 qkv shape of one chunk against a
     bf16 `torch.matmul` at the same shape, each from calls queued behind
@@ -3379,7 +4133,10 @@ def main() -> None:
                             seed=21),
         check_attention_bwd(A, (3, 77, 5, 64), "float32", True, seed=22),
         check_attention_bwd(A, (2, 128, 4, 32), "float32", False, seed=23),
-        check_attention_bwd(A, (4, 256, 4, 128), "bfloat16", True, seed=24)]
+        check_attention_bwd(A, (4, 256, 4, 128), "bfloat16", True, seed=24),
+        # phase 13 (d)'s student layer
+        check_attention_bwd(A, (DISTILL_BATCH, TRAIN_SEQ, 12, 64), "bfloat16",
+                            True, seed=25)]
 
     # ---- 4-6. the paths (4b: JPEG bytes) ----------------------------------
     rng = np.random.default_rng(0)
@@ -3394,7 +4151,7 @@ def main() -> None:
              lm_path(K, A, card)]
 
     # ---- 7. decode serving -----------------------------------------------
-    serve_exactness(card)
+    exact_requests = serve_exactness(card)
     serve_launches, live, serve_flash_err = serving_path(A, PA, card)
     paths.append(serve_launches)
 
@@ -3434,6 +4191,15 @@ def main() -> None:
               int8_vit_path(images, table, repo, n_chunks, card),
               int8_lm_path(card)]
     int8_gemm_timing(card)
+
+    # ---- 13. MoE, beam search, speculative decoding, distillation --------
+    t13 = time.perf_counter()
+    moe_launches, moe_bundle = moe_train_path(card)
+    paths += [moe_launches, moe_decode_path(moe_bundle, card),
+              beam_path(card), speculative_path(exact_requests, card),
+              distill_path(card)]
+    del moe_bundle
+    log(f"[phase 13] {time.perf_counter() - t13:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------

@@ -13,8 +13,10 @@ TorchBundle: conv kernels HWIO -> OIHW, Dense kernels [in, out] ->
 Linear weights [out, in], BatchNorm scale/bias from `params` and
 mean/var from `batch_stats`, LayerNorm scale/bias -> weight/bias, Embed
 `embedding` -> Embedding weight, the ViT's `pos_embed` param as it is,
-ResNet block `<Block>_i` and transformer `block{i}` -> `blocks.i`.  Every
-leaf on either side must be used exactly once.
+ResNet block `<Block>_i` and transformer `block{i}` -> `blocks.i`; an
+MoE block's `moe/router` Dense as any Dense and its `moe/w_in` /
+`moe/w_out` expert kernels as they are.  Every leaf on either side must
+be used exactly once.
 
 `TorchBundle.from_module` takes a trained module's weights (what
 `DeepVisionClassifier.fit` hands to its `DeepVisionModel`).
@@ -101,7 +103,9 @@ def init_state_dict(module: nn.Module, seed: int = 0,
                     random_bn: bool = False) -> Dict[str, np.ndarray]:
     """Random weights from a seeded torch.Generator, initialised like the
     flax modules: convs and dense layers LeCun-normal (variance 1/fan_in)
-    with zero biases, LayerNorm scale 1 / bias 0, embeddings normal with
+    with zero biases, the MoE expert kernels w_in [X, E, mE] / w_out
+    [X, mE, E] LeCun-normal over flax's fan-in of a 3-D kernel (the
+    expert axis is receptive field: X * E and X * mE), LayerNorm scale 1 / bias 0, embeddings normal with
     variance 1/features, the ViT's position table normal(0.02), and
     BatchNorm scale 1 / bias 0 / mean 0 / var 1, except the last BatchNorm
     of every residual branch, whose scale starts at 0 (flax's
@@ -132,6 +136,11 @@ def init_state_dict(module: nn.Module, seed: int = 0,
             elif isinstance(m, nn.Embedding):
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
                                / m.embedding_dim ** 0.5)
+            elif isinstance(m, T._MoEMLP):
+                for w in (m.w_in, m.w_out):
+                    fan_in = w.shape[0] * w.shape[1]
+                    w.copy_(torch.randn(w.shape, generator=gen)
+                            / fan_in ** 0.5)
         if isinstance(module, V.VisionTransformer):
             module.pos_embed.copy_(0.02 * torch.randn(
                 module.pos_embed.shape, generator=gen))
@@ -188,11 +197,14 @@ class TorchBundle(_Bundle):
                     dtype: str = "bfloat16") -> "TorchBundle":
         """A bundle of a trained module's weights (the f32 master of a
         TrainState: parameters and running statistics), as host numpy
-        arrays in f32 (integer buffers keep their dtype)."""
+        arrays in f32 (integer buffers keep their dtype) — copies, also
+        of a CPU module's tensors, so that training on does not change
+        the bundle."""
         state = {}
         for k, v in module.state_dict().items():
-            v = v.detach().cpu().contiguous()
-            state[k] = (v.float() if v.is_floating_point() else v).numpy()
+            v = v.detach().cpu()
+            state[k] = np.array((v.float() if v.is_floating_point()
+                                 else v).numpy())
         return cls(builder, builder_kwargs, state_dict=state,
                    input_shape=input_shape, dtype=dtype)
 
@@ -299,6 +311,10 @@ def _torch_prefix(path: Sequence[str]) -> str:
         mt = _TBLOCK.match(path[0])
         if mt and path[1] in _TLAYERS:
             return f"blocks.{int(mt.group(1))}.{path[1]}"
+    if len(path) == 3 and tuple(path[1:]) == ("moe", "router"):
+        mt = _TBLOCK.match(path[0])
+        if mt:
+            return f"blocks.{int(mt.group(1))}.moe.router"
     raise KeyError(f"unrecognized flax module path {'/'.join(path)}")
 
 
@@ -325,6 +341,11 @@ def from_flax_variables(builder: str, variables: Mapping[str, Any],
             *mod, leaf = path
             if not mod and leaf == "pos_embed" and coll == "params":
                 name = "pos_embed"  # the ViT's [1, S, E] param
+            elif (leaf in ("w_in", "w_out") and coll == "params"
+                  and len(mod) == 2 and mod[1] == "moe"
+                  and _TBLOCK.match(mod[0])):
+                # an MoE block's expert kernels, [X, E, mE] / [X, mE, E]
+                name = f"blocks.{int(_TBLOCK.match(mod[0]).group(1))}.moe.{leaf}"
             else:
                 prefix = _torch_prefix(mod)
                 if leaf not in rename or (coll == "batch_stats") != (

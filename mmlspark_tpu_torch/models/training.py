@@ -17,7 +17,15 @@ the backward the bf16 gradients are cast into the f32 masters, the
 optimizer steps the masters, and the working copy is refreshed from
 them.  LayerNorm statistics are f32 inside PyTorch's bf16 kernels, the
 residual stream is bf16 and the logits f32, as in flax.  With
-`compute_dtype=float32` the master is the working module.
+`compute_dtype=float32` the master is the working module.  A layer that
+flax keeps in f32 whatever the model dtype (`keeps_f32`: the MoE router,
+`transformer.F32Linear`) keeps f32 parameters in the working copy too.
+
+A model with MoE blocks (`moe_experts > 0`) adds 0.01 times its summed
+load-balance losses to the objective in `make_train_step`,
+`make_train_epoch` and `make_lm_train_epoch`, as the JAX package adds
+its sown 'losses': the step hands the forward an `aux` list, which each
+MoE layer fills.  A dense model's objective is the cross-entropy alone.
 
 Optimizers are named like optax's: `sgd(lr, momentum)` is
 `optax.sgd(lr, momentum=m)` (`torch.optim.SGD`, dampening 0, no
@@ -36,9 +44,11 @@ poisoned: checkpoints every `checkpoint_every` steps through
 the newest verified step, and with a `models/guard.TrainingGuard` the
 anomaly ladder (quarantine a poisoned batch, roll back, abort).
 
-Not ported yet: `make_distill_epoch` and the MoE auxiliary loss (ROADMAP
-A14, with the MoE and the draft models of speculative decoding), the 3D
-trainer and elastic resume (A19).
+`make_distill_epoch(teacher)` distils a student (the state) from a
+teacher bundle: KL at a temperature plus next-token cross-entropy, the
+teacher's forward without gradients.
+
+Not ported yet: the 3D trainer and elastic resume (ROADMAP A19).
 """
 from __future__ import annotations
 
@@ -59,7 +69,8 @@ from ..device import resolve_device
 
 __all__ = ["TrainState", "sgd", "adam", "init_train_state",
            "softmax_cross_entropy", "lm_loss", "make_train_step",
-           "make_train_epoch", "make_lm_train_epoch", "make_eval_step",
+           "make_train_epoch", "make_lm_train_epoch", "make_distill_epoch",
+           "make_eval_step",
            "fit_epochs", "fit_epochs_resumable", "scan_slice_steps",
            "SCAN_SLICE_BYTES"]
 
@@ -94,15 +105,24 @@ def adam(learning_rate: float) -> OptimizerFactory:
     return make
 
 
+def _cast_parameters(module: nn.Module):
+    """The parameters a compute-dtype cast applies to: all but those of
+    the layers that stay f32 (`keeps_f32`, the MoE router)."""
+    for m in module.modules():
+        if not getattr(m, "keeps_f32", False):
+            yield from m.parameters(recurse=False)
+
+
 def _working_copy(master: nn.Module, dtype: torch.dtype) -> nn.Module:
     """The module the forward runs in: the master itself when its
     parameters are already `dtype`, else a copy with `dtype` parameters
-    that shares the master's buffers (running statistics stay f32)."""
-    if all(p.dtype == dtype for p in master.parameters()):
+    (but the f32 layers') that shares the master's buffers (running
+    statistics stay f32)."""
+    if all(p.dtype == dtype for p in _cast_parameters(master)):
         return master
     work = copy.deepcopy(master)
     with torch.no_grad():
-        for p in work.parameters():
+        for p in _cast_parameters(work):
             p.data = p.data.to(dtype)
     for m_mod, w_mod in zip(master.modules(), work.modules()):
         for name, buf in m_mod._buffers.items():
@@ -216,6 +236,18 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                            tokens[:, 1:].reshape(-1).long())
 
 
+def _forward(module: nn.Module, x: torch.Tensor):
+    """(logits, 0.01 x the MoE load-balance losses, or None for a model
+    without MoE blocks): the forward, handed an `aux` list when the model
+    has them."""
+    if getattr(module, "moe_experts", 0) > 0:
+        aux: list = []
+        logits, _taps = module(x, aux=aux)
+        return logits, 0.01 * torch.stack(aux).sum()
+    logits, _taps = module(x)
+    return logits, None
+
+
 def _scale_lr(optimizer: torch.optim.Optimizer, lr_scale: float) -> None:
     """Each parameter group's learning rate at `lr_scale` times its base
     (the rate it had when first scaled, kept in the group as `base_lr`,
@@ -239,8 +271,10 @@ def make_train_step(num_classes: int,
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if lr_scale is not None:
             _scale_lr(state.optimizer, lr_scale)
-        logits, _taps = state.work.train()(images)
+        logits, aux = _forward(state.work.train(), images)
         loss = softmax_cross_entropy(logits, labels, num_classes)
+        if aux is not None:
+            loss = loss + aux
         loss.backward()
         grad_norm = state.apply_gradients()
         acc = (logits.detach().argmax(-1) == labels.long()).float().mean()
@@ -265,18 +299,60 @@ def make_train_epoch(num_classes: int) -> Callable:
 
 def make_lm_train_epoch() -> Callable:
     """`epoch(state, tokens [S, B, T] int) -> (state, losses [S])`: S
-    next-token steps of a TransformerLM (`lm_loss`; the JAX package adds
-    0.01x the MoE auxiliary loss, which a dense model does not have)."""
+    next-token steps of a TransformerLM (`lm_loss`, plus 0.01x the MoE
+    load-balance losses of a model with MoE blocks)."""
 
     def epoch(state: TrainState, tokens: torch.Tensor):
         losses = []
         for i in range(tokens.shape[0]):
             toks = tokens[i]
-            logits, _taps = state.work.train()(toks)
+            logits, aux = _forward(state.work.train(), toks)
             loss = lm_loss(logits, toks)
+            if aux is not None:
+                loss = loss + aux
             loss.backward()
             state.apply_gradients(grad_norm=False)
             losses.append(loss.detach())
+        return state, torch.stack(losses)
+
+    return epoch
+
+
+def make_distill_epoch(teacher, temperature: float = 2.0,
+                       alpha: float = 0.7) -> Callable:
+    """`epoch(state, tokens [S, B, T] int) -> (state, losses [S])`: S
+    knowledge-distillation steps of the student in `state` from
+    `teacher`, a TransformerLM `TorchBundle` sharing its vocabulary.
+
+    Loss = alpha * KL(teacher_T || student_T) * T^2 + (1 - alpha) *
+    next-token cross-entropy, each the mean over (B, T-1), with T the
+    temperature.  The teacher runs in its bundle's dtype on the state's
+    device, under `torch.no_grad()`: no teacher gradients, no teacher
+    optimizer state.  Its logits [:, :-1] are taken in f32 and
+    log-softmaxed at T.  The trained student is the natural draft for
+    `generation.speculative_generate` and the speculative batcher."""
+    from .generation import _module_for
+
+    t2 = float(temperature) ** 2
+
+    def step(state: TrainState, toks: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            t_logits, _taps = _module_for(teacher, state.device)(toks)
+            t_logp = torch.log_softmax(
+                t_logits[:, :-1].float() / temperature, dim=-1)
+        s_logits, _taps = state.work.train()(toks)
+        s32 = s_logits[:, :-1].float()
+        s_logp_t = torch.log_softmax(s32 / temperature, dim=-1)
+        kl = (t_logp.exp() * (t_logp - s_logp_t)).sum(-1).mean() * t2
+        ll = torch.log_softmax(s32, dim=-1).gather(
+            -1, toks[:, 1:].long()[..., None])
+        loss = alpha * kl + (1.0 - alpha) * -ll.mean()
+        loss.backward()
+        state.apply_gradients(grad_norm=False)
+        return loss.detach()
+
+    def epoch(state: TrainState, tokens: torch.Tensor):
+        losses = [step(state, tokens[i]) for i in range(tokens.shape[0])]
         return state, torch.stack(losses)
 
     return epoch

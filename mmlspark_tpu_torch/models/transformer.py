@@ -46,9 +46,14 @@ copies; the port saves the copy) and returned.
 `quant=True` builds the layers the JAX package quantizes — `qkv` (or
 `q` and `kv` under GQA), `proj`, `mlp_in`, `mlp_out` and the LM `head` —
 as `ops.quant.QuantLinear` (int8 weights and activations, f32 weights
-kept under a bf16 module); inference only.  Not ported yet:
-mixture-of-experts MLPs (`moe_experts > 0` raises NotImplementedError
-naming ROADMAP A14 item 4).
+kept under a bf16 module); inference only.
+
+`moe_experts > 0` replaces every block's MLP with a Switch top-1 mixture
+of experts (`_MoEMLP`, the JAX package's `_MoEMLP` arithmetic): an f32
+router, capacity per row and per forward call, dropped tokens carried by
+the residual.  Its load-balance loss reaches a trainer only through the
+`aux` list a forward is handed (`forward(tokens, aux=[])`): each MoE
+layer appends its term, and a forward without the list computes none.
 """
 from __future__ import annotations
 
@@ -65,12 +70,6 @@ from ..ops.quant import dense_cls
 __all__ = ["TransformerLM", "transformer_lm", "default_attn"]
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to mmlspark_tpu_torch yet (ROADMAP A14 "
-        f"item {item})")
 
 
 def _cache_attention(q, k_cache, v_cache, q_pos, d, k_scale=None,
@@ -135,13 +134,110 @@ def default_attn(causal: bool) -> Callable:
     return functools.partial(fused_attention, causal=causal)
 
 
+class F32Linear(nn.Linear):
+    """A Linear layer whose weight and bias stay f32 under a module cast
+    (`module.to(bfloat16)`), and whose input is taken in f32: the MoE
+    router, which flax keeps at `dtype=float32` (a bf16 router would
+    change which expert wins).  The trainer's bf16 working copy keeps it
+    f32 too (`keeps_f32`)."""
+
+    keeps_f32 = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+    def _apply(self, fn, recurse=True):
+        def keep_dtype(t):
+            out = fn(t)
+            return out if out.dtype == t.dtype else t.to(out.device)
+
+        return super()._apply(keep_dtype, recurse)
+
+
+class _MoEMLP(nn.Module):
+    """Switch top-1 mixture-of-experts MLP; flax names router (Dense with
+    bias, f32), w_in [X, E, mE] and w_out [X, mE, E] (no biases).
+
+    The JAX package's arithmetic: softmax router probabilities, the
+    first-index argmax expert and its probability as the gate; capacity
+    `cap = max(1, int(capacity_factor * s / X))` PER ROW (a row's routing
+    never depends on its co-tenants) and per forward call; a token's
+    place in its expert's queue is the cumsum along s, and tokens at or
+    past `cap` are dropped (output 0; the residual carries them).  The
+    expert buffers are [X, B * cap, E]: dispatch and combine are one
+    `index_copy` and one `index_select` on each token's (expert, row,
+    slot) address — the JAX package's one-hot einsums have exactly one
+    non-zero term an output element, so indexing gives the same values
+    and gradients without the [B, S, X, cap] tensors.  Dropped tokens
+    address a trash row past the buffers."""
+
+    def __init__(self, embed_dim: int, mlp_ratio: int, num_experts: int,
+                 capacity_factor: float = 1.25):
+        super().__init__()
+        e, nx = embed_dim, num_experts
+        self.num_experts = nx
+        self.capacity_factor = float(capacity_factor)
+        self.router = F32Linear(e, nx)
+        self.w_in = nn.Parameter(torch.empty(nx, e, mlp_ratio * e))
+        self.w_out = nn.Parameter(torch.empty(nx, mlp_ratio * e, e))
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        """flax's lecun_normal for the expert kernels: the expert axis is
+        receptive field, so the fan-in is X * E (w_in) and X * mE (w_out);
+        `bundle.init_state_dict` draws them the same way from a seed."""
+        with torch.no_grad():
+            for w in (self.w_in, self.w_out):
+                w.normal_(0.0, (w.shape[0] * w.shape[1]) ** -0.5)
+
+    def capacity(self, s: int) -> int:
+        return max(1, int(self.capacity_factor * s / self.num_experts))
+
+    def route(self, x: torch.Tensor):
+        """x [B, S, E] -> (probs [B, S, X] f32, expert [B, S], gate
+        [B, S] f32, queue place [B, S]; a token is kept where place < cap)."""
+        probs = torch.softmax(self.router(x), dim=-1)
+        gate = probs.max(dim=-1).values
+        expert = probs.argmax(dim=-1)
+        onehot = F.one_hot(expert, self.num_experts)
+        place = (onehot.cumsum(dim=1) * onehot).sum(dim=-1) - 1
+        return probs, expert, gate, place
+
+    def experts(self, buf: torch.Tensor) -> torch.Tensor:
+        """Expert buffers [X, N, E] -> [X, N, E] at buf's dtype: GELU
+        (tanh) between the two expert matmuls."""
+        h = F.gelu(torch.bmm(buf, self.w_in.to(buf.dtype)),
+                   approximate="tanh")
+        return torch.bmm(h, self.w_out.to(buf.dtype))
+
+    def forward(self, x: torch.Tensor, aux: Optional[List] = None
+                ) -> torch.Tensor:
+        b, s, e = x.shape
+        nx = self.num_experts
+        cap = self.capacity(s)
+        probs, expert, gate, place = self.route(x)
+        rows = torch.arange(b, device=x.device)[:, None]
+        trash = nx * b * cap
+        addr = torch.where(place < cap, (expert * b + rows) * cap + place,
+                           trash).reshape(-1)
+        buf = x.new_zeros(trash + 1, e).index_copy(0, addr, x.reshape(-1, e))
+        y = self.experts(buf[:trash].view(nx, b * cap, e)).reshape(trash, e)
+        y = torch.cat([y, y.new_zeros(1, e)])
+        out = y.index_select(0, addr).view(b, s, e) * gate.to(x.dtype)[..., None]
+        if aux is not None:
+            frac = F.one_hot(expert, nx).float().mean(dim=(0, 1))
+            aux.append(nx * (frac * probs.mean(dim=(0, 1))).sum())
+        return out
+
+
 class _Block(nn.Module):
     """Pre-LN transformer block; flax names ln1, qkv (or q + kv), proj,
-    ln2, mlp_in, mlp_out."""
+    ln2, mlp_in, mlp_out — or, with `moe_experts > 0`, moe."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int,
                  attn_fn: Optional[Callable], kv_heads: Optional[int] = None,
-                 rope: bool = False, linear=nn.Linear):
+                 rope: bool = False, linear=nn.Linear, moe_experts: int = 0,
+                 moe_capacity: float = 1.25):
         super().__init__()
         e, h = embed_dim, num_heads
         self.num_heads = h
@@ -158,14 +254,18 @@ class _Block(nn.Module):
                              bias=False)
         self.proj = linear(e, e, bias=False)
         self.ln2 = nn.LayerNorm(e, eps=LN_EPS)
-        self.mlp_in = linear(e, mlp_ratio * e)
-        self.mlp_out = linear(mlp_ratio * e, e)
+        if moe_experts > 0:
+            self.moe = _MoEMLP(e, mlp_ratio, moe_experts, moe_capacity)
+        else:
+            self.mlp_in = linear(e, mlp_ratio * e)
+            self.mlp_out = linear(mlp_ratio * e, e)
 
     def forward(self, x: torch.Tensor, cache=None, pos=None, page_table=None,
-                kvcache: Optional[List] = None):
+                kvcache: Optional[List] = None, aux: Optional[List] = None):
         """cache=None: attention over x (the train/score/prefill path);
         `kvcache`, a list, receives this layer's (k, v) [B, S, Hkv, D] (the
-        JAX package's sown 'kvcache' collection).
+        JAX package's sown 'kvcache' collection); `aux`, a list, receives
+        an MoE block's load-balance loss (its sown 'losses').
 
         cache=(k_cache, v_cache) [B, max_len, Hkv, D], or the int8
         (kq, ks, vq, vs) with scales [B, max_len, Hkv], with an int `pos`:
@@ -206,8 +306,11 @@ class _Block(nn.Module):
             a = self._block_attention(q, k, v, cache, int(pos))
         a = a.to(x.dtype).reshape(b, s, e)
         x = x + self.proj(a)
-        y = self.mlp_in(self.ln2(x))
-        out = x + self.mlp_out(F.gelu(y, approximate="tanh"))
+        if hasattr(self, "moe"):
+            out = x + self.moe(self.ln2(x), aux)
+        else:
+            y = self.mlp_in(self.ln2(x))
+            out = x + self.mlp_out(F.gelu(y, approximate="tanh"))
         return out if cache is None else (out, cache)
 
     def _cache_rows(self, k, v, cache):
@@ -299,8 +402,6 @@ class TransformerLM(nn.Module):
                  pos_emb: str = "learned",
                  num_kv_heads: Optional[int] = None):
         super().__init__()
-        if moe_experts > 0:
-            raise _not_ported("the mixture-of-experts MLP (moe_experts > 0)", 4)
         if pos_emb not in ("learned", "rope"):
             raise ValueError(
                 f"pos_emb must be 'learned' or 'rope', got {pos_emb!r} — "
@@ -317,6 +418,8 @@ class TransformerLM(nn.Module):
         self.pos_emb = pos_emb
         self.num_kv_heads = num_kv_heads
         self.quant = bool(quant)
+        self.moe_experts = int(moe_experts)
+        self.moe_capacity = float(moe_capacity)
         linear = dense_cls(self.quant)
         attn = attn_fn if attn_fn is not None else default_attn(True)
         self.tok_embed = nn.Embedding(vocab_size, embed_dim)
@@ -325,7 +428,8 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             _Block(embed_dim, num_heads, mlp_ratio, attn,
                    kv_heads=num_kv_heads, rope=pos_emb == "rope",
-                   linear=linear)
+                   linear=linear, moe_experts=moe_experts,
+                   moe_capacity=moe_capacity)
             for _ in range(num_layers))
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.head = linear(embed_dim, vocab_size, bias=False)
@@ -353,15 +457,17 @@ class TransformerLM(nn.Module):
         return x
 
     def forward(self, tokens: torch.Tensor, train: bool = False,
-                kvcache: Optional[List] = None
+                kvcache: Optional[List] = None, aux: Optional[List] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens [B, S] -> (logits [B, S, V] f32, taps).  With `kvcache`
-        (a list) every layer appends its (k, v): generation's prefill."""
+        (a list) every layer appends its (k, v): generation's prefill.
+        With `aux` (a list) every MoE layer appends its load-balance loss,
+        a 0-dim f32 tensor: what the trainers add at 0.01."""
         taps: Dict[str, torch.Tensor] = {}
         x = self._embed(tokens, 0)
         taps["embed"] = x
         for block in self.blocks:
-            x = block(x, kvcache=kvcache)
+            x = block(x, kvcache=kvcache, aux=aux)
         x = self.ln_f(x)
         taps["hidden"] = x
         taps["pool"] = x.mean(dim=1).float()

@@ -14,18 +14,21 @@ for one `image_size` (a TorchBundle passes its input_shape's).
 
 `quant=True` runs the encoder blocks' linear layers as int8
 (`ops.quant.QuantLinear`); the classification `head` stays a plain
-linear layer, as in the JAX package.  Not ported yet: `moe_experts > 0`
-(NotImplementedError, ROADMAP A14 item 4).
+linear layer, as in the JAX package.  `moe_experts > 0` is the V-MoE
+variant: every encoder MLP is the Switch mixture of experts of
+TransformerLM (`transformer._MoEMLP`, capacity factor 1.25, the JAX
+package's default), whose load-balance loss a forward appends to the
+`aux` list it is handed.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..ops.quant import dense_cls
-from .transformer import LN_EPS, _Block, _not_ported, _torch_dtype, default_attn
+from .transformer import LN_EPS, _Block, _torch_dtype, default_attn
 
 __all__ = ["VisionTransformer", "vit_tiny", "vit_small", "vit_base"]
 
@@ -58,27 +61,28 @@ class VisionTransformer(nn.Module):
                  image_size: Union[int, Tuple[int, int]] = 224,
                  attn_fn: Optional[Callable] = None):
         super().__init__()
-        if moe_experts > 0:
-            raise _not_ported("the mixture-of-experts MLP (moe_experts > 0)", 4)
         p = int(patch_size)
         h, w = _pair(image_size)
         _check_divisible(h, w, p)
         self.patch_size = p
         self.image_size = (h, w)
+        self.moe_experts = int(moe_experts)
         attn = attn_fn if attn_fn is not None else default_attn(False)
         self.patch_embed = nn.Conv2d(3, embed_dim, p, stride=p)
         self.pos_embed = nn.Parameter(
             torch.zeros(1, (h // p) * (w // p), embed_dim))
         self.blocks = nn.ModuleList(
             _Block(embed_dim, num_heads, mlp_ratio, attn,
-                   linear=dense_cls(quant))
+                   linear=dense_cls(quant), moe_experts=moe_experts)
             for _ in range(num_layers))
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.head = nn.Linear(embed_dim, num_classes)
 
-    def forward(self, x: torch.Tensor, train: bool = False
+    def forward(self, x: torch.Tensor, train: bool = False,
+                aux: Optional[List] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """x: [B, H, W, 3] (NHWC, any float or uint8 dtype)."""
+        """x: [B, H, W, 3] (NHWC, any float or uint8 dtype).  With `aux`
+        (a list) every MoE block appends its load-balance loss."""
         p = self.patch_size
         _check_divisible(x.shape[1], x.shape[2], p)
         if tuple(x.shape[1:3]) != self.image_size:
@@ -94,7 +98,7 @@ class VisionTransformer(nn.Module):
         x = x.reshape(b, gh * gw, e) + self.pos_embed.to(dtype)
         taps["embed"] = x
         for block in self.blocks:
-            x = block(x)
+            x = block(x, aux=aux)
         x = self.ln_f(x)
         taps["encoded"] = x
         pooled = x.mean(dim=1)

@@ -24,7 +24,8 @@
 //
 // Return codes: -1 is kept for a stream that is refused (not a JPEG,
 // truncated, CMYK, non-integer sampling ratios, a format nvJPEG does not
-// decode, a progressive stream with a restart interval), which the caller
+// decode, a progressive stream with a restart interval, a frame other
+// than 8-bit Huffman-coded DCT: SOF0, SOF1 and SOF2 only), which the caller
 // may hand to another decoder as it would a stream libjpeg refuses.
 // nvJPEG decodes a progressive stream whose scans carry restart markers
 // into wrong pixels without an error (fault C3, seen on an H100 80GB HBM3
@@ -137,7 +138,7 @@ int32_t finish(int32_t rc) {
 // frame's size and components, and its colour space by libjpeg-turbo's
 // rule (jdapimin.c default_decompress_parms).
 struct Layout {
-    bool progressive = false;  // SOF2, SOF6, SOF10 or SOF14
+    bool progressive = false;  // SOF2 (the only progressive frame kept)
     int ncomp = 0;
     int height = 0;
     int width = 0;
@@ -177,8 +178,13 @@ bool parse_layout(const uint8_t* d, int64_t n, Layout* L) {
             transform = p[11];
         } else if (!sof && m >= 0xC0 && m <= 0xCF && m != 0xC4 &&
                    m != 0xC8 && m != 0xCC) {
-            if (plen < 6) return false;
-            L->progressive = (m & 0x03) == 0x02;
+            // only 8-bit Huffman-coded DCT frames (SOF0 baseline, SOF1
+            // extended, SOF2 progressive) go to nvJPEG: a lossless
+            // (SOF3/7/11/15), arithmetic-coded (SOF9-11, 13-15) or
+            // hierarchical (SOF5-7) frame, or a precision other than 8
+            // bits, is refused, and the caller takes PIL's pixels
+            if (plen < 6 || m > 0xC2 || p[0] != 8) return false;
+            L->progressive = m == 0xC2;
             L->height = (p[1] << 8) | p[2];
             L->width = (p[3] << 8) | p[4];
             L->ncomp = p[5];

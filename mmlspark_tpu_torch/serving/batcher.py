@@ -22,8 +22,18 @@ for its prompt regardless of co-tenancy (tested).
 The loop thread runs under `torch.inference_mode()` (a thread-local
 mode, so the thread enters it itself) and owns the pools, the page
 table and the free list; prefix registration and release reach it
-through a control queue.  Speculative mode (`draft_model`) is not ported
-yet (ROADMAP A14 item 2).  A quant bundle (`quant=True`, prequantized or
+through a control queue.
+
+Speculative mode (`draft_model=<TorchBundle>`, `gamma`): each tick the
+draft proposes gamma tokens for every slot — gamma + 1 slot steps over a
+dense draft cache, the last only writing its gamma-th proposal's K/V —
+then ONE target slot-block step of [S, gamma + 1] verifies every slot's
+proposals at its own position, over the dense cache or the page pools
+(a block over pools gathers the pages: no paged kernel launches in a
+speculative tick).  Each live slot emits its accepted prefix and the
+target's own token, so every stream is still `generate()`'s.  The
+proposals stay on the device until one read-back a tick, with the
+target's predictions.  A quant bundle (`quant=True`, prequantized or
 not) serves as any other: each bucket and tick runs its int8 layers over
 the same rows as the JAX package's batcher.
 
@@ -128,7 +138,16 @@ class ContinuousBatcher:
 
     bundle: a TransformerLM `TorchBundle`; it runs on `device` (``cuda``
     unless the caller passes another, as `generate` does).  `max_slots`
-    is the device batch width."""
+    is the device batch width.
+
+    `draft_model` turns on speculative continuous batching: a
+    TransformerLM `TorchBundle` (the port has no (model, variables)
+    pair, so the draft is a bundle, like the target) sharing the
+    target's vocabulary — a smaller model, a distilled student or the
+    target's prequantized int8 copy — proposing `gamma` tokens a slot a
+    tick.  An MoE target needs drop-free capacity (`moe_capacity >=
+    moe_experts`): its capacity scales with the tokens a forward, so a
+    verify block could drop tokens that one-token steps keep."""
 
     def __init__(self, bundle: TorchBundle, max_slots: int = 8,
                  idle_sleep_s: float = 0.001,
@@ -136,17 +155,31 @@ class ContinuousBatcher:
                  kv_cache_dtype: Optional[str] = None,
                  paged: bool = False, page_size: int = 64,
                  num_pages: Optional[int] = None,
-                 draft_model=None, device=None):
+                 draft_model=None, gamma: int = 4, device=None):
         if kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype must be None or 'int8', "
                              f"got {kv_cache_dtype!r}")
-        if draft_model is not None:
-            raise NotImplementedError(
-                "speculative continuous batching (draft_model) is not "
-                "ported to mmlspark_tpu_torch yet (ROADMAP A14 item 2)")
+        if draft_model is not None and not isinstance(draft_model,
+                                                      TorchBundle):
+            raise TypeError(f"draft_model must be a TransformerLM "
+                            f"TorchBundle, got {type(draft_model).__name__}")
         self.device = resolve_device(device)
         self.model = _module_for(bundle, self.device)
         model = self.model
+        self.draft = None
+        if draft_model is not None:
+            self.draft = _module_for(draft_model, self.device)
+            if self.draft.vocab_size != model.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+            if model.moe_experts > 0 and model.moe_capacity < model.moe_experts:
+                raise ValueError(
+                    "speculative batching with MoE needs drop-free "
+                    f"capacity: set moe_capacity >= moe_experts "
+                    f"({model.moe_experts}), got {model.moe_capacity}")
+        # verify blocks write up to gamma rows past the emitted position
+        self.gamma = int(gamma) if draft_model is not None else 0
         # every host->device upload (the tick's tok/pos/page-table
         # vectors, admission prefill batches) rides the feed engine: the
         # tick's small arrays byte-pack into ONE copy
@@ -206,6 +239,18 @@ class ContinuousBatcher:
                     torch.zeros(shape4, dtype=dt, device=self.device),
                     torch.zeros(shape4, dtype=dt, device=self.device))
             self._cache = tuple(layer() for _ in range(model.num_layers))
+            if self.draft is not None:
+                # the draft's plain DENSE slot cache (the cheap model:
+                # paging and int8 buy nothing there), at the same logical
+                # positions as the target's
+                dd = self.draft
+                dshape = (s, dd.max_len, dd.kv_heads,
+                          dd.embed_dim // dd.num_heads)
+                ddt = next(dd.parameters()).dtype
+                self._d_cache = tuple(
+                    (torch.zeros(dshape, dtype=ddt, device=self.device),
+                     torch.zeros(dshape, dtype=ddt, device=self.device))
+                    for _ in range(dd.num_layers))
         self._pos = np.zeros(s, np.int32)
         self._tok = np.zeros(s, np.int32)
         self._live: List[Optional[_Request]] = [None] * s
@@ -251,10 +296,12 @@ class ContinuousBatcher:
         """Worst-case page count for one request — THE reservation
         invariant: submit()'s rejection and _try_admit()'s reservation
         both use exactly this, or just-in-time growth in the loop could
-        pop an empty free list mid-decode.  A shared prefix's leading
-        pages are the HANDLE's, not the request's."""
-        return min(-(-(prompt_len + max_new) // self.page_size),
-                   self._mp) - shared_pages
+        pop an empty free list mid-decode.  Speculative mode writes up to
+        `gamma` rows past the emitted position, so it covers them too.  A
+        shared prefix's leading pages are the HANDLE's, not the
+        request's."""
+        return min(-(-(prompt_len + max_new + self.gamma)
+                     // self.page_size), self._mp) - shared_pages
 
     # ---- shared-prefix caching (paged mode) ----------------------------
     def _ctl_call(self, op, payload):
@@ -291,8 +338,16 @@ class ContinuousBatcher:
         ids = np.asarray(prefix_ids, np.int32).reshape(-1)
         if len(ids) < 1:
             raise ValueError("empty prefix")
-        if len(ids) + 1 > self.model.max_len:
+        if len(ids) + 1 + self.gamma > self.model.max_len:
             raise ValueError("prefix leaves no room to generate")
+        if (self.draft is not None
+                and len(ids) + 1 + self.gamma > self.draft.max_len):
+            # the dense draft cache holds the FULL prompt (prefix + suffix)
+            raise ValueError(
+                f"prefix of {len(ids)} tokens exceeds the draft model's "
+                f"max_len {self.draft.max_len} - 1 - gamma {self.gamma} "
+                "(speculative mode prefills the full prompt into the "
+                "draft cache)")
         return self._ctl_call(self._exec_register_prefix, ids)
 
     def release_prefix(self, handle: int):
@@ -379,10 +434,16 @@ class ContinuousBatcher:
             prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("empty prompt")
-        if len(prompt) + max_new_tokens > self.model.max_len:
+        limit = self.model.max_len - self.gamma
+        if self.draft is not None:
+            # draft writes ride to the same positions (+gamma lookahead)
+            limit = min(limit, self.draft.max_len - self.gamma)
+        if len(prompt) + max_new_tokens > limit:
             raise ValueError(
                 f"prompt {len(prompt)} + {max_new_tokens} exceeds "
-                f"max_len {self.model.max_len}")
+                f"max_len {self.model.max_len}"
+                + (f" - gamma {self.gamma} (speculative lookahead)"
+                   if self.gamma else ""))
         req = _Request(prompt, max_new_tokens, eos_id, prefix=prefix,
                        deadline=deadline)
         with self._submit_lock:
@@ -483,7 +544,10 @@ class ContinuousBatcher:
         b = 16
         while b < n:
             b *= 2
-        return min(b, self.model.max_len)
+        b = min(b, self.model.max_len)
+        if self.draft is not None:
+            b = min(b, self.draft.max_len)
+        return b
 
     def _scatter_pages(self, rows, placements):
         """Write prefill cache rows into the pools: `placements` lists
@@ -503,6 +567,18 @@ class ContinuousBatcher:
         for layer, layer_rows in zip(self._cache, rows):
             for pool, r in zip(layer, layer_rows):
                 pool[idx[2], idx[3]] = r[idx[0], idx[1]].to(pool.dtype)
+
+    def _load_draft(self, d_padded, slots):
+        """The draft's prefill of prompts `d_padded` [kp, bucket] (on the
+        device), its cache rows written into the draft cache at `slots`
+        (the first len(slots) rows).  Its logits are unused: a stream's
+        first token is the TARGET's."""
+        _dlg, d_rows = _prefill_kv(self.draft, d_padded)
+        k, width = len(slots), d_padded.shape[1]
+        idx = torch.as_tensor(slots, device=self.device)
+        for layer, layer_rows in zip(self._d_cache, d_rows):
+            for dst, r in zip(layer, layer_rows):
+                dst[idx, :width] = r[:k].to(dst.dtype)
 
     def _first_tokens(self, logits, last_pos) -> np.ndarray:
         """argmax of each row's logits at its last prompt position (one
@@ -553,8 +629,12 @@ class ContinuousBatcher:
         else:  # one bucket: nothing to overlap, skip the worker thread
             packed = map(pack_bucket, buckets)
         for group, padded in packed:
-            logits, rows = _prefill_kv(self.model, self._feed.put(padded),
+            d_padded = self._feed.put(padded)
+            logits, rows = _prefill_kv(self.model, d_padded,
                                        self.kv_cache_dtype)
+            if self.draft is not None:
+                # the draft's cache holds the same prompt history
+                self._load_draft(d_padded, [slot for slot, _r in group])
             if self.paged:
                 # allocate each slot's prompt pages and scatter all rows'
                 # prompt positions in one write per pool
@@ -590,7 +670,22 @@ class ContinuousBatcher:
         prefill ONLY the suffix via one slot-BLOCK decode per rest
         bucket (the block attends the shared rows through the table).
         rest=0 requests skip the forward entirely: their first token
-        comes from the logits the prefix registration stored."""
+        comes from the logits the prefix registration stored.  In
+        speculative mode the dense draft cache cannot share pages: the
+        draft prefills the FULL prompts, batched per bucket."""
+        if self.draft is not None:
+            by_draft_bucket: dict = {}
+            for group in prefix_groups.values():
+                for slot, req in group:
+                    by_draft_bucket.setdefault(
+                        self._bucket(len(req.prompt)), []).append((slot, req))
+            for db, dgroup in sorted(by_draft_bucket.items()):
+                dpad = np.zeros((_pow2_rows(len(dgroup), self.max_slots), db),
+                                np.int32)
+                for i, (_slot, req) in enumerate(dgroup):
+                    dpad[i, :len(req.prompt)] = req.prompt
+                self._load_draft(self._feed.put(dpad),
+                                 [slot for slot, _r in dgroup])
         for rb, group in sorted(prefix_groups.items()):
             fill = []                  # rows that need a suffix forward
             for slot, req in group:
@@ -642,6 +737,8 @@ class ContinuousBatcher:
         if done:
             req.stream._q.put(None)
             self._live[slot] = None
+            # park the freed slot at position 0: a stale position near
+            # max_len plus the speculative lookahead would pass the cache
             self._pos[slot] = 0
             self._tok[slot] = 0
             if self.paged:  # return OWNED pages + release the reservation
@@ -774,16 +871,20 @@ class ContinuousBatcher:
             len(active) / self.max_slots)
         if self.paged:
             # grow each active slot's page list just-in-time for this
-            # tick's write position (the admission reservation guarantees
-            # the free list can cover it)
+            # tick's write positions, up to pos + gamma in speculative
+            # mode (the admission reservation guarantees the free list
+            # can cover them)
             for sl in active:
-                idx = int(self._pos[sl]) // self.page_size
+                idx = (int(self._pos[sl]) + self.gamma) // self.page_size
                 while idx >= (self._slot_shared[sl]
                               + len(self._slot_pages[sl])):
                     pg = self._free.pop()
                     self._table[sl, self._slot_shared[sl]
                                 + len(self._slot_pages[sl])] = pg
                     self._slot_pages[sl].append(pg)
+        if self.draft is not None:
+            self._speculative_tick(active)
+            return
         # ONE batched step for every slot (free slots compute too — their
         # pos 0 writes are dead: dense mode overwrites the rows on admit,
         # paged mode routes them to the trash page), fed by ONE packed
@@ -801,3 +902,46 @@ class ContinuousBatcher:
             self._pos[slot] += 1
             self._tok[slot] = nxt[slot]
             self._emit(slot, int(nxt[slot]))
+
+    def _speculative_tick(self, active):
+        """One speculative round for ALL slots: gamma + 1 draft slot steps
+        propose (the last only writes the gamma-th proposal's K/V, so a
+        fully accepted round leaves no hole in the draft cache), ONE
+        target slot-block step verifies, and each live slot emits its
+        accepted prefix and the target's own next token —
+        `speculative_generate`'s round over co-tenant slots.  The draft
+        steps over every slot, idle ones included, as the target's tick
+        does.  One upload and one read-back a tick."""
+        g = self.gamma
+        if self.paged:
+            d_tok, d_pos, d_tbl = self._feed.put_group(
+                [self._tok[:, None], self._pos, self._table])
+        else:
+            d_tok, d_pos = self._feed.put_group(
+                [self._tok[:, None], self._pos])
+            d_tbl = None
+        tok, props = d_tok, []
+        for i in range(g + 1):
+            lg, self._d_cache = self.draft.decode_step(tok, self._d_cache,
+                                                       d_pos + i)
+            tok = lg[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+            if i < g:
+                props.append(tok)
+        # ONE target forward verifies every slot's pending token and its
+        # g proposals at the slot's own position: logits[:, j] predicts
+        # position pos + j + 1
+        props = torch.cat(props, dim=1)                          # [S, g]
+        lg = self._step(torch.cat([d_tok, props], dim=1), d_pos, d_tbl)
+        t_pred = lg.argmax(-1).to(torch.int32)                   # [S, g+1]
+        both = torch.cat([props, t_pred], dim=1).cpu().numpy()
+        props, t_pred = both[:, :g], both[:, g:]
+        for slot in active:
+            match = np.append(t_pred[slot, :g] == props[slot], False)
+            m = int(np.argmin(match))                            # 0..g
+            for j in range(m + 1):
+                tok = int(props[slot, j]) if j < m else int(t_pred[slot, m])
+                self._pos[slot] += 1
+                self._tok[slot] = tok
+                self._emit(slot, tok)
+                if self._live[slot] is None:
+                    break  # finished mid-block: the rest is discarded

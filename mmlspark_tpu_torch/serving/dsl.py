@@ -152,7 +152,7 @@ class StreamReader:
                         max_new_tokens: int = 32, max_slots: int = 8,
                         kv_cache_dtype=None,
                         paged: bool = False, page_size: int = 64,
-                        num_pages=None, draft_model=None,
+                        num_pages=None, draft_model=None, gamma: int = 4,
                         device=None) -> "StreamReader":
         """The whole LM endpoint in one call: a ContinuousBatcher over
         `bundle` owns the decode (concurrent clients share one slotted
@@ -162,15 +162,16 @@ class StreamReader:
         streams token ids.  The batcher is built PER start() call, so a
         builder can start several independent queries.  `paged=True`
         serves from page pools (pay-per-page KV memory, the paged decode
-        kernel on the card); `draft_model` (speculative batching) is not
-        ported yet and raises at start()."""
+        kernel on the card); `draft_model`, a TransformerLM bundle, turns
+        on speculative continuous batching (up to gamma + 1 tokens a slot
+        a target forward, the streams still exactly the target's)."""
         self._gen_cfg = dict(bundle=bundle, tokenizer=tokenizer,
                              max_new_tokens=int(max_new_tokens),
                              max_slots=int(max_slots),
                              kv_cache_dtype=kv_cache_dtype,
                              paged=bool(paged), page_size=int(page_size),
                              num_pages=num_pages, draft_model=draft_model,
-                             device=device)
+                             gamma=int(gamma), device=device)
         self._stream_fn = None
         return self
 
@@ -212,7 +213,8 @@ class StreamReader:
                 cfg["bundle"], max_slots=cfg["max_slots"],
                 kv_cache_dtype=cfg["kv_cache_dtype"], paged=cfg["paged"],
                 page_size=cfg["page_size"], num_pages=cfg["num_pages"],
-                draft_model=cfg["draft_model"], device=cfg["device"])
+                draft_model=cfg["draft_model"], gamma=cfg["gamma"],
+                device=cfg["device"])
 
             def stream_fn(row, _b=batcher, _c=cfg):
                 if _c["tokenizer"] is not None:

@@ -11,7 +11,10 @@ into BGR.  `progressive_*` (SOF2), `restart_*` (a restart interval, DRI,
 every 3 MCUs or every MCU row) and `progressive_restart_*` (both, a
 restart every 2 MCUs) are uniform noise from seed 1 at quality 85 at
 the bench sizes: the stream kinds a JPEG decoder on the card may handle
-differently from libjpeg.  `digests.json` holds, for each fixture, what the JAX
+differently from libjpeg.  `arith_224x224.jpg` is uniform noise from
+seed 2 at quality 85, arithmetic-coded (SOF9), written by libjpeg
+through `arith_jpeg.c`, which this script compiles with `cc -ljpeg`
+(libjpeg's headers and a library built with arithmetic coding needed).  `digests.json` holds, for each fixture, what the JAX
 package's `native.decode_jpeg_bgr` gives for it: the shape, the sha256
 of the pixel bytes, the per-channel sums, and the pixels on a grid of
 every SAMPLE-th row and column (base64), from which a decoder that is
@@ -23,12 +26,27 @@ import hashlib
 import io
 import json
 import os
+import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SAMPLE = 9  # coprime with the 8x8 and 16x16 blocks: every block position
+
+
+def arith_jpeg(arr, quality):
+    """JPEG bytes of RGB `arr` [H, W, 3] uint8, arithmetic-coded by
+    libjpeg (arith_jpeg.c, compiled here)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "arith_jpeg")
+        subprocess.run(["cc", "-O2", os.path.join(HERE, "arith_jpeg.c"),
+                        "-ljpeg", "-o", exe], check=True)
+        h, w = arr.shape[:2]
+        return subprocess.run([exe, str(w), str(h), str(quality)],
+                              input=np.ascontiguousarray(arr).tobytes(),
+                              capture_output=True, check=True).stdout
 
 
 def fixtures():
@@ -64,6 +82,8 @@ def fixtures():
     buf = io.BytesIO()
     cmyk.save(buf, format="JPEG")
     out["cmyk_40x30.jpg"] = buf.getvalue()
+    out["arith_224x224.jpg"] = arith_jpeg(np.random.default_rng(2).integers(
+        0, 256, size=(224, 224, 3), dtype=np.uint8), 85)
     return out
 
 

@@ -31,7 +31,7 @@ import jax.numpy as jnp
 from mmlspark_tpu.models import transformer as T
 from mmlspark_tpu.models.generation import generate as j_generate
 from mmlspark_tpu_torch.core import telemetry
-from mmlspark_tpu_torch.models.bundle import from_flax_variables
+from mmlspark_tpu_torch.models.bundle import TorchBundle, from_flax_variables
 from mmlspark_tpu_torch.serving.batcher import ContinuousBatcher
 from mmlspark_tpu_torch.utils.fault_tolerance import Overloaded
 
@@ -215,8 +215,14 @@ def test_stop_unblocks_consumers_and_submit_validates():
         batcher.submit([1, 2], max_new_tokens=2)
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         _batcher(kv_cache_dtype="int4")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a draft must be a TransformerLM bundle sharing the vocabulary
+    with pytest.raises(TypeError, match="TorchBundle"):
         _batcher(draft_model=object())
+    with pytest.raises(ValueError, match="vocabulary"):
+        _batcher(draft_model=TorchBundle(
+            "transformer_lm", dict(vocab_size=V + 1, embed_dim=16,
+                                   num_layers=1, num_heads=2, max_len=16),
+            dtype="float32"))
 
 
 def test_paged_admission_defers_until_pages_free():

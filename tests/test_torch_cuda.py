@@ -30,9 +30,10 @@ package's own limit; both sides round the same two f32 ops, so it is
 bit-exact); the RLE decode kernel exact to the byte.
 
 The port's JPEG decoder (`mmlspark_tpu_torch.native`) against the
-libjpeg digests of tests/jpeg_fixtures/ (progressive and restart-interval
-streams among them, which nvJPEG may also refuse to PIL, never raise
-on): byte-exact where it builds on
+libjpeg digests of tests/jpeg_fixtures/ (progressive, restart-interval
+and arithmetic-coded streams among them, which nvJPEG may also refuse to
+PIL, never raise on; frames other than 8-bit SOF0/1/2 it refuses):
+byte-exact where it builds on
 libjpeg; on nvJPEG (a machine without libjpeg's headers) a mean absolute
 difference of at most 0.089 levels on the digests' pixel sample and a
 mean of at most 0.0077 a channel — the C2 kernel upsamples and converts
@@ -877,9 +878,10 @@ def test_native_jpeg_decoder_against_the_fixture_digests(cuda_device, name):
         assert got is None
         return
     # nvJPEG refuses a progressive stream with a restart interval (fault
-    # C3), which goes to PIL, as decode_image sends it; libjpeg decodes it
+    # C3) and an arithmetic-coded one (SOF9), which go to PIL, as
+    # decode_image sends them; libjpeg decodes both
     refused = (native.jpeg_backend() == "nvjpeg"
-               and name.startswith("progressive_restart_"))
+               and name.startswith(("progressive_restart_", "arith_")))
     assert (got is None) == refused, name
     routed = not refused
     if refused:
@@ -1275,6 +1277,59 @@ def test_progressive_streams_with_restarts_are_refused_to_pil(cuda_device):
                     diff = np.abs(out.astype(np.int16) - pil.astype(np.int16))
                     assert diff.max() <= 3 and diff.mean() <= 0.2, (
                         hw, kind, ss, diff.max(), diff.mean())
+
+
+@pytest.mark.cuda
+def test_frames_other_than_8_bit_huffman_dct_are_refused(cuda_device):
+    """The nvJPEG route takes only SOF0, SOF1 and SOF2 frames of 8-bit
+    precision.  A committed baseline fixture with its SOF marker
+    rewritten to a lossless, hierarchical or arithmetic-coded frame, or
+    its precision byte to 12, is refused (None) and never raises
+    `DecoderError`, and `safe_read` hands it to PIL; rewritten to SOF1
+    (extended sequential, the same Huffman data) it decodes to the
+    baseline's pixels.  A real arithmetic-coded stream (the committed
+    SOF9 fixture) is refused too, and decode_image gives PIL's pixels,
+    within PIL's odd-size limits of the libjpeg digest."""
+    from mmlspark_tpu_torch import native
+    from mmlspark_tpu_torch.io.image import (decode_image,
+                                             image_row_to_array, safe_read)
+
+    assert native.jpeg_available(), native.build_error()
+    nvjpeg = native.jpeg_backend() == "nvjpeg"
+    with open(os.path.join(JPEG_FIXTURES, "bench_1_224x224.jpg"), "rb") as f:
+        blob = f.read()
+    sof = blob.find(b"\xff\xc0")
+    assert sof > 0 and blob[sof + 4] == 8
+    base = native.decode_jpeg_bgr(blob)
+    for marker in (0xC1, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD,
+                   0xCE, 0xCF):
+        bad = bytearray(blob)
+        bad[sof + 1] = marker
+        got = native.decode_jpeg_bgr(bytes(bad))  # DecoderError fails it
+        if marker == 0xC1:  # kept (nvJPEG may still refuse it itself)
+            if got is not None:
+                np.testing.assert_array_equal(got, base)
+        elif nvjpeg:
+            assert got is None, hex(marker)
+        safe_read(bytes(bad))  # PIL's pixels or None, never DecoderError
+    for precision in (12, 16):
+        bad = bytearray(blob)
+        bad[sof + 4] = precision
+        if nvjpeg:
+            assert native.decode_jpeg_bgr(bytes(bad)) is None, precision
+        safe_read(bytes(bad))
+    with open(os.path.join(JPEG_FIXTURES, "arith_224x224.jpg"), "rb") as f:
+        arith = f.read()
+    assert arith.find(b"\xff\xc9") > 0
+    if nvjpeg:
+        assert native.decode_jpeg_bgr(arith) is None
+        assert native.decode_jpeg_planes(arith) is None
+    want = _jpeg_digests()["fixtures"]["arith_224x224.jpg"]
+    got = image_row_to_array(decode_image(arith))
+    assert list(got.shape) == want["shape"]
+    assert np.abs(got.reshape(-1, 3).sum(0, np.int64)
+                  - np.array(want["channel_sums"])).max() / got[..., 0].size \
+        <= NVJPEG_CHANNEL_MEAN
 
 
 def _cuda_train_state(cuda_device, opt):

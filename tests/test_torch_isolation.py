@@ -126,3 +126,17 @@ def test_the_scan_covers_the_persistence_and_int8_slice():
               "mmlspark_tpu_torch.models.bundle",
               "mmlspark_tpu_torch.ops.quant"):
         assert m in mods, m
+
+
+def test_the_scan_covers_the_moe_speculative_and_distillation_slice():
+    """... and so are the MoE blocks', beam search's, speculative
+    decoding's (generate and the batcher) and distillation's."""
+    mods = set(_modules())
+    for m in ("mmlspark_tpu_torch.models.transformer",
+              "mmlspark_tpu_torch.models.vit",
+              "mmlspark_tpu_torch.models.bundle",
+              "mmlspark_tpu_torch.models.training",
+              "mmlspark_tpu_torch.models.generation",
+              "mmlspark_tpu_torch.serving.batcher",
+              "mmlspark_tpu_torch.serving.dsl"):
+        assert m in mods, m

@@ -125,10 +125,36 @@ def test_prequantize_without_quant_layers_is_descriptive():
 
 
 def test_unported_quant_neighbours_still_raise():
-    with pytest.raises(NotImplementedError, match="A14 item 4"):
-        PT.transformer_lm(quant=True, moe_experts=2, **LM)
-    with pytest.raises(NotImplementedError, match="A14 item 4"):
-        PV.VisionTransformer(quant=True, moe_experts=2, image_size=HW)
+    """int8 with MoE blocks, which raised NotImplementedError until the
+    MoE was ported, builds and runs as the JAX package's: qkv, proj and
+    the head are int8, the router and the experts stay float, and the
+    LM's logits and greedy tokens are the JAX package's within one
+    rounding level (the module docstring's bound)."""
+    kw = dict(LM, quant=True, moe_experts=2, moe_capacity=4.0)
+    tokens = np.random.default_rng(11).integers(
+        0, LM["vocab_size"], (2, 12)).astype(np.int32)
+    model = JT.transformer_lm(dtype=jnp.float32, **kw)
+    variables = random_transformer_params(model, jnp.asarray(tokens), seed=12)
+    bundle = from_flax_variables("transformer_lm", variables, kw,
+                                 input_shape=(12,), dtype="float32")
+    block = bundle.module(torch.device("cpu")).blocks[0]
+    assert isinstance(block.qkv, Q.QuantLinear)
+    assert not isinstance(block.moe.router, Q.QuantLinear)
+    Q.INT8_GEMMS = 0
+    got = _port_taps(bundle, tokens)
+    assert Q.INT8_GEMMS == 2 * LM["num_layers"] + 1  # qkv, proj; the head
+    _lg, ref = model.apply(variables, jnp.asarray(tokens))
+    _within_one_level(got["logits"], ref["logits"], "logits")
+    want = np.asarray(JG.generate(model, variables, jnp.asarray(tokens), 6))
+    np.testing.assert_array_equal(
+        G.generate(bundle, tokens, 6, device="cpu").numpy(), want)
+    vit = PV.VisionTransformer(quant=True, moe_experts=2, image_size=HW,
+                               patch_size=8, embed_dim=64, num_layers=1,
+                               num_heads=2)
+    assert isinstance(vit.blocks[0].qkv, Q.QuantLinear)
+    with torch.no_grad():
+        logits, _taps = vit(torch.zeros(1, HW, HW, 3))
+    assert logits.shape == (1, 1000) and torch.isfinite(logits).all()
 
 
 # ---------------------------------------------------------------------------

@@ -107,7 +107,20 @@ def test_unported_serving_forms_raise():
                                          registry_url="http://127.0.0.1:1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DistributedServingServer(model=None, reply_col="y")
+    # speculative generate_stream, which raised until the speculative
+    # batcher was ported, starts and answers with generate()'s tokens
+    # (tests/test_torch_speculative.py holds it against the JAX package
+    # over pools and co-tenants)
     query = (read_stream().continuous_server(name="spec", path="/s")
-             .generate_stream(_lm()[2], draft_model=object(), device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        query.start()
+             .parse_request(schema=["prompt"])
+             .generate_stream(_lm()[2], draft_model=_lm()[2], gamma=2,
+                              max_new_tokens=N, device="cpu")
+             .start())
+    try:
+        assert query._batcher.draft is not None and query._batcher.gamma == 2
+        results = _post_all(query.service_info, "/s",
+                            [{"prompt": PROMPTS[0]}])
+    finally:
+        query.stop()
+    assert results[0][0] == 200
+    assert [int(t) for t in results[0][1].split()] == _reference(PROMPTS[0])

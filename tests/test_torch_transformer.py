@@ -192,12 +192,26 @@ def test_bridge_raises_on_leftover_and_missing_leaves(case):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.transformer_lm(moe_experts=2)
+    """The options that raised NotImplementedError until they were ported
+    build and run: MoE blocks (`moe_experts`) and a speculative batcher's
+    draft (tests/test_torch_moe.py and tests/test_torch_speculative.py
+    hold them against the JAX package)."""
+    moe = PT.transformer_lm(vocab_size=8, embed_dim=16, num_layers=1,
+                            num_heads=2, max_len=8, moe_experts=2)
+    with torch.inference_mode():
+        lg, _taps = moe(torch.zeros(1, 3, dtype=torch.int32))
+    assert lg.shape == (1, 3, 8) and hasattr(moe.blocks[0], "moe")
     m = PT.transformer_lm(vocab_size=8, embed_dim=16, num_layers=1,
                           num_heads=2, max_len=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(_bundle_of(m), draft_model=m, device="cpu")
+    batcher = ContinuousBatcher(_bundle_of(m), draft_model=_bundle_of(m),
+                                gamma=2, device="cpu").start()
+    try:
+        toks = batcher.submit([1, 2], max_new_tokens=3).tokens(timeout=60)
+    finally:
+        batcher.stop()
+    ref = G.generate(_bundle_of(m), np.array([[1, 2]], np.int32), 3,
+                     device="cpu")
+    assert toks == ref[0, 2:].tolist()
     # slot decode (per-slot pos) and the int8 cache are ported: they run
     cache = G._prefill_cache(m, torch.zeros(1, 2, dtype=torch.int32))[1]
     with torch.inference_mode():
