@@ -218,6 +218,37 @@ exit, no result line) if anything in it fails:
    GPT-small teacher (batch 8 x 1024, 1 + 4 steps): B4 14, B5/B6 2 a step
    (no teacher backward), losses falling, ms a step; the student as the
    draft of an f32 `speculative_generate` at EXACT_LM.
+14. the fleet above one server (after phase 13; its seconds on a line of
+   their own):
+   (a) phase 7 (a)'s f32 requests through a `FleetGateway` over
+   `read_stream().distributed_server(replicas=2, registry_url=)` found
+   by `sync_registry()`: every stream `generate()`'s (ties aside); then
+   the GPT-small LM of phase 6 (bf16) so, 8 slots, 64-row pages: the
+   card's bytes grown by starting two replicas at most the one-replica
+   query's (one model, one batcher, one set of pools), phase 7 (b)'s 16
+   requests posted concurrently through the gateway, every answer 200
+   with 64 tokens, B4 once a layer an admission prefill forward and B7
+   once a layer a tick, exactly; each stream read as it arrives (more
+   than one read a stream through the two hops); the gateway's ms a
+   request (its span less the replica's child span); tokens/s through
+   the gateway and straight to one replica in turns.
+   (c) `/fleet/metrics.json`'s serving and batcher counters and
+   histograms against each source's own `/metrics.json`, exactly; a
+   client `X-Trace-Id` stitched by `/trace/<id>` into a gateway span
+   over a replica child; `/fleet/alerts`' SLO states.
+   (b) a second query over the same bundle with int8 pools registered as
+   version v2; `RolloutController` (canary weight 0.25) promotes it on
+   `ROLLOUT_METRICS` while clients keep posting, and v1's replicas are
+   drained and retired: every answer 200 with 64 tokens, B8 once a layer
+   a v2 tick and B7 a v1 tick, exactly.
+   (d) the featurizer pipeline of tests/test_serving_model.py (base64
+   JPEG -> ImageFeaturizer(ResNet-50, 224x224) -> reply) behind
+   `DistributedServingServer(replicas=2)` and a gateway, the client a
+   Table of the six bench fixtures repeated to 64 rows through
+   `SimpleHTTPTransformer(concurrency=8)`: features within 2e-2
+   relative L2 of the featurizer run directly on the card, B1 once a
+   fixture size a server batch and C2 once a row, exactly; images/s
+   through the fleet and direct in turns.
 9. record: a `{"kernels": [...]}` JSON line (the eight TPU kernels and
    C2), the nvidia-smi line, and last the `{"ok": true, "device": ...}`
    line.
@@ -367,6 +398,15 @@ MOE_TRAIN_STEPS, MOE_SERVE_REQUESTS, MOE_SERVE_NEW, MOE_EXACT_NEW = 3, 8, 32, 16
 BEAM_NEW, BEAM_K = 16, 4
 SPEC_GAMMA = 4
 DISTILL_LAYERS, DISTILL_BATCH, DISTILL_STEPS = 2, 8, 4
+
+# the fleet (phase 14): two replicas behind a gateway; a canary at a
+# quarter of the traffic, promoted once 6 canary requests are in band;
+# the HTTP client stage's table (the six bench fixtures repeated to 64
+# rows, 8 requests in flight) and its features against the direct run
+FLEET_REPLICAS = 2
+CANARY_WEIGHT, CANARY_MIN = 0.25, 6
+FLEET_ROWS, FLEET_CONCURRENCY = 64, 8
+FLEET_FEATURES_RTOL = 2e-2   # relative L2, bf16 forward on both sides
 
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
@@ -1683,15 +1723,148 @@ def batch_fill_count() -> int:
     return telemetry.histogram("serving.batcher.batch_fill").snapshot()["count"]
 
 
+class StepCounter:
+    """Counts one batcher's decode ticks (its `_step`, called once a tick,
+    each launching the paged kernel once a layer) until `remove()`, and
+    calls `observe()` at each tick before it runs, where one is given."""
+
+    def __init__(self, batcher, observe=None):
+        import threading
+
+        self.batcher, self.real = batcher, batcher._step
+        self.observe = observe
+        self.ticks = 0
+        self.lock = threading.Lock()
+        batcher._step = self
+
+    def __call__(self, tok, pos, table):
+        with self.lock:
+            self.ticks += 1
+            if self.observe is not None:
+                self.observe()
+        return self.real(tok, pos, table)
+
+    def remove(self):
+        self.batcher._step = self.real
+
+
+class PrefillCounter:
+    """Records every batcher's admission prefill forwards (`_prefill_kv`,
+    each launching B4 once a layer) until `remove()`: each forward's
+    module and token shape, its tokens and logits handed to `observe`
+    where one is given."""
+
+    def __init__(self, observe=None):
+        import threading
+
+        from mmlspark_tpu_torch.serving import batcher as SB
+
+        self.SB, self.real = SB, SB._prefill_kv
+        self.observe = observe
+        self.calls = []   # (module, token shape) a forward
+        self.lock = threading.Lock()
+        SB._prefill_kv = self
+
+    @property
+    def forwards(self) -> int:
+        return len(self.calls)
+
+    @property
+    def shapes(self) -> list:
+        return [shape for _m, shape in self.calls]
+
+    def of(self, module) -> int:
+        """The forwards of `module` alone."""
+        return sum(m is module for m, _s in self.calls)
+
+    def __call__(self, module, toks, kv_cache_dtype=None):
+        logits, kv = self.real(module, toks, kv_cache_dtype)
+        with self.lock:
+            self.calls.append((module, tuple(toks.shape)))
+            if self.observe is not None:
+                self.observe(module, toks, logits)
+        return logits, kv
+
+    def remove(self):
+        self.SB._prefill_kv = self.real
+
+
+def post_streams(host, port, path, bodies, concurrency, trace_ids=None):
+    """POST every JSON body from `concurrency` client threads, one
+    connection a request, reading each reply as it arrives (`read1`):
+    [{"status", "body", "chunks", "first_s", "total_s"}] in body order.
+    Fails the run on a hung or failed client or an unanswered request
+    (through `fail`'s SystemExit: a caller's thread must pass it on)."""
+    import http.client
+    import threading
+
+    results = [None] * len(bodies)
+    errors = []
+
+    def client(c):
+        try:
+            for i in range(c, len(bodies), concurrency):
+                conn = http.client.HTTPConnection(host, port,
+                                                  timeout=STREAM_WAIT_S)
+                headers = {"Content-Type": "application/json"}
+                if trace_ids is not None:
+                    headers["X-Trace-Id"] = trace_ids[i]
+                t0 = time.perf_counter()
+                conn.request("POST", path, body=json.dumps(
+                    bodies[i]).encode(), headers=headers)
+                resp = conn.getresponse()
+                parts, first = [], None
+                while True:
+                    part = resp.read1(1 << 16)
+                    if not part:
+                        break
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    parts.append(part)
+                results[i] = {"status": resp.status,
+                              "body": b"".join(parts).decode(),
+                              "chunks": len(parts), "first_s": first,
+                              "total_s": time.perf_counter() - t0}
+                conn.close()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(concurrency)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=STREAM_WAIT_S)
+    lost = [i for i, r in enumerate(results) if r is None]
+    if any(t.is_alive() for t in threads) or errors or lost:
+        fail(f"HTTP clients failed or hung: {errors[:3]}; requests "
+             f"{lost[:8]} of {len(bodies)} got no answer")
+    return results
+
+
+def stream_tokens(label, results, n_new, vocab):
+    """The token lists of `post_streams` results; fails the run on a
+    non-200 answer, a stream of another length or a token outside the
+    vocabulary."""
+    bad = [(i, r["status"], r["body"][:120]) for i, r in enumerate(results)
+           if r["status"] != 200]
+    if bad:
+        fail(f"{label}: {len(bad)} answers were not 200: {bad[:3]}")
+    toks = [[int(t) for t in r["body"].split()] for r in results]
+    if any(len(t) != n_new for t in toks) or \
+            min(min(t) for t in toks) < 0 or \
+            max(max(t) for t in toks) >= vocab:
+        fail(f"{label}: stream lengths {[len(t) for t in toks]} (want "
+             f"{n_new}) or tokens outside the vocabulary")
+    return toks
+
+
 def serve_exactness(card):
     """Phase 7a: f32 paged serving at GPT-small width (2 layers), plain
     and int8 pools, with a shared prefix, and over HTTP: every stream
     equals `generate()` on the card.  Returns the requests (prompts, the
     prefix, its suffixes) and their f32 `generate()` references, which
     phase 13 (c) serves again speculatively."""
-    import threading
-    import http.client
-
     import numpy as np
     import torch
     from mmlspark_tpu_torch.models import generation as G
@@ -1756,39 +1929,16 @@ def serve_exactness(card):
                               page_size=PAGE)
              .options(batch_timeout_ms=5.0)
              .start())
-    results = [None] * len(full)
-    errors = []
-
-    def client(c):
-        try:
-            conn = http.client.HTTPConnection(
-                query.service_info.host, query.service_info.port,
-                timeout=STREAM_WAIT_S)
-            for i in range(c, len(full), 4):
-                conn.request("POST", "/lm", body=json.dumps(
-                    {"prompt": full[i].tolist()}).encode())
-                resp = conn.getresponse()
-                body = resp.read().decode()
-                if resp.status != 200:
-                    raise RuntimeError(f"HTTP {resp.status}: {body[:200]}")
-                results[i] = [int(t) for t in body.split()]
-            conn.close()
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors.append(repr(e))
-
     try:
-        threads = [threading.Thread(target=client, args=(c,), daemon=True)
-                   for c in range(4)]
+        si = query.service_info
         t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=STREAM_WAIT_S)
+        answers = post_streams(si.host, si.port, "/lm",
+                               [{"prompt": p.tolist()} for p in full], 4)
         wall = time.perf_counter() - t0
-        if any(t.is_alive() for t in threads) or errors:
-            fail(f"HTTP clients failed or hung: {errors}")
     finally:
         query.stop()
+    results = stream_tokens("HTTP f32 paged serving", answers, EXACT_NEW,
+                            vocab)
     log(f"[serve] HTTP: {len(full)} requests from 4 concurrent clients "
         f"through read_stream().continuous_server().generate_stream("
         f"paged=True) in {wall:.3f} s")
@@ -1831,18 +1981,7 @@ def serving_path(A, PA, card):
         # spies for the counted run: prefill forwards (with each row's
         # argmax), one tick's live attention inputs, pages in use per tick
         prefills, captured, pages_used, flash_checks = [], {}, [], []
-        real_prefill, real_step = SB._prefill_kv, batcher._step
         real_kernel, real_flash = getattr(PA, key), A.flash_attention_fwd
-
-        def prefill_spy(module_, toks, kv_cache_dtype=None):
-            logits, kv = real_prefill(module_, toks, kv_cache_dtype)
-            prefills.append((toks.cpu().numpy(),
-                             logits.argmax(-1).cpu().numpy()))
-            return logits, kv
-
-        def step_spy(tok, pos, table):
-            pages_used.append(batcher._np - 1 - len(batcher._free))
-            return real_step(tok, pos, table)
 
         def kernel_spy(q, *rest):
             # layer 0 of the 40th tick: slots are full and recycled
@@ -1859,7 +1998,15 @@ def serving_path(A, PA, card):
                                  float((lse - ref_lse).abs().max())))
             return out, lse
 
-        SB._prefill_kv, batcher._step = prefill_spy, step_spy
+        def record_pages():
+            pages_used.append(batcher._np - 1 - len(batcher._free))
+
+        def record_argmax(_module, toks, logits):
+            prefills.append((toks.cpu().numpy(),
+                             logits.argmax(-1).cpu().numpy()))
+
+        steps = StepCounter(batcher, record_pages)
+        prefill = PrefillCounter(record_argmax)
         setattr(PA, key, kernel_spy)
         A.flash_attention_fwd = flash_spy
         try:
@@ -1871,8 +2018,8 @@ def serving_path(A, PA, card):
             first_s = time.perf_counter() - t0
             launches, ticks = read_launches(), batch_fill_count() - ticks0
         finally:
-            SB._prefill_kv = real_prefill
-            batcher._step = real_step
+            prefill.remove()
+            steps.remove()
             setattr(PA, key, real_kernel)
             A.flash_attention_fwd = real_flash
         want = dict(NO_LAUNCHES, flash_attention_fwd=layers * len(prefills))
@@ -3198,14 +3345,7 @@ def int8_lm_path(card):
                for n in lens]
     batcher = SB.ContinuousBatcher(qbundle, max_slots=SERVE_SLOTS,
                                    paged=True, page_size=PAGE).start()
-    prefills = []
-    real_prefill = SB._prefill_kv
-
-    def prefill_spy(module_, toks, kv_cache_dtype=None):
-        prefills.append(tuple(toks.shape))
-        return real_prefill(module_, toks, kv_cache_dtype)
-
-    SB._prefill_kv = prefill_spy
+    prefill = PrefillCounter()
     try:
         zero_launches()
         Q.INT8_GEMMS = 0
@@ -3217,23 +3357,24 @@ def int8_lm_path(card):
         launches, gemms = read_launches(), Q.INT8_GEMMS
         ticks = batch_fill_count() - ticks0
     finally:
-        SB._prefill_kv = real_prefill
+        prefill.remove()
         batcher.stop()
-    want = dict(NO_LAUNCHES, flash_attention_fwd=layers * len(prefills),
+    want = dict(NO_LAUNCHES, flash_attention_fwd=layers * prefill.forwards,
                 paged_decode_attention=layers * ticks)
     log(f"[int8-lm] paged ContinuousBatcher ({SERVE_SLOTS} slots, page "
         f"{PAGE}) on the prequantized bundle: {INT8_SERVE_REQUESTS} requests "
         f"(prompts {lens.min()}..{lens.max()}), {INT8_SERVE_NEW} new tokens "
         f"each in {wall:.3f} s = {INT8_SERVE_REQUESTS * INT8_SERVE_NEW / wall:.0f}"
-        f" tokens/s; {ticks} ticks, admission prefills {prefills}; launches "
+        f" tokens/s; {ticks} ticks, admission prefills {prefill.shapes}; "
+        f"launches "
         f"{launches}, int8 GEMMs {gemms} on {card}")
     if launches != want or ticks == 0:
         fail(f"the int8 batcher launched {launches}, expected {want} (B7 "
              f"once a layer a tick, B4 once a layer an admission prefill)")
-    if gemms != per_forward * (ticks + len(prefills)):
+    if gemms != per_forward * (ticks + prefill.forwards):
         fail(f"the int8 batcher ran {gemms} int8 GEMMs, expected "
              f"{per_forward} a forward over {ticks} ticks and "
-             f"{len(prefills)} prefills")
+             f"{prefill.forwards} prefills")
     if any(len(t) != INT8_SERVE_NEW for t in got) or \
             min(min(t) for t in got) < 0 or \
             max(max(t) for t in got) >= LM["vocab_size"]:
@@ -3438,14 +3579,7 @@ def moe_decode_path(bundle, card):
                for n in lens]
     batcher = SB.ContinuousBatcher(bundle, max_slots=SERVE_SLOTS,
                                    paged=True, page_size=PAGE).start()
-    prefills = []
-    real_prefill = SB._prefill_kv
-
-    def prefill_spy(module_, toks_, kv_cache_dtype=None):
-        prefills.append(tuple(toks_.shape))
-        return real_prefill(module_, toks_, kv_cache_dtype)
-
-    SB._prefill_kv = prefill_spy
+    prefill = PrefillCounter()
     try:
         zero_launches()
         ticks0 = batch_fill_count()
@@ -3455,15 +3589,16 @@ def moe_decode_path(bundle, card):
         wall = time.perf_counter() - t0
         launches, ticks = read_launches(), batch_fill_count() - ticks0
     finally:
-        SB._prefill_kv = real_prefill
+        prefill.remove()
         batcher.stop()
-    want = dict(NO_LAUNCHES, flash_attention_fwd=layers * len(prefills),
+    want = dict(NO_LAUNCHES, flash_attention_fwd=layers * prefill.forwards,
                 paged_decode_attention=layers * ticks)
     log(f"[moe] paged ContinuousBatcher ({SERVE_SLOTS} slots) on the MoE "
         f"GPT-small: {MOE_SERVE_REQUESTS} requests (prompts {lens.min()}.."
         f"{lens.max()}), {MOE_SERVE_NEW} new each in {wall:.3f} s = "
         f"{MOE_SERVE_REQUESTS * MOE_SERVE_NEW / wall:.0f} tokens/s, {ticks} "
-        f"ticks, prefills {prefills}; launches {launches} on {card}")
+        f"ticks, prefills {prefill.shapes}; launches {launches} on "
+        f"{card}")
     if launches != want or ticks == 0:
         fail(f"the MoE batcher launched {launches}, expected {want} (B7 "
              "once a layer a tick, B4 once a layer an admission prefill)")
@@ -3691,15 +3826,8 @@ def speculative_path(requests, card):
                                    gamma=SPEC_GAMMA)
     handle = batcher.register_prefix(prefix)
     batcher.start()
-    prefills = {"target": 0, "draft": 0}
-    real_prefill = SB._prefill_kv
-
-    def prefill_spy(module_, toks_, kv_cache_dtype=None):
-        prefills["draft" if module_ is batcher.draft else "target"] += 1
-        return real_prefill(module_, toks_, kv_cache_dtype)
-
     counter = TickCounter(batcher)
-    SB._prefill_kv = prefill_spy
+    prefill = PrefillCounter()
     try:
         zero_launches()
         t0 = time.perf_counter()
@@ -3711,8 +3839,10 @@ def speculative_path(requests, card):
         ticks, verifies, emitted = counter.read()
         launches = read_launches()
     finally:
-        SB._prefill_kv = real_prefill
+        prefill.remove()
         batcher.stop()
+    prefills = {"target": prefill.forwards - prefill.of(batcher.draft),
+                "draft": prefill.of(batcher.draft)}
     want = dict(NO_LAUNCHES, flash_attention_fwd=EXACT_LM["num_layers"]
                 * prefills["target"] + prefills["draft"])
     log(f"[spec] f32 paged speculative batcher ({EXACT_SLOTS} slots, gamma "
@@ -3747,20 +3877,17 @@ def speculative_path(requests, card):
                                 gamma=SPEC_GAMMA).start()
     plain = SB.ContinuousBatcher(base, max_slots=SERVE_SLOTS, paged=True,
                                  page_size=PAGE).start()
+    prefill = None
     try:
-        tprefills, dprefills = [], []
+        tprefills = []
 
-        def prefill_spy2(module_, toks_, kv_cache_dtype=None):
-            logits, kv = real_prefill(module_, toks_, kv_cache_dtype)
-            if module_ is spec.draft:
-                dprefills.append(tuple(toks_.shape))
-            else:
+        def record_target(module_, toks_, logits):
+            if module_ is not spec.draft:
                 tprefills.append((toks_.cpu().numpy(),
                                   logits.argmax(-1).cpu().numpy()))
-            return logits, kv
 
         counter = TickCounter(spec)
-        SB._prefill_kv = prefill_spy2
+        prefill = PrefillCounter(record_target)
         try:
             zero_launches()
             t0 = time.perf_counter()
@@ -3770,14 +3897,15 @@ def speculative_path(requests, card):
             ticks, verifies, emitted = counter.read()
             launches = read_launches()
         finally:
-            SB._prefill_kv = real_prefill
+            prefill.remove()
+        drafts = prefill.of(spec.draft)
         want = dict(NO_LAUNCHES, flash_attention_fwd=layers
-                    * (len(tprefills) + len(dprefills)))
+                    * (len(tprefills) + drafts))
         log(f"[spec] serving (8_streams_spec: bf16 GPT-small, int8 "
             f"prequantized self-draft, gamma {SPEC_GAMMA}, {SERVE_SLOTS} "
             f"slots, paged): {SERVE_REQUESTS} requests, {SERVE_NEW} new "
             f"each, first round {first_s:.3f} s, {ticks} ticks, "
-            f"{len(tprefills)} target and {len(dprefills)} draft admission "
+            f"{len(tprefills)} target and {drafts} draft admission "
             f"prefills; launches {launches}")
         if launches != want:
             fail(f"speculative serving launched {launches}, expected {want}")
@@ -3834,7 +3962,8 @@ def speculative_path(requests, card):
             f"clock, admission prefills included; the plain warm-up "
             f"{first_plain[0]:.3f} s, {first_plain[1]} ticks) on {card}")
     finally:
-        SB._prefill_kv = real_prefill
+        if prefill is not None:
+            prefill.remove()
         spec.stop()
         plain.stop()
     G._MODULES.clear()
@@ -3904,6 +4033,548 @@ def distill_path(card):
     spec_exactness(target, student, "f32 speculative_generate, the distilled "
                    "student as the draft", prompt, EXACT_NEW)
     G._MODULES.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def start_lm_fleet(bundle, name, replicas, registry_url, n_new, slots,
+                   kv_cache_dtype=None):
+    """`read_stream().distributed_server(replicas=, registry_url=)` over
+    `bundle` with a paged `generate_stream` (64-row pages), on the card."""
+    from mmlspark_tpu_torch.serving import read_stream
+
+    query = (read_stream()
+             .distributed_server(name=name, path="/lm", replicas=replicas,
+                                 registry_url=registry_url)
+             .parse_request(schema=["prompt"])
+             .generate_stream(bundle, max_new_tokens=n_new, max_slots=slots,
+                              paged=True, page_size=PAGE,
+                              kv_cache_dtype=kv_cache_dtype)
+             .options(batch_timeout_ms=5.0)
+             .start())
+    if query._batcher.device.type != "cuda":
+        fail(f"fleet {name}: the batcher serves from "
+             f"{query._batcher.device}, not the card")
+    return query
+
+
+def fleet_exactness(exact_requests, card):
+    """Phase 14 (a), exactness: phase 7 (a)'s requests (f32, GPT-small
+    width, 2 layers) through a gateway over `distributed_server(replicas=
+    2)`: every stream equals `generate()` on the card (ties aside), the
+    paged kernel once a layer a tick and B4 once a layer an admission
+    prefill forward.  Returns {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+    from mmlspark_tpu_torch.models.bundle import TorchBundle
+    from mmlspark_tpu_torch.serving import FleetGateway, ServiceRegistry
+
+    prompts, prefix, suffixes, refs = exact_requests
+    full = prompts + [np.concatenate([prefix, sfx]) for sfx in suffixes]
+    bundle = TorchBundle("transformer_lm", EXACT_LM, input_shape=(16,),
+                         dtype="float32", seed=0)
+    module = G._module_for(bundle, torch.device("cuda"))
+    reg = ServiceRegistry()
+    url = reg.start()
+    query = gw = prefills = None
+    try:
+        query = start_lm_fleet(bundle, "fleet-exact", FLEET_REPLICAS, url,
+                               EXACT_NEW, EXACT_SLOTS)
+        gw = FleetGateway(name="fleet-exact", registry_url=url,
+                          probe_interval_s=5.0)
+        gw.start()
+        if len(gw.replicas()) != FLEET_REPLICAS:
+            fail(f"the gateway found {len(gw.replicas())} replicas in the "
+                 f"registry, expected {FLEET_REPLICAS}")
+        ticks = StepCounter(query._batcher)
+        prefills = PrefillCounter()
+        zero_launches()
+        gi = gw.service_info
+        results = post_streams(gi.host, gi.port, gi.path,
+                               [{"prompt": p.tolist()} for p in full], 4)
+        launches = read_launches()
+    finally:
+        if prefills is not None:
+            prefills.remove()
+        if gw is not None:
+            gw.stop()
+        if query is not None:
+            query.stop()
+        reg.stop()
+    layers = EXACT_LM["num_layers"]
+    want = dict(NO_LAUNCHES, flash_attention_fwd=layers * prefills.forwards,
+                paged_decode_attention=layers * ticks.ticks)
+    log(f"[fleet] f32 exactness: {len(full)} requests through a gateway "
+        f"over {FLEET_REPLICAS} replicas: {ticks.ticks} ticks, "
+        f"{prefills.forwards} admission prefill forwards, launches "
+        f"{launches}")
+    if launches != want or ticks.ticks == 0:
+        fail(f"fleet f32 exactness: launches {launches}, expected {want}")
+    got = stream_tokens("fleet f32 exactness", results, EXACT_NEW,
+                        EXACT_LM["vocab_size"])
+    compare_streams("fleet f32 paged serving through the gateway", module,
+                    full, got, refs, None)
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _fleet_memory(bundle, url):
+    """(the two-replica query, the card's bytes grown by starting the
+    one-replica query, by starting the two-replica one): each from a
+    cleared model cache, so each holds one model and its pools."""
+    import gc
+
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+
+    def grown(replicas, registry_url):
+        G._MODULES.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        query = start_lm_fleet(bundle, "fleet-lm", replicas, registry_url,
+                               SERVE_NEW, SERVE_SLOTS)
+        torch.cuda.synchronize()
+        return query, torch.cuda.memory_allocated() - before
+
+    one, grown_one = grown(1, None)
+    one.stop()
+    del one
+    two, grown_two = grown(FLEET_REPLICAS, url)
+    return two, grown_one, grown_two
+
+
+def fleet_gateway_share(trace_ids):
+    """ms the gateway added to each request: its `serving.fleet.request`
+    span less the replica's `serving.request` child span."""
+    from mmlspark_tpu_torch.core import telemetry
+
+    out = []
+    for tid in trace_ids:
+        spans = telemetry.get_trace(tid)
+        gw = [s for s in spans if s["name"] == "serving.fleet.request"]
+        rep = [s for s in spans if s["name"] == "serving.request"]
+        if len(gw) != 1 or len(rep) != 1 or \
+                rep[0]["parent_id"] != gw[0]["span_id"]:
+            fail(f"trace {tid}: spans {[s['name'] for s in spans]} are not "
+                 f"one gateway span over one replica span")
+        out.append((gw[0]["wall_s"] - rep[0]["wall_s"]) * 1e3)
+    return out
+
+
+def fleet_telemetry_check(gw, query):
+    """Phase 14 (c): `/fleet/metrics.json` against every replica's own
+    `/metrics.json` and the gateway's own snapshot (no traffic between),
+    a client trace id stitched by `/trace/<id>`, and `/fleet/alerts`."""
+    import uuid
+
+    from mmlspark_tpu_torch.core import telemetry
+    from mmlspark_tpu_torch.io.http.clients import send_request
+    from mmlspark_tpu_torch.io.http.schema import HTTPRequestData
+
+    def get(host, port, path):
+        resp = send_request(HTTPRequestData(
+            url=f"http://{host}:{port}{path}", method="GET"), timeout=30.0)
+        if resp.status_code != 200:
+            fail(f"GET {path} answered {resp.status_code}")
+        return resp.json()
+
+    gi = gw.service_info
+    tid = f"fleet-{uuid.uuid4().hex}"
+    res = post_streams(gi.host, gi.port, gi.path, [{"prompt": [1, 2, 3]}],
+                       1, trace_ids=[tid])
+    stream_tokens("fleet trace request", res, SERVE_NEW, LM["vocab_size"])
+    time.sleep(1.0)   # older than the plane's 0.5 s cache: a fresh pull
+    own = {f"{i.host}:{i.port}": get(i.host, i.port, "/metrics.json")
+           for i in query.service_infos}
+    own["gateway"] = telemetry.export_snapshot(include_spans=False)
+    merged = get(gi.host, gi.port, "/fleet/metrics.json")
+    if sorted(merged["meta"]["sources"]) != sorted(own) or \
+            merged["meta"]["failed"]:
+        fail(f"/fleet/metrics.json sources {merged['meta']['sources']} "
+             f"(failed {merged['meta']['failed']}), expected {sorted(own)}")
+    prefixes = ("serving.", "flow.")
+    names = sorted({k for snap in own.values() for k in snap["counters"]
+                    if k.startswith(prefixes)
+                    and not k.startswith("serving.fleet")})
+    for k in names:
+        want = sum(int(s["counters"].get(k, 0)) for s in own.values())
+        if merged["counters"].get(k) != want:
+            fail(f"/fleet/metrics.json counter {k} = "
+                 f"{merged['counters'].get(k)}, the replicas' own sum {want}")
+    hists = sorted({k for snap in own.values() for k in snap["histograms"]
+                    if k.startswith(("serving.request", "serving.batcher",
+                                     "flow."))})
+    for k in hists:
+        parts = [s["histograms"][k] for s in own.values()
+                 if k in s["histograms"]]
+        m = merged["histograms"][k]
+        if m["count"] != sum(p["count"] for p in parts) or any(
+                cum != sum(int(p["buckets"][i][1]) for p in parts)
+                for i, (_le, cum) in enumerate(m["buckets"])):
+            fail(f"/fleet/metrics.json histogram {k} is not the exact sum "
+                 f"of the replicas' own")
+    if not any(k.startswith("serving.batcher.batch_fill") for k in hists):
+        fail(f"no batcher histogram among the merged series: {hists}")
+    log(f"[fleet] /fleet/metrics.json over {len(own)} sources (one process, "
+        f"so one registry's copies): {len(names)} flow counters {names} and "
+        f"{len(hists)} histograms equal the exact sums of each source's own "
+        f"snapshot")
+    doc = get(gi.host, gi.port, f"/trace/{tid}")
+    tree = doc.get("tree") or []
+    if len(tree) != 1 or tree[0]["name"] != "serving.fleet.request" or \
+            "serving.request" not in {c["name"] for c in tree[0]["children"]}:
+        fail(f"/trace/{tid} is not one gateway span over a replica child: "
+             f"{[(n['name'], [c['name'] for c in n['children']]) for n in tree]}")
+    alerts = get(gi.host, gi.port, "/fleet/alerts")["alerts"]
+    states = {a["slo"]: a["state"] for a in alerts}
+    if set(states) != {"availability", "latency_p99", "deadline_miss"}:
+        fail(f"/fleet/alerts: {states}")
+    log(f"[fleet] /trace/<id>: a gateway span over a replica child "
+        f"({doc['span_count']} spans from sources {doc['sources']}); "
+        f"/fleet/alerts: {states}")
+
+
+def fleet_rollout(gw, v1, bundle, url):
+    """Phase 14 (b): a second query over the same bundle with int8 pools
+    (B8), registered as version v2; a `RolloutController` canary that
+    promotes on `ROLLOUT_METRICS`, then v1's replicas drained and retired
+    while clients keep posting.  Returns {kernel: launches}."""
+    import threading
+
+    import numpy as np
+    from mmlspark_tpu_torch.serving import (RolloutController, ServiceInfo,
+                                            register_service)
+
+    v2 = start_lm_fleet(bundle, "fleet-lm-v2", 1, None, SERVE_NEW,
+                        SERVE_SLOTS, kv_cache_dtype="int8")
+    prefills = None
+    try:
+        i2 = v2.service_info
+        register_service(url, ServiceInfo("fleet-lm", i2.host, i2.port,
+                                          i2.path, version="v2"))
+        gw.sync_registry()
+        versions = sorted(r.version for r in gw.replicas())
+        if versions != ["v1"] * FLEET_REPLICAS + ["v2"]:
+            fail(f"gateway versions after the v2 registration: {versions}")
+        ctl = RolloutController(gw, canary_weight=CANARY_WEIGHT,
+                                min_requests=CANARY_MIN)
+        ctl.begin("v2")
+        t1, t2 = StepCounter(v1._batcher), StepCounter(v2._batcher)
+        prefills = PrefillCounter()
+        zero_launches()
+        gi = gw.service_info
+        rng = np.random.default_rng(3)
+        results, posted, errors = [], [], []
+        stop = threading.Event()
+
+        def traffic():
+            # post_streams fails through SystemExit, which would end this
+            # thread quietly: every exit is kept for the main thread
+            try:
+                while not stop.is_set():
+                    bodies = [{"prompt": rng.integers(
+                        0, LM["vocab_size"], n).tolist()}
+                        for n in rng.integers(16, 400, 4)]
+                    posted.extend(bodies)
+                    results.extend(post_streams(gi.host, gi.port, gi.path,
+                                                bodies, 4))
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        feeder = threading.Thread(target=traffic, daemon=True)
+        t0 = time.perf_counter()
+        feeder.start()
+        while ctl.state == "canary" and time.perf_counter() - t0 < 120.0:
+            time.sleep(0.5)
+            ctl.step()
+        promoted_s = time.perf_counter() - t0
+        time.sleep(2.0)       # clients keep posting to the promoted pool
+        stop.set()
+        feeder.join(timeout=STREAM_WAIT_S)
+        if feeder.is_alive() or errors or len(results) != len(posted):
+            fail(f"rollout clients hung or failed ({errors}): "
+                 f"{len(results)} answers to {len(posted)} requests posted")
+        launches = read_launches()
+    finally:
+        if prefills is not None:
+            prefills.remove()
+    if ctl.state != "promoted":
+        fail(f"the canary did not promote: state {ctl.state}, verdict "
+             f"{ctl.last_verdict}, rows {ctl.last_rows}")
+    toks = stream_tokens("rollout", results, SERVE_NEW, LM["vocab_size"])
+    versions = sorted(r.version for r in gw.replicas())
+    if versions != ["v2"]:
+        fail(f"after the promotion the pool holds {versions}, expected v2 "
+             f"alone")
+    served = gw.version_stats("v2")["requests"]
+    layers = LM["num_layers"]
+    want = dict(NO_LAUNCHES, flash_attention_fwd=layers * prefills.forwards,
+                paged_decode_attention=layers * t1.ticks,
+                paged_decode_attention_int8=layers * t2.ticks)
+    rows = {r["metric"]: (round(r["base"], 4), round(r["fresh"], 4),
+                          r["regressed"]) for r in ctl.last_rows}
+    log(f"[fleet] rollout: v2 (int8 pools) canary at weight {CANARY_WEIGHT}"
+        f" promoted after {promoted_s:.2f} s on rows {rows}; v1's "
+        f"{FLEET_REPLICAS} replicas drained and retired; {len(toks)} "
+        f"requests during the rollout, every one 200 with {SERVE_NEW} "
+        f"tokens; v2 served {served}; ticks v1 {t1.ticks} v2 {t2.ticks}, "
+        f"{prefills.forwards} admission prefill forwards; launches "
+        f"{launches}")
+    if launches != want or t2.ticks == 0 or served == 0:
+        fail(f"rollout launches {launches}, expected {want} (v2 served "
+             f"{served})")
+    v2.stop()
+    return launches
+
+
+def fleet_lm_path(card):
+    """Phase 14 (a) at full width, then (c) and (b): chip_smoke's
+    GPT-small (bf16) behind `distributed_server(replicas=2,
+    registry_url=)` and a gateway that finds both replicas through
+    `sync_registry()`; phase 7 (b)'s 16 requests posted concurrently
+    through the gateway: every answer 200 with 64 tokens, B4 once a
+    layer an admission prefill forward and B7 once a layer a tick,
+    exactly; each stream read as it arrives; the gateway's share of a
+    request; tokens/s through the gateway and straight to one replica in
+    turns.  Returns [{kernel: launches}, ...] of the counted runs."""
+    import uuid
+
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.models import generation as G
+    from mmlspark_tpu_torch.models.bundle import TorchBundle
+    from mmlspark_tpu_torch.serving import FleetGateway, ServiceRegistry
+
+    layers = LM["num_layers"]
+    bundle = TorchBundle("transformer_lm", LM, input_shape=(16,), seed=0)
+    rng = np.random.default_rng(2)
+    lens = rng.integers(16, 901, SERVE_REQUESTS)
+    bodies = [{"prompt": rng.integers(0, LM["vocab_size"], n).tolist()}
+              for n in lens]
+    reg = ServiceRegistry()
+    url = reg.start()
+    query = gw = prefills = None
+    out = []
+    try:
+        query, grown_one, grown_two = _fleet_memory(bundle, url)
+        log(f"[fleet] the card's memory grown by starting the query: one "
+            f"replica {grown_one / 2**20:.1f} MiB, {FLEET_REPLICAS} replicas "
+            f"{grown_two / 2**20:.1f} MiB (one model, one batcher, one set "
+            f"of pools)")
+        if grown_two > grown_one + (64 << 10):
+            fail(f"{FLEET_REPLICAS} replicas took {grown_two} B of the card "
+                 f"against one replica's {grown_one} B")
+        gw = FleetGateway(name="fleet-lm", registry_url=url,
+                          probe_interval_s=5.0)
+        gw.start()
+        if len(gw.replicas()) != FLEET_REPLICAS:
+            fail(f"the gateway found {len(gw.replicas())} replicas in the "
+                 f"registry, expected {FLEET_REPLICAS}")
+        gi = gw.service_info
+        ticks = StepCounter(query._batcher)
+        prefills = PrefillCounter()
+        tids = [f"fleet-{uuid.uuid4().hex}" for _ in bodies]
+        zero_launches()
+        t0 = time.perf_counter()
+        results = post_streams(gi.host, gi.port, gi.path, bodies,
+                               SERVE_REQUESTS, trace_ids=tids)
+        first_s = time.perf_counter() - t0
+        launches = read_launches()
+        forwards = prefills.forwards
+        prefills.remove()
+        prefills = None
+        want = dict(NO_LAUNCHES, flash_attention_fwd=layers * forwards,
+                    paged_decode_attention=layers * ticks.ticks)
+        log(f"[fleet] {SERVE_REQUESTS} requests (prompts {lens.min()}.."
+            f"{lens.max()}, {SERVE_NEW} new tokens each) through the gateway"
+            f" over {FLEET_REPLICAS} replicas of one batcher, {layers} layers:"
+            f" {first_s:.3f} s, {ticks.ticks} ticks, {forwards} admission "
+            f"prefill forwards, launches {launches}")
+        if launches != want or ticks.ticks == 0:
+            fail(f"fleet serving: launches {launches}, expected {want} (B4 "
+                 f"once a layer an admission prefill forward, B7 once a "
+                 f"layer a tick)")
+        stream_tokens("fleet serving", results, SERVE_NEW, LM["vocab_size"])
+        reads = [r["chunks"] for r in results]
+        first = [r["first_s"] / r["total_s"] for r in results]
+        log(f"[fleet] streams read as they arrive through two hops: "
+            f"{min(reads)}..{max(reads)} reads a stream, the first token "
+            f"after {min(first):.3f}..{max(first):.3f} of its request's time")
+        if min(reads) < 2:
+            fail("a stream reached its client in one piece through the "
+                 "gateway: the relay buffered it")
+        share = sorted(fleet_gateway_share(tids))
+        log(f"[fleet] gateway ms added a request (its span less the "
+            f"replica's child span): min {share[0]:.3f} median "
+            f"{share[len(share) // 2]:.3f} max {share[-1]:.3f} ({card})")
+        r0 = query.service_infos[0]
+        rates = {"gateway": [], "direct": []}
+        for label in ("gateway", "direct", "direct", "gateway"):
+            host, port, path = ((gi.host, gi.port, gi.path)
+                                if label == "gateway"
+                                else (r0.host, r0.port, r0.path))
+            t0 = time.perf_counter()
+            res = post_streams(host, port, path, bodies, SERVE_REQUESTS)
+            wall = time.perf_counter() - t0
+            stream_tokens(f"fleet timing ({label})", res, SERVE_NEW,
+                          LM["vocab_size"])
+            rates[label].append(SERVE_REQUESTS * SERVE_NEW / wall)
+        log(f"[fleet] tokens/s through the gateway "
+            f"{' '.join(f'{r:.1f}' for r in rates['gateway'])} against "
+            f"straight to one replica "
+            f"{' '.join(f'{r:.1f}' for r in rates['direct'])} (16 "
+            f"concurrent requests, in turns; {card})")
+        out.append(launches)
+        fleet_telemetry_check(gw, query)
+        out.append(fleet_rollout(gw, query, bundle, url))
+    finally:
+        if prefills is not None:
+            prefills.remove()
+        if gw is not None:
+            gw.stop()
+        if query is not None:
+            query.stop()
+        reg.stop()
+    G._MODULES.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_featurizer_path(repo, card):
+    """Phase 14 (d), HTTP on tables: the featurizer pipeline of the JAX
+    suite's tests/test_serving_model.py (base64 JPEG -> ImageFeaturizer ->
+    reply) at 224x224 over phase 4's ResNet-50 behind
+    `DistributedServingServer(replicas=2)` and a gateway; the client a
+    Table of the six bench fixtures repeated to 64 rows through
+    `SimpleHTTPTransformer(concurrency=8)`.  Features within 2e-2
+    relative L2 of the same featurizer run directly on the card; B1 once
+    a fixture size a server batch and C2 once a row, exactly; images/s
+    through the fleet and direct in turns.  Returns {kernel: launches}."""
+    import base64
+
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import LambdaTransformer, Pipeline, Table
+    from mmlspark_tpu_torch.io.http import SimpleHTTPTransformer
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.zoo import get_or_create_resnet
+    from mmlspark_tpu_torch.serving import (DistributedServingServer,
+                                            FleetGateway)
+
+    blobs, _digests = jpeg_fixtures()
+    names = [n for n in sorted(blobs) if n.startswith("bench_")]
+    rows = [names[i % len(names)] for i in range(FLEET_ROWS)]
+    size_of = {base64.b64encode(blobs[n]).decode(): n.rsplit("_", 1)[1]
+               for n in names}
+    b64 = [base64.b64encode(blobs[n]).decode() for n in rows]
+    bundle = get_or_create_resnet("resnet50", (IMG, IMG, 3), 1000, repo=repo)
+    featurizer = ImageFeaturizer(bundle=bundle, input_col="image",
+                                 output_col="features", batch_size=BATCH)
+    from mmlspark_tpu_torch.device import resolve_device
+
+    if resolve_device(featurizer.device).type != "cuda":
+        fail(f"the featurizer runs on {resolve_device(featurizer.device)}")
+    batches = []
+
+    def decode(t):
+        col = list(t["image_b64"])
+        batches.append([size_of[v] for v in col])
+        return t.with_column("image", [base64.b64decode(v) for v in col])
+
+    def reply(t):
+        return t.with_column("reply", [list(map(float, row))
+                                       for row in t["features"]])
+
+    model = Pipeline(stages=[LambdaTransformer(fn=decode), featurizer,
+                             LambdaTransformer(fn=reply)]).fit(
+        Table({"image_b64": b64[:1]}))
+    dss = DistributedServingServer(model, reply_col="reply",
+                                   name="fleet-feat", path="/featurize",
+                                   replicas=FLEET_REPLICAS,
+                                   max_batch=FLEET_CONCURRENCY,
+                                   batch_timeout_ms=5.0)
+    gw = None
+    try:
+        dss.start()
+        gw = FleetGateway(name="fleet-feat", registry_url=dss.registry.url,
+                          probe_interval_s=5.0)
+        gw.start()
+        if len(gw.replicas()) != FLEET_REPLICAS:
+            fail(f"the featurizer gateway found {len(gw.replicas())} "
+                 f"replicas")
+        client = SimpleHTTPTransformer(input_cols=["image_b64"], url=gw.url,
+                                       output_col="result",
+                                       concurrency=FLEET_CONCURRENCY,
+                                       timeout=float(STREAM_WAIT_S))
+        table = Table({"image_b64": b64})
+        batches.clear()
+        zero_launches()
+        t0 = time.perf_counter()
+        out = client.transform(table)
+        fleet_s = time.perf_counter() - t0
+        launches = read_launches()
+        errors = [e for e in out["errors"] if e is not None]
+        if errors:
+            fail(f"the featurizer fleet answered {len(errors)} errors: "
+                 f"{errors[:2]}")
+        feats = np.asarray([r["reply"] for r in out["result"]], np.float32)
+        n_batches = len(batches)
+        served = sorted(s for b in batches for s in b)
+        want = dict(NO_LAUNCHES, ycc_to_bgr=FLEET_ROWS,
+                    affine_resample=sum(len(set(b)) for b in batches))
+        log(f"[fleet] SimpleHTTPTransformer(concurrency="
+            f"{FLEET_CONCURRENCY}) over {FLEET_ROWS} JPEG rows through the "
+            f"gateway: {fleet_s:.3f} s, {len(batches)} server batches, "
+            f"launches {launches}")
+        if served != sorted(size_of[v] for v in b64) or launches != want:
+            fail(f"featurizer fleet: launches {launches}, expected {want} "
+                 f"(B1 once a fixture size a server batch, C2 once a row; "
+                 f"{len(served)} rows featurized)")
+        direct = featurizer.transform(Table({"image": [blobs[n]
+                                                       for n in rows]}))
+        direct = np.asarray(direct["features"], np.float32)
+        err = rel_l2(feats, direct)
+        row_err = max(rel_l2(feats[i], direct[i]) for i in range(FLEET_ROWS))
+        log(f"[fleet] features through the fleet vs the featurizer run "
+            f"directly on the card: rel_l2={err:.3e}, worst row "
+            f"{row_err:.3e} (bound {FLEET_FEATURES_RTOL})")
+        if feats.shape != (FLEET_ROWS, 2048) or not np.isfinite(feats).all() \
+                or err > FLEET_FEATURES_RTOL:
+            fail("the featurizer fleet disagrees with the direct run")
+        rates = {"fleet": [], "direct": []}
+        direct_table = Table({"image": [blobs[n] for n in rows]})
+        for label in ("fleet", "direct", "direct", "fleet"):
+            t0 = time.perf_counter()
+            if label == "fleet":
+                client.transform(table)
+            else:
+                featurizer.transform(direct_table)
+            rates[label].append(FLEET_ROWS / (time.perf_counter() - t0))
+        log(f"[fleet] images/s through SimpleHTTPTransformer and the fleet "
+            f"{' '.join(f'{r:.1f}' for r in rates['fleet'])} against the "
+            f"featurizer directly "
+            f"{' '.join(f'{r:.1f}' for r in rates['direct'])} (in turns; "
+            f"{card})")
+        # the fixed cost of one transform at a server batch's mean size
+        per = max(1, round(FLEET_ROWS / n_batches))
+        small = Table({"image": [blobs[n] for n in rows[:per]]})
+        small_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            featurizer.transform(small)
+            small_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"[fleet] a direct transform of {per} rows (the counted run's "
+            f"mean server batch: {FLEET_ROWS} rows in {n_batches} batches "
+            f"over {FLEET_REPLICAS} replicas) takes "
+            f"{' '.join(f'{m:.2f}' for m in small_ms)} ms ({card})")
+    finally:
+        if gw is not None:
+            gw.stop()
+        dss.stop()
+    del featurizer, model
     torch.cuda.empty_cache()
     return launches
 
@@ -4200,6 +4871,13 @@ def main() -> None:
               distill_path(card)]
     del moe_bundle
     log(f"[phase 13] {time.perf_counter() - t13:.1f} s")
+
+    # ---- 14. the fleet ---------------------------------------------------
+    t14 = time.perf_counter()
+    paths.append(fleet_exactness(exact_requests, card))
+    paths += fleet_lm_path(card)
+    paths.append(fleet_featurizer_path(repo, card))
+    log(f"[phase 14] {time.perf_counter() - t14:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------

@@ -23,6 +23,7 @@ STAGE_MODULES = [
     "mmlspark_tpu_torch.models.image_featurizer",
     "mmlspark_tpu_torch.models.deep_vision",
     "mmlspark_tpu_torch.ops.image_stages",
+    "mmlspark_tpu_torch.io.http.transformers",
 ]
 
 

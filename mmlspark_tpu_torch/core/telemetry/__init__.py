@@ -11,18 +11,27 @@ to the caller's trace), and what the serving endpoints expose
 training loop's goodput plane: the step-timeline ledger ``LEDGER``
 (``goodput.py``) and the sampled series store ``STORE``
 (``timeseries.py``), copies of the JAX package's modules, with their
-fleet merge helpers.
+fleet merge helpers; and the fleet plane that federates many processes
+(``fleet.py``: ``merge_snapshots``, ``render_fleet_prometheus``,
+``stitch_spans``, ``SLOEngine``, ``FlightRecorder``), with the trace
+headers (``trace_headers``) that carry one trace across processes.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
 from .metrics import (
+    BUCKET_FAMILIES,
     BYTE_BUCKETS,
     DECLARED_METRICS,
+    FILL_BUCKETS,
     Gauge,
+    HISTOGRAM_FAMILY,
     Histogram,
+    MetricsRegistry,
     REGISTRY,
+    buckets_for,
+    default_buckets,
     is_declared,
 )
 from .exposition import export_snapshot, render_chrome_trace, render_prometheus
@@ -42,28 +51,52 @@ from .timeseries import (
 )
 from .records import clear_records, log_verb, recent_records
 from .spans import (
+    SPAN_HEADER,
+    TRACE_HEADER,
     clear_spans,
     current_context,
+    current_trace_id,
     extract_trace,
     get_trace,
     recent_spans,
     record_span,
     span,
     span_tree,
+    trace_headers,
     use_trace,
+)
+from .fleet import (
+    FlightRecorder,
+    SLO,
+    SLOEngine,
+    cum_le,
+    default_slos,
+    federate_host_snapshots,
+    hist_total,
+    merge_histogram_snapshots,
+    merge_snapshots,
+    render_fleet_prometheus,
+    stitch_spans,
 )
 
 __all__ = [
     "incr", "counters", "reset_counters", "gauge", "histogram",
-    "REGISTRY", "Gauge", "Histogram", "BYTE_BUCKETS", "DECLARED_METRICS",
-    "is_declared",
+    "REGISTRY", "MetricsRegistry", "Gauge", "Histogram", "default_buckets",
+    "BYTE_BUCKETS", "FILL_BUCKETS", "BUCKET_FAMILIES", "HISTOGRAM_FAMILY",
+    "buckets_for", "DECLARED_METRICS", "is_declared",
     "log_verb", "recent_records", "clear_records",
-    "span", "record_span", "use_trace", "current_context", "get_trace",
-    "extract_trace", "span_tree", "recent_spans", "clear_spans",
+    "span", "record_span", "use_trace", "current_context",
+    "current_trace_id", "trace_headers", "extract_trace", "get_trace",
+    "span_tree", "recent_spans", "clear_spans", "TRACE_HEADER",
+    "SPAN_HEADER",
     "render_prometheus", "export_snapshot", "render_chrome_trace",
     "GoodputLedger", "LEDGER", "LOST_KINDS", "StepTimeline",
     "detect_straggler", "merge_goodput_exports",
     "SAMPLED_SERIES", "STORE", "TimeSeriesStore", "merge_timeseries_exports",
+    # fleet plane
+    "merge_histogram_snapshots", "merge_snapshots", "federate_host_snapshots",
+    "hist_total", "cum_le", "render_fleet_prometheus", "stitch_spans",
+    "SLO", "SLOEngine", "default_slos", "FlightRecorder",
 ]
 
 

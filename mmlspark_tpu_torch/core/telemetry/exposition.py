@@ -2,8 +2,8 @@
 snapshots and Chrome trace-event JSON.
 
 A copy of the JAX package's `core/telemetry/exposition.py` for this
-package, without the goodput and time-series planes and the ascii
-report renderers.
+package, without the ascii report renderers; the snapshot's backend facts
+come from `torch.cuda`.
 
 Prometheus exposition convention (text format 0.0.4): dotted internal
 names (`serving.request.latency`) sanitize to underscore names
@@ -16,10 +16,13 @@ import json
 import math
 import os
 import re
+import sys
 import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+from . import goodput as _goodput
 from . import spans as _spans
+from . import timeseries as _timeseries
 from .metrics import REGISTRY, MetricsRegistry
 
 __all__ = ["render_prometheus", "export_snapshot", "render_chrome_trace",
@@ -116,14 +119,39 @@ def _safe_span(rec: Dict[str, Any]) -> Dict[str, Any]:
     return dict(rec, attrs={k: _json_safe(v) for k, v in attrs.items()})
 
 
+def _snapshot_meta(timestamp: Optional[str]) -> Dict[str, Any]:
+    """Self-describing header for saved snapshots.  Backend facts are
+    reported only when CUDA is ALREADY initialised in this process — a
+    /metrics-adjacent dump must never be the thing that initialises the
+    card."""
+    meta: Dict[str, Any] = {
+        "timestamp": timestamp,
+        "pid": os.getpid(),
+        "uptime_s": round(time.monotonic() - _T0_MONOTONIC, 3),
+        "backend": None,
+        "device_count": None,
+    }
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        try:
+            if torch.cuda.is_initialized():
+                meta["backend"] = "cuda"
+                meta["device_count"] = torch.cuda.device_count()
+        except Exception:
+            pass
+    return meta
+
+
 def export_snapshot(registry: MetricsRegistry = REGISTRY,
                     include_spans: bool = True,
                     timestamp: Optional[str] = None) -> Dict[str, Any]:
     """One JSON-serializable dict of everything the process has observed:
-    a `meta` header (caller-supplied timestamp, pid, process uptime),
+    a `meta` header (caller-supplied timestamp, pid, process uptime, the
+    CUDA backend and device count when CUDA is initialised),
     counters, gauges, histogram snapshots (keyed `name` or
     `name{k="v"}`), and (optionally) the recent-span ring with
-    non-serializable attrs degraded to repr()."""
+    non-serializable attrs degraded to repr(), and the goodput plane's
+    `timeseries` / `goodput` blocks when the process produced any."""
     hists: Dict[str, Any] = {}
     for (name, labels), h in registry.histograms().items():
         snap = h.snapshot()
@@ -131,14 +159,23 @@ def export_snapshot(registry: MetricsRegistry = REGISTRY,
                            for le, cum in snap["buckets"]]
         hists[_hist_key(name, labels)] = snap
     out: Dict[str, Any] = {
-        "meta": {"timestamp": timestamp, "pid": os.getpid(),
-                 "uptime_s": round(time.monotonic() - _T0_MONOTONIC, 3)},
+        "meta": _snapshot_meta(timestamp),
         "counters": registry.counter_values(),
         "gauges": registry.gauge_values(),
         "histograms": hists,
     }
     if include_spans:
         out["spans"] = [_safe_span(r) for r in _spans.recent_spans()]
+    # the goodput plane: recent history + per-step timelines, only when
+    # the process actually produced any — idle servers keep the plain
+    # snapshot shape
+    if registry is REGISTRY:
+        ts = _timeseries.STORE.export()
+        if ts["series"]:
+            out["timeseries"] = ts
+        gp = _goodput.LEDGER.export()
+        if gp["steps"] or gp["summary"]["lost"] or gp["summary"]["productive_s"]:
+            out["goodput"] = gp
     return out
 
 

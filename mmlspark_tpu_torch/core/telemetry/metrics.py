@@ -59,6 +59,27 @@ DECLARED_METRICS: Dict[str, str] = {
     "training.hang": "counter",
     "training.straggler": "counter",      # + .<host> variants (merge side)
     "timeseries.samples": "counter",      # one per TimeSeriesStore sweep
+    # -- counters: HTTP circuit breakers (io/http/clients.py)
+    "circuit.open": "counter",            # + .<breaker-name> variants
+    "circuit.closed": "counter",
+    "circuit.half_open_probe": "counter",
+    # -- counters: fleet gateway event ledger (serving/fleet.py)
+    "serving.fleet.retry": "counter",
+    "serving.fleet.eject": "counter",
+    "serving.fleet.reinstate": "counter",
+    "serving.fleet.no_replica": "counter",
+    "serving.fleet.deadline_expired": "counter",
+    "serving.fleet.rollback": "counter",
+    "serving.fleet.promote": "counter",
+    # -- counters: federated telemetry plane (core/telemetry/fleet.py)
+    "fleet.pull": "counter",              # one per completed federated pull
+    "fleet.pull_failed": "counter",       # + .<replica> variants
+    "fleet.incident": "counter",          # flight-recorder bundles written
+    "slo.alert.pending": "counter",       # + .<slo> variants
+    "slo.alert.firing": "counter",        # + .<slo> variants
+    "slo.alert.resolved": "counter",      # + .<slo> variants
+    "autoscale.up": "counter",
+    "autoscale.down": "counter",
     # -- histograms
     "io.feed.transfer.latency": "histogram",
     "io.feed.transfer.bytes": "histogram",
@@ -69,6 +90,10 @@ DECLARED_METRICS: Dict[str, str] = {
     "serving.batcher.batch_fill": "histogram",  # one observation per tick
     "models.training.step_latency": "histogram",  # seconds per optimizer step
     "checkpoint.verify.latency": "histogram",
+    "io.http.request.latency": "histogram",
+    "serving.fleet.request.latency": "histogram",   # gateway e2e, labeled
+    "serving.fleet.replica.latency": "histogram",   # labeled {replica=...}
+    "fleet.scrape.latency": "histogram",    # one full federated pull+merge
     # -- gauges
     "io.feed.queue.depth": "gauge",
     "io.pipeline.queue.depth": "gauge",   # + .<stage> variants
@@ -81,6 +106,11 @@ DECLARED_METRICS: Dict[str, str] = {
     "training.goodput.window_frac": "gauge",  # same over the last K steps
     "training.goodput.lost_s": "gauge",       # + .<kind> variants
     "training.straggler.ratio": "gauge",      # p_max/p_median at detection
+    "serving.fleet.replicas": "gauge",
+    "serving.fleet.healthy": "gauge",
+    "fleet.pull.replicas": "gauge",       # replicas reached by last pull
+    "slo.burn_rate": "gauge",             # + .<slo> variants
+    "autoscale.target_replicas": "gauge",
 }
 
 
@@ -127,6 +157,10 @@ HISTOGRAM_FAMILY: Dict[str, str] = {
     "serving.batcher.batch_fill": "fill",
     "models.training.step_latency": "latency",
     "checkpoint.verify.latency": "latency",
+    "io.http.request.latency": "latency",
+    "serving.fleet.request.latency": "latency",
+    "serving.fleet.replica.latency": "latency",
+    "fleet.scrape.latency": "latency",
 }
 
 

@@ -7,8 +7,12 @@ A **trace** is one logical request's causal tree; a **span** is one
 timed operation inside it.  The current (trace_id, span_id) pair lives
 in a `contextvars.ContextVar` — per-thread by construction (each thread
 starts from an empty context).  Crossing an EXPLICIT thread boundary (a
-flow worker attributing its work to the caller's trace) re-activates the
-recorded pair via `use_trace(ctx)` or records with `record_span(ctx)`.
+serving batch loop picking up a held request, a flow worker attributing
+its work to the caller's trace) re-activates the recorded pair via
+`use_trace(ctx)` or records with `record_span(ctx)`; crossing a PROCESS
+boundary rides the `X-Trace-Id` / `X-Span-Id` HTTP headers
+(`trace_headers()` injects on the client, `extract_trace()` continues on
+the server).
 
 Finished spans land in a bounded ring (`recent_spans`) and a bounded
 per-trace index (`get_trace`).  Both are capped, so always-on span
@@ -26,8 +30,9 @@ import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["span", "record_span", "use_trace", "current_context",
-           "current_trace_id", "extract_trace", "get_trace", "span_tree",
-           "recent_spans", "clear_spans",
+           "current_trace_id", "trace_headers", "extract_trace",
+           "get_trace", "span_tree", "recent_spans", "clear_spans",
+           "TRACE_HEADER", "SPAN_HEADER",
            "MAX_SPANS", "MAX_TRACES", "MAX_SPANS_PER_TRACE"]
 
 MAX_SPANS = 8192          # global recent-span ring
@@ -164,11 +169,28 @@ def use_trace(ctx: Optional[Tuple[str, str]]):
 
 # ---- HTTP propagation ----------------------------------------------------
 
+TRACE_HEADER = "X-Trace-Id"
+SPAN_HEADER = "X-Span-Id"
+
+
+def trace_headers(headers: Optional[Dict[str, str]] = None
+                  ) -> Dict[str, str]:
+    """Copy of `headers` with the current trace context injected (the
+    client half of propagation).  Outside any trace, or when the caller
+    already set the headers, the copy is returned unchanged."""
+    out = dict(headers or {})
+    ctx = _CTX.get()
+    if ctx is not None:
+        out.setdefault(TRACE_HEADER, ctx[0])
+        out.setdefault(SPAN_HEADER, ctx[1])
+    return out
+
+
 def extract_trace(headers) -> Optional[Tuple[str, str]]:
     """(trace_id, span_id) from request headers (`X-Trace-Id`,
-    `X-Span-Id`), case-insensitively.  A trace id without a span id is
-    continued with an empty parent — the upstream did not tell us which
-    span sent it."""
+    `X-Span-Id`), case-insensitively (the server half).  A trace id
+    without a span id is continued with an empty parent — the upstream
+    did not tell us which span sent it."""
     tid = sid = None
     for k in headers.keys():
         lk = k.lower()

@@ -1,17 +1,33 @@
-"""Model serving: an embedded per-host HTTP server and continuous
-batching for autoregressive decode.
+"""Model serving: embedded per-host HTTP servers, continuous batching for
+autoregressive decode, and the fleet above them.
 
 Counterpart of the JAX package's `serving/`: `ServingServer` /
 `WorkerServer` (the held-exchange HTTP server with epoch replay and an
 optional request journal), the `read_stream()` DSL with its one-call LM
-endpoint `generate_stream`, and `ContinuousBatcher` (dense or paged KV
-slots, int8 caches, shared prefixes, deadlines and load shedding).  The
-fleet, registry, rollout and autoscale layers and
-`DistributedServingServer` are not ported yet (ROADMAP A15).
+endpoint `generate_stream` and its multi-replica form
+`distributed_server` / `DistributedServingServer`, and
+`ContinuousBatcher` (dense or paged KV slots, int8 caches, shared
+prefixes, deadlines and load shedding).
+
+Fleet layer: `ServiceRegistry` (discovery), `FleetGateway` routing across
+replica pools (p2c balancing, deadline decrement, retry, breaker
+ejection + probe reinstatement), `RolloutController` (metrics-gated
+canaries), `FleetTelemetry` (federated ``/fleet/metrics``, a stitched
+``/trace/<id>``, SLO burn-rate alerts) and `AutoscaleController`
+(replica counts from the merged signals).
 """
+from .autoscale import AutoscaleController, CapacityModel
 from .batcher import ContinuousBatcher, TokenStream
 from .dsl import DistributedServingServer, StreamingQuery, StreamReader, read_stream
+from .fleet import FleetGateway, FleetTelemetry, Replica
 from .journal import EpochJournal
+from .registry import (
+    ServiceRegistry,
+    deregister_service,
+    list_services,
+    register_service,
+)
+from .rollout import ROLLOUT_METRICS, RolloutController, drain_and_stop
 from .server import (
     CachedRequest,
     ServiceInfo,
@@ -31,10 +47,22 @@ __all__ = [
     "StreamWriter",
     "CachedRequest",
     "ServiceInfo",
+    "ServiceRegistry",
+    "register_service",
+    "deregister_service",
+    "list_services",
     "parse_request",
     "make_reply",
     "read_stream",
     "StreamReader",
     "StreamingQuery",
     "DistributedServingServer",
+    "FleetGateway",
+    "FleetTelemetry",
+    "Replica",
+    "RolloutController",
+    "ROLLOUT_METRICS",
+    "drain_and_stop",
+    "AutoscaleController",
+    "CapacityModel",
 ]

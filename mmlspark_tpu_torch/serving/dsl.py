@@ -22,20 +22,21 @@ chain configures what `start()` launches:
     query.stop()
 
 Counterpart of the JAX package's `serving/dsl.py`; `generate_stream`
-takes a `TorchBundle` (and a `device`, ``cuda`` by default).  The
-multi-replica forms — `distributed_server(replicas > 1)` or with a
-`registry_url`, and `DistributedServingServer` — raise
-NotImplementedError: the registry and fleet layers they need are not
-ported yet (ROADMAP A15).
+takes a `TorchBundle` (and a `device`, ``cuda`` by default).
+`distributed_server(replicas=k)` starts k servers in this process that
+share the model — with `generate_stream`, one `ContinuousBatcher` over
+one copy of the bundle — the per-JVM shared-server round robin of
+DistributedHTTPSource.scala:39-426, and registers every replica with an
+optional `ServiceRegistry` for discovery (DriverServiceUtils :133-194);
+a `FleetGateway` routes over them.
 """
 from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence, Union
 
 from ..core.pipeline import LambdaTransformer, Transformer
+from .registry import register_service
 from .server import ServiceInfo, ServingServer
-
-_WAITS = "ROADMAP A15"
 
 __all__ = ["read_stream", "StreamReader", "StreamingQuery",
            "DistributedServingServer"]
@@ -93,6 +94,8 @@ class StreamReader:
         self._stream_fn = None
         self._gen_cfg = None
         self._stream_workers = 8
+        self._replicas = 1
+        self._registry_url: Optional[str] = None
 
     # ---- sources (IOImplicits server/distributedServer/continuousServer)
     def server(self, host: str = "127.0.0.1", port: int = 0,
@@ -116,13 +119,16 @@ class StreamReader:
                            registry_url: Optional[str] = None
                            ) -> "StreamReader":
         """N per-process servers sharing the model (DistributedHTTPSource's
-        per-JVM shared servers).  Only one replica without a registry is
-        ported: that is `continuous_server`."""
-        if replicas > 1 or registry_url is not None:
-            raise NotImplementedError(
-                "distributed_server with replicas > 1 or a registry is not "
-                f"ported to mmlspark_tpu_torch yet ({_WAITS})")
-        return self.continuous_server(host, port, name, path)
+        per-JVM shared servers); replicas register with the registry for
+        discovery.  A fixed port only makes sense for one replica."""
+        if replicas > 1 and port != 0:
+            raise ValueError("distributed_server with replicas > 1 needs "
+                             "port=0 (each replica binds its own)")
+        self._host, self._port, self._name, self._path = host, port, name, path
+        self._mode = "continuous"
+        self._replicas = int(replicas)
+        self._registry_url = registry_url
+        return self
 
     # ---- query ---------------------------------------------------------
     def parse_request(self, schema: Optional[Sequence[str]] = None
@@ -181,8 +187,9 @@ class StreamReader:
                 journal_path: Optional[str] = None,
                 stream_workers: Optional[int] = None) -> "StreamReader":
         """journal_path is the `checkpointLocation` analog: accepted
-        requests survive process restart.  stream_workers sizes the
-        stream_reply producer pool (concurrent generations)."""
+        requests survive process restart (replicas > 1 each get their own
+        `<path>-<replica>` file).  stream_workers sizes the stream_reply
+        producer pool (concurrent generations per replica)."""
         if max_batch is not None:
             self._max_batch = int(max_batch)
         if batch_timeout_ms is not None:
@@ -226,21 +233,32 @@ class StreamReader:
                                          _c["max_new_tokens"]):
                         yield f"{tok} "
 
-        srv = ServingServer(
-            model=self._model, reply_col=self._reply_col,
-            stream_fn=stream_fn, stream_workers=self._stream_workers,
-            name=self._name, host=self._host, port=self._port,
-            path=self._path, input_schema=self._schema,
-            max_batch=self._max_batch,
-            batch_timeout_ms=self._batch_timeout_ms, mode=self._mode,
-            trigger_interval_ms=self._trigger_interval_ms,
-            journal_path=self._journal_path)
-        srv.start()
+        servers = []
+        for r in range(self._replicas):
+            srv = ServingServer(
+                model=self._model, reply_col=self._reply_col,
+                stream_fn=stream_fn,
+                stream_workers=self._stream_workers,
+                name=self._name if self._replicas == 1
+                else f"{self._name}-{r}",
+                host=self._host, port=self._port, path=self._path,
+                input_schema=self._schema, max_batch=self._max_batch,
+                batch_timeout_ms=self._batch_timeout_ms, mode=self._mode,
+                trigger_interval_ms=self._trigger_interval_ms,
+                journal_path=(None if self._journal_path is None
+                              else self._journal_path if self._replicas == 1
+                              else f"{self._journal_path}-{r}"))
+            info = srv.start()
+            if self._registry_url:
+                register_service(self._registry_url,
+                                 ServiceInfo(self._name, info.host,
+                                             info.port, info.path))
+            servers.append(srv)
         on_stop = []
         if batcher is not None:
             batcher.start()
             on_stop.append(batcher.stop)
-        query = StreamingQuery([srv], on_stop=on_stop)
+        query = StreamingQuery(servers, on_stop=on_stop)
         query._batcher = batcher   # observability (tests, diagnostics)
         return query
 
@@ -251,9 +269,40 @@ def read_stream() -> StreamReader:
 
 
 class DistributedServingServer:
-    """N replicas + a registry in one object: not ported yet."""
+    """Convenience wrapper: N replicas + a registry in one object."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DistributedServingServer is not ported to mmlspark_tpu_torch "
-            f"yet ({_WAITS})")
+    def __init__(self, model, reply_col: str, name: str = "serving",
+                 path: str = "/", replicas: int = 2, registry=None,
+                 **options):
+        from .registry import ServiceRegistry
+
+        self._own_registry = registry is None
+        self._registry_started = False
+        self.registry = registry or ServiceRegistry()
+        self._builder = (read_stream()
+                         .distributed_server(name=name, path=path,
+                                             replicas=replicas)
+                         .transform(model)
+                         .make_reply(reply_col)
+                         .options(**options))
+        self.query: Optional[StreamingQuery] = None
+
+    def start(self) -> List[ServiceInfo]:
+        if self.query is not None:
+            raise RuntimeError("DistributedServingServer already started")
+        if self._own_registry:
+            self.registry.start()
+            self._registry_started = True
+        self._builder._registry_url = self.registry.url
+        self.query = self._builder.start()
+        return self.query.service_infos
+
+    def stop(self):
+        if self.query is not None:
+            self.query.stop()
+            self.query = None
+        # shutting down a never-started ThreadingHTTPServer deadlocks
+        # (socketserver waits on serve_forever's event): only stop what ran
+        if self._own_registry and self._registry_started:
+            self.registry.stop()
+            self._registry_started = False

@@ -1,8 +1,9 @@
 """Tests of mmlspark_tpu_torch that need a CUDA card: each kernel against
 its plain PyTorch version on the card, and the card paths that run them
 (the featurizer over a ResNet and a ViT, `generate` over a TransformerLM,
-the ContinuousBatcher's paged decode, and the flash backward under a
-TransformerLM's `loss.backward()`).
+the ContinuousBatcher's paged decode, also behind a two-replica fleet
+gateway, and the flash backward under a TransformerLM's
+`loss.backward()`).
 They skip without a card (the kernels have no CPU mode).  This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -329,6 +330,88 @@ def test_paged_batcher_on_card_matches_generate(cuda_device):
     for p, toks in zip(prompts, got):
         want = generate(bundle, np.asarray(p, np.int32)[None], 12)
         assert toks == want[0, len(p):].cpu().tolist(), p
+
+
+@pytest.mark.cuda
+def test_two_replica_fleet_on_card_streams_generate(cuda_device):
+    """`distributed_server(replicas=2)` over a CUDA bundle, found by a
+    gateway through the registry: every stream through the gateway is
+    `generate()`'s on the card, the replicas share one batcher (one copy
+    of the model and the pools: the card's memory after start is the
+    one-replica query's), and the paged kernel ran."""
+    import gc
+    import http.client
+
+    from mmlspark_tpu_torch.models import generation
+    from mmlspark_tpu_torch.serving import (FleetGateway, ServiceRegistry,
+                                            read_stream)
+
+    kw = dict(vocab_size=256, embed_dim=128, num_layers=2, num_heads=2,
+              max_len=128)
+    bundle = TorchBundle("transformer_lm", kw, input_shape=(16,),
+                         dtype="float32", seed=4)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 256, n).astype(np.int32).tolist()
+               for n in (5, 40, 17, 70)]
+
+    def start(replicas, url=None):
+        return (read_stream()
+                .distributed_server(name="cardfleet", path="/lm",
+                                    replicas=replicas, registry_url=url)
+                .parse_request(schema=["prompt"])
+                .generate_stream(bundle, max_new_tokens=12, max_slots=4,
+                                 paged=True, page_size=16)
+                .start())
+
+    def grown_by_start(replicas, url=None):
+        """(query, bytes the card gained while it started): the model
+        cache is cleared first, so each count holds the model and the
+        pools."""
+        generation._MODULES.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        q = start(replicas, url)
+        torch.cuda.synchronize()
+        return q, torch.cuda.memory_allocated() - before
+
+    one, grown_one = grown_by_start(1)
+    one.stop()
+    del one
+    reg = ServiceRegistry()
+    url = reg.start()
+    query = gw = None
+    PA.LAUNCHES = 0
+    results = {}
+    try:
+        query, grown_two = grown_by_start(2, url)
+        assert grown_one > 0 and grown_two <= grown_one + (64 << 10), \
+            (grown_one, grown_two)
+        gw = FleetGateway(name="cardfleet", registry_url=url,
+                          probe_interval_s=5.0)
+        gw.start()
+        assert len(gw.replicas()) == 2
+        gi = gw.service_info
+        for i, p in enumerate(prompts):
+            conn = http.client.HTTPConnection(gi.host, gi.port, timeout=300)
+            conn.request("POST", gi.path, body=json.dumps(
+                {"prompt": p}).encode())
+            resp = conn.getresponse()
+            results[i] = (resp.status, resp.read().decode())
+            conn.close()
+    finally:
+        if gw is not None:
+            gw.stop()
+        if query is not None:
+            query.stop()
+        reg.stop()
+    assert PA.LAUNCHES > 0
+    for i, p in enumerate(prompts):
+        status, body = results[i]
+        assert status == 200
+        want = generate(bundle, np.asarray(p, np.int32)[None], 12)
+        assert [int(t) for t in body.split()] == \
+            want[0, len(p):].cpu().tolist(), p
 
 
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}

@@ -11,9 +11,10 @@ class sits in one bucket:
               the loaded stage's transform equal to the unsaved one's,
               bit for bit, with the executor caches cleared between.  An
               estimator's fitted model goes through the round trip too.
-  - SERDE     save/load + param equality only, with a recorded reason
-              (a stage whose transform cannot run in a test).  Every
-              stage of the port transforms on the CPU, so it is empty.
+  - SERDE     save/load + param equality only, with a recorded reason:
+              the two HTTP stages, whose transform needs a live endpoint
+              (tests/test_torch_http.py runs them against an echo
+              server), as in the JAX package's sweep.
 
 An uncovered registry class or a stale bucket entry fails the sweep.
 Imports nothing of the JAX package.
@@ -24,15 +25,24 @@ import torch
 from mmlspark_tpu_torch.core import registry
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
 
-from torch_fuzzing import example, fuzz
+from torch_fuzzing import (check_params_equal, example, fuzz, roundtrip,
+                           serde_example)
 
 torch.set_num_threads(2)
 
 FULL = ["ImageTransformer", "ResizeImageTransformer", "UnrollImage",
         "UnrollBinaryImage", "ImageSetAugmenter", "TorchModel",
-        "ImageFeaturizer", "DeepVisionClassifier", "DeepVisionModel"]
+        "ImageFeaturizer", "DeepVisionClassifier", "DeepVisionModel",
+        "JSONInputParser", "CustomInputParser", "JSONOutputParser",
+        "StringOutputParser", "CustomOutputParser"]
 
-SERDE: dict = {}  # name -> (factory, reason)
+_NETWORK = ("sends requests over the network; echo-server transform tests "
+            "live in test_torch_http.py")
+SERDE = {  # name -> (factory, reason)
+    "HTTPTransformer": (lambda: serde_example("HTTPTransformer"), _NETWORK),
+    "SimpleHTTPTransformer": (lambda: serde_example("SimpleHTTPTransformer"),
+                              _NETWORK),
+}
 
 
 def test_every_registered_stage_is_covered():
@@ -44,7 +54,7 @@ def test_every_registered_stage_is_covered():
         f"SERDE in test_torch_fuzzing.py): {uncovered}")
     stale = sorted(n for n in covered if n not in stages)
     assert not stale, f"bucket entries not in the registry: {stale}"
-    assert len(stages) == 9, sorted(stages)
+    assert len(stages) == 16, sorted(stages)
 
 
 @pytest.mark.parametrize("name", FULL)
@@ -55,3 +65,11 @@ def test_fuzz_full(name):
         model, _ = result
         # the estimator's example also round-trips the model it fits
         assert isinstance(model, Model) and type(model).__name__ in FULL
+
+
+@pytest.mark.parametrize("name", sorted(SERDE))
+def test_fuzz_serde(name):
+    factory, reason = SERDE[name]
+    assert reason
+    stage = factory()
+    check_params_equal(stage, roundtrip(stage))

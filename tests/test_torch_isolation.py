@@ -140,3 +140,41 @@ def test_the_scan_covers_the_moe_speculative_and_distillation_slice():
               "mmlspark_tpu_torch.serving.batcher",
               "mmlspark_tpu_torch.serving.dsl"):
         assert m in mods, m
+
+
+def test_the_scan_covers_the_fleet_slice():
+    """... and so are the serving layers above one server: the HTTP
+    clients and stages, the registry, the fleet gateway and its
+    telemetry, rollout, autoscale and port forwarding."""
+    mods = set(_modules())
+    for m in ("mmlspark_tpu_torch.core.shared",
+              "mmlspark_tpu_torch.core.telemetry.fleet",
+              "mmlspark_tpu_torch.core.telemetry.spans",
+              "mmlspark_tpu_torch.core.telemetry.exposition",
+              "mmlspark_tpu_torch.io.http.clients",
+              "mmlspark_tpu_torch.io.http.transformers",
+              "mmlspark_tpu_torch.serving.registry",
+              "mmlspark_tpu_torch.serving.fleet",
+              "mmlspark_tpu_torch.serving.rollout",
+              "mmlspark_tpu_torch.serving.autoscale",
+              "mmlspark_tpu_torch.serving.port_forwarding"):
+        assert m in mods, m
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_imports_the_repo_tools(path):
+    """`tools/` is the JAX package's tooling (the bench gate the JAX
+    rollout imports among it): no port module and not chip_smoke.py
+    imports it, at module level or inside a function."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names
+                    if a.name == "tools" or a.name.startswith("tools.")]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and (node.module == "tools"
+                                or node.module.startswith("tools.")):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"

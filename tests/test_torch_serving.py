@@ -20,6 +20,7 @@ from mmlspark_tpu.models.generation import generate as j_generate
 from mmlspark_tpu.models.transformer import transformer_lm
 from mmlspark_tpu_torch.models.bundle import from_flax_variables
 from mmlspark_tpu_torch.serving import (DistributedServingServer,
+                                        ServiceRegistry, list_services,
                                         read_stream)
 
 torch.set_num_threads(2)
@@ -100,13 +101,46 @@ def test_generate_stream_one_call_endpoint(paged):
 
 
 def test_unported_serving_forms_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        read_stream().distributed_server(replicas=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        read_stream().distributed_server(replicas=1,
-                                         registry_url="http://127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DistributedServingServer(model=None, reply_col="y")
+    """The multi-replica forms, which raised until the fleet layers were
+    ported, start and answer: `distributed_server(replicas=2)`, a
+    one-replica `distributed_server` with a registry, and
+    `DistributedServingServer` (tests/test_torch_fleet.py holds them
+    behind a gateway)."""
+    reg = ServiceRegistry()
+    url = reg.start()
+    try:
+        for replicas, registry_url in ((2, None), (1, url)):
+            query = (read_stream()
+                     .distributed_server(name="multi", path="/lm",
+                                         replicas=replicas,
+                                         registry_url=registry_url)
+                     .parse_request(schema=["prompt"])
+                     .generate_stream(_lm()[2], max_new_tokens=N,
+                                      max_slots=2, device="cpu")
+                     .start())
+            try:
+                assert len(query.service_infos) == replicas
+                for info in query.service_infos:
+                    (status, body), = _post_all(info, "/lm",
+                                                [{"prompt": PROMPTS[1]}])
+                    assert status == 200
+                    assert [int(t) for t in body.split()] == \
+                        _reference(PROMPTS[1])
+            finally:
+                query.stop()
+        assert [e["port"] for e in list_services(url, "multi")] == [
+            query.service_info.port]
+    finally:
+        reg.stop()
+    dss = DistributedServingServer(
+        model=lambda t: t.with_column("y", np.asarray(t["x"]) * 2),
+        reply_col="y", name="dss", replicas=2)
+    try:
+        for info in dss.start():
+            (status, body), = _post_all(info, "/", [{"x": 4}])
+            assert status == 200 and json.loads(body) == {"y": 8}
+    finally:
+        dss.stop()
     # speculative generate_stream, which raised until the speculative
     # batcher was ported, starts and answers with generate()'s tokens
     # (tests/test_torch_speculative.py holds it against the JAX package

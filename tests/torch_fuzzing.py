@@ -169,7 +169,63 @@ def example(name: str):
                              input_shape=(32, 32, 3), dtype="float32", seed=1)
         return DeepVisionModel(bundle=bundle, classes=["cat", "dog"],
                                height=32, width=32, **cpu), img_table(5)
+    if name == "JSONInputParser":
+        from mmlspark_tpu_torch.io.http.transformers import JSONInputParser
+        return JSONInputParser(input_cols=["a"], url="http://localhost:9/x"), \
+            Table({"a": np.array([1, 2, 3])})
+    if name == "CustomInputParser":
+        from mmlspark_tpu_torch.io.http.transformers import CustomInputParser
+        return CustomInputParser(input_cols=["a"], udf=row_to_request), \
+            Table({"a": np.array([1, 2])})
+    if name == "JSONOutputParser":
+        from mmlspark_tpu_torch.io.http.transformers import JSONOutputParser
+        return JSONOutputParser(), fake_responses_table()
+    if name == "StringOutputParser":
+        from mmlspark_tpu_torch.io.http.transformers import StringOutputParser
+        return StringOutputParser(), fake_responses_table()
+    if name == "CustomOutputParser":
+        from mmlspark_tpu_torch.io.http.transformers import CustomOutputParser
+        return CustomOutputParser(udf=response_status), fake_responses_table()
     raise KeyError(name)
+
+
+def serde_example(name: str):
+    """The stage alone, for the stages whose transform needs a live HTTP
+    endpoint (save/load + param equality only)."""
+    from mmlspark_tpu_torch.io.http import transformers as T
+
+    if name == "HTTPTransformer":
+        return T.HTTPTransformer(concurrency=2)
+    if name == "SimpleHTTPTransformer":
+        return T.SimpleHTTPTransformer(input_cols=["a"],
+                                       url="http://localhost:9/x")
+    raise KeyError(name)
+
+
+# the HTTP parsers' functions and tables (module-level, so they pickle by
+# name; no network)
+def row_to_request(row):
+    from mmlspark_tpu_torch.io.http.schema import to_http_request
+
+    payload = {k: (v.item() if hasattr(v, "item") else v)
+               for k, v in dict(row).items()}
+    return to_http_request("http://localhost:9/x", payload)
+
+
+def response_status(resp):
+    return None if resp is None else resp.status_code
+
+
+def fake_responses_table() -> Table:
+    from mmlspark_tpu_torch.io.http.schema import HTTPResponseData
+
+    resps = np.empty(3, object)
+    for i in range(3):
+        resps[i] = HTTPResponseData(
+            status_code=200, reason="OK",
+            headers={"Content-Type": "application/json"},
+            entity=b'{"v": %d}' % i)
+    return Table({"response": resps})
 
 
 def affine_fn(variables, batch):
