@@ -249,6 +249,28 @@ exit, no result line) if anything in it fails:
    relative L2 of the featurizer run directly on the card, B1 once a
    fixture size a server batch and C2 once a row, exactly; images/s
    through the fleet and direct in turns.
+15. the GBDT engine (after phase 14; its seconds on a line of their
+   own; no kernel of its own: stock PyTorch scatter-adds, cumsums and
+   gathers, as the JAX package's GBDT has no Pallas kernel):
+   (a) a HIGGS-shaped table (1,000,000 x 28 f64 from a seed; the label a
+   fixed nonlinear rule plus noise) through `GBDTClassifier` at
+   LightGBM's defaults for 10 iterations on the card: the root histogram
+   against the plain function on the CPU within 1e-4 of the node's mass
+   (two card builds compared bit for bit, printed); the first 2
+   iterations' trees against a CPU fit of the same data (every split
+   call's histogram within 1e-4 of the node's mass, a differing split a
+   tie within 1e-5 of the scores its gain sums, reported and steered);
+   held-out AUC after 2 iterations within 2e-3 of the CPU fit's;
+   `raw_scores_jit` on the card within 1e-4 of `_raw_scores`; the model
+   string round trip with identical scores; a second card fit's trees
+   against the first's (printed).  Printed: ms an iteration, builds a
+   tree, ms a build (CUDA events), rows/s and peak device memory.
+   (b) examples/02_hashed_text_gbdt.py's reviews at 50,000 rows through
+   `VowpalWabbitFeaturizer(num_bits=18)` into `GBDTClassifier`'s CSR
+   path (bins capped by `effective_sparse_max_bin`), 12 iterations:
+   train AUC above 0.9, peak device memory below N x 2^18 bytes, the
+   root COO histogram against its plain function on the CPU; ms an
+   iteration.
 9. record: a `{"kernels": [...]}` JSON line (the eight TPU kernels and
    C2), the nvidia-smi line, and last the `{"ok": true, "device": ...}`
    line.
@@ -407,6 +429,18 @@ FLEET_REPLICAS = 2
 CANARY_WEIGHT, CANARY_MIN = 0.25, 6
 FLEET_ROWS, FLEET_CONCURRENCY = 64, 8
 FLEET_FEATURES_RTOL = 2e-2   # relative L2, bf16 forward on both sides
+
+# the GBDT (phase 15): a HIGGS-shaped table (the UCI HIGGS set's 28
+# columns, which LightGBM's own experiments train on) at 1M rows, at
+# LightGBM's defaults (31 leaves, max_bin 255, min_data_in_leaf 20, lr
+# 0.1); the first iterations against a CPU fit of the same data by the
+# tie rule of tests/torch_gbdt_compare.py (every histogram within 1e-4 of
+# the node's mass, a differing split a tie within 1e-5 of the scores its
+# gain sums); example 02's reviews at 50,000 rows on the CSR path
+GBDT_ROWS, GBDT_HOLD, GBDT_FEATURES = 1_000_000, 100_000, 28
+GBDT_ITERS, GBDT_CPU_ITERS = 10, 2
+GBDT_TEXT_ROWS, GBDT_TEXT_ITERS = 50_000, 12
+GBDT_TOL, GBDT_AUC_GAP = 1e-4, 2e-3
 
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
@@ -4579,6 +4613,398 @@ def fleet_featurizer_path(repo, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the GBDT engine
+# ---------------------------------------------------------------------------
+
+def higgs_like(n: int, seed: int):
+    """UCI HIGGS's 28 columns, made from a seed: the lepton's pT, eta and
+    phi, the missing energy and its phi, four jets' pT, eta, phi and
+    b-tag (HIGGS's three b-tag values), then seven reconstructed masses;
+    f64.  The label is a fixed nonlinear rule of them plus logistic
+    noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = np.empty((n, GBDT_FEATURES))
+    x[:, 0] = rng.lognormal(0.0, 0.5, n)
+    x[:, 1] = rng.normal(0.0, 1.0, n)
+    x[:, 2] = rng.uniform(-np.pi, np.pi, n)
+    x[:, 3] = rng.lognormal(0.0, 0.6, n)
+    x[:, 4] = rng.uniform(-np.pi, np.pi, n)
+    for j in range(4):
+        c = 5 + 4 * j
+        x[:, c] = rng.lognormal(0.0, 0.5, n)
+        x[:, c + 1] = rng.normal(0.0, 1.0, n)
+        x[:, c + 2] = rng.uniform(-np.pi, np.pi, n)
+        x[:, c + 3] = rng.choice([0.0, 1.086538, 2.173076], n,
+                                 p=[0.5, 0.25, 0.25])
+    x[:, 21:] = rng.lognormal(0.0, 0.3, (n, 7))
+    s = (2.0 * (x[:, 25] - 1.0) - 1.5 * (x[:, 26] - 1.0)
+         + 0.8 * x[:, 8] * x[:, 5] - 0.6 * np.abs(x[:, 1])
+         + 0.5 * np.cos(x[:, 2] - x[:, 4]) + 0.4 * np.log(x[:, 3]) - 0.5)
+    y = (s + rng.logistic(size=n) > 0).astype(np.float64)
+    return x, y
+
+
+def gbdt_compare():
+    """tests/torch_gbdt_compare.py: the tie rule of the port's GBDT parity
+    tests (numpy and torch only), here between a CPU fit and a card fit."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_gbdt_compare
+
+    return torch_gbdt_compare
+
+
+def same_forest(a, b) -> tuple:
+    """(split structures equal, leaf values equal bit for bit) of two
+    forests."""
+    import numpy as np
+
+    keys = ("split_feature", "threshold_bin", "left", "right")
+    if len(a) != len(b):
+        return False, False
+    same = all(np.array_equal(getattr(s, k), getattr(t, k))
+               for s, t in zip(a, b) for k in keys)
+    return same, same and all(np.array_equal(s.value, t.value)
+                              for s, t in zip(a, b))
+
+
+def iter_clock():
+    """A GBDT delegate that stamps the start of training and each
+    iteration's end on the host clock; `.ms()` gives ms an iteration."""
+    import numpy as np
+    import torch
+
+    from mmlspark_tpu_torch.gbdt.delegate import GBDTDelegate
+
+    class IterClock(GBDTDelegate):
+        stamps = []
+
+        def before_training(self, booster):
+            torch.cuda.synchronize()
+            self.stamps = [time.perf_counter()]
+
+        def after_iteration(self, booster, iteration, records):
+            self.stamps.append(time.perf_counter())
+
+        def ms(self):
+            return np.diff(self.stamps) * 1e3
+
+    return IterClock()
+
+
+def gbdt_dense_path(card) -> None:
+    """Phase 15 (a): GBDTClassifier at LightGBM's defaults on a HIGGS-shaped
+    table of GBDT_ROWS rows, GBDT_ITERS iterations on the card."""
+    import numpy as np
+    import torch
+
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.gbdt import Booster, GBDTClassifier
+    from mmlspark_tpu_torch.gbdt import histogram as H
+    from mmlspark_tpu_torch.gbdt import tree as T
+    from mmlspark_tpu_torch.gbdt.binning import BinMapper
+    from mmlspark_tpu_torch.gbdt.objectives import get_objective
+    from mmlspark_tpu_torch.models.statistics import roc_auc
+
+    C = gbdt_compare()
+    t0 = time.perf_counter()
+    x, y = higgs_like(GBDT_ROWS, seed=15)
+    xh, yh = higgs_like(GBDT_HOLD, seed=16)
+    table = Table({"features": x, "label": y})
+    log(f"[phase 15] HIGGS-shaped table {GBDT_ROWS} x {GBDT_FEATURES} f64 "
+        f"(+{GBDT_HOLD} held out), positives {y.mean():.4f}, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the root histogram: the card's against the plain function on the CPU
+    binned = BinMapper(255, seed=0).fit_transform(x)
+    obj = get_objective("binary")
+    w = np.ones(GBDT_ROWS)
+    init = obj.init_score_fn(y, w)
+    grad, hess = obj.grad_fn(np.full(GBDT_ROWS, init), y, w)
+    builder = H.HistogramBuilder(binned, 256, device="cuda")
+    arrs = builder.device_arrays(grad, hess, w)
+    root_mask = builder.node_mask(np.ones(GBDT_ROWS, bool))
+    card_hist = builder.build(*arrs, root_mask)
+    again = builder.build(*arrs, root_mask)
+    cpu = [torch.as_tensor(np.asarray(a, np.float32)) for a in (grad, hess, w)]
+    plain = H.build_histogram(torch.as_tensor(binned), *cpu,
+                              torch.ones(GBDT_ROWS, dtype=torch.bool), 256)
+    err = C.hist_err(card_hist.cpu().double().numpy(),
+                     plain.double().numpy())
+    bitwise = bool(torch.equal(card_hist, again))
+    build_ms = cuda_ms(lambda: builder.build(*arrs, root_mask), 10)
+    log(f"[phase 15] root histogram [{GBDT_FEATURES}, 256, 3]: card vs CPU "
+        f"plain {err:.3g} of the node's mass (limit {GBDT_TOL}); two card "
+        f"builds bitwise equal: {bitwise} (max diff "
+        f"{float((card_hist - again).abs().max()):.3g}); a build "
+        f"{build_ms:.3f} ms (CUDA events, 10 back to back)")
+    if not err <= GBDT_TOL:
+        fail(f"GBDT root histogram: card vs CPU {err} > {GBDT_TOL}")
+    del builder, arrs, card_hist, again, plain
+
+    # the CPU fit of the first iterations, its split calls recorded
+    t0 = time.perf_counter()
+    with C.recorded_splits(T) as cpu_calls:
+        cpu_model = GBDTClassifier(num_iterations=GBDT_CPU_ITERS,
+                                   device="cpu").fit(table)
+    cpu_s = time.perf_counter() - t0
+    # the card fit, timed: each histogram build between CUDA events, each
+    # iteration on the host clock; its first calls held to the CPU fit's
+    builds = []
+    orig_build = H.HistogramBuilder.build
+
+    def timed_build(self, *a):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = orig_build(self, *a)
+        ev[1].record()
+        builds.append(ev + (time.perf_counter(),))
+        return out
+
+    # and where an iteration's time goes, on the host clock: the grower's
+    # `grow` (its `best_split` calls wait for the device: the build, then
+    # the split search) and `predict_binned` (the scores' update)
+    spans = []
+
+    def host_timed(owner, attr, name):
+        orig = getattr(owner, attr)
+
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            out = orig(*a, **k)
+            spans.append((name, t, time.perf_counter()))
+            return out
+
+        setattr(owner, attr, wrapped)
+        return orig
+
+    clock = iter_clock()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    H.HistogramBuilder.build = timed_build
+    grow = host_timed(T.TreeGrower, "grow", "grow")
+    predict = host_timed(T.Tree, "predict_binned", "predict_binned")
+    try:
+        with C.following_splits(T, cpu_calls, "phase 15 card fit",
+                                prefix=True) as (card_calls, ties):
+            host_timed(T, "best_split", "best_split")
+            t0 = time.perf_counter()
+            model = GBDTClassifier(num_iterations=GBDT_ITERS,
+                                   delegate=clock).fit(table)
+            fit_s = time.perf_counter() - t0
+    except AssertionError as e:
+        fail(f"GBDT: the card fit against the CPU fit's split calls: {e}")
+    finally:
+        H.HistogramBuilder.build = orig_build
+        T.TreeGrower.grow, T.Tree.predict_binned = grow, predict
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    iter_ms = clock.ms()
+    med_ms = float(np.median(iter_ms[1:]))
+    build_each = [s.elapsed_time(e) for s, e, _ in builds]
+    booster = model.booster
+    n_trees = len(booster.trees)
+    log(f"[phase 15] (a) GBDTClassifier(31 leaves, max_bin 255, "
+        f"min_data_in_leaf 20, lr 0.1) x {GBDT_ITERS} on the card: fit "
+        f"{fit_s:.2f} s (binning included); ms an iteration "
+        f"{', '.join(f'{m:.1f}' for m in iter_ms)} (median after the "
+        f"first {med_ms:.1f}); {len(builds)} histogram builds, "
+        f"{len(builds) / n_trees:.1f} a tree, ms a build median "
+        f"{np.median(build_each):.3f} (min {min(build_each):.3f}, max "
+        f"{max(build_each):.3f}), {sum(build_each) / 1e3:.2f} s of the "
+        f"fit; {GBDT_ROWS / med_ms * 1e3:,.0f} training rows/s an "
+        f"iteration (median); peak device memory {peak / 2**20:.1f} MiB "
+        f"above the start ({torch.cuda.max_memory_allocated() / 2**20:.1f}"
+        f" MiB in all)")
+    # the iterations after the CPU-held ones (no host copies of the
+    # histograms): medians of each part's ms an iteration
+    stamps = clock.stamps
+    parts = {}
+    for i in range(GBDT_CPU_ITERS, GBDT_ITERS):
+        lo, hi = stamps[i], stamps[i + 1]
+        for name in ("grow", "best_split", "predict_binned"):
+            parts.setdefault(name, []).append(1e3 * sum(
+                e - b for n_, b, e in spans if n_ == name and lo <= b < hi))
+    parts["builds (device)"] = [
+        sum(ms for ms, (_, _, t) in zip(build_each, builds)
+            if stamps[i] <= t < stamps[i + 1])
+        for i in range(GBDT_CPU_ITERS, GBDT_ITERS)]
+    parts["rest"] = [iter_ms[i] - g - p for i, g, p in zip(
+        range(GBDT_CPU_ITERS, GBDT_ITERS), parts["grow"],
+        parts["predict_binned"])]
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    log(f"[phase 15] an iteration's {med_ms:.1f} ms (median of all after "
+        f"the first), each part's median over iterations "
+        f"{GBDT_CPU_ITERS + 1}-{GBDT_ITERS}: grow {med['grow']:.1f} (of "
+        f"which best_split calls {med['best_split']:.1f}, waiting on the "
+        f"device, whose builds take {med['builds (device)']:.1f}), "
+        f"predict_binned {med['predict_binned']:.1f}, the rest "
+        f"(gradients, bookkeeping) {med['rest']:.1f}")
+    worst_hist = max(C.hist_err(c[0], r[0])
+                     for c, r in zip(card_calls, cpu_calls))
+    log(f"[phase 15] the CPU fit ({GBDT_CPU_ITERS} iterations, this "
+        f"machine's CPU) {cpu_s:.1f} s; the card's first {len(cpu_calls)} "
+        f"split calls held to it by the tie rule (tie gap "
+        f"{C.TIE_GAP}): histograms within {worst_hist:.3g} of the node's "
+        f"mass (limit {C.TOL}), {len(ties)} tie(s) reported")
+    try:
+        C.compare_fits(cpu_model.booster, booster, "phase 15",
+                       n_trees=GBDT_CPU_ITERS)
+    except AssertionError as e:
+        fail(f"GBDT: the card's first {GBDT_CPU_ITERS} trees differ from "
+             f"the CPU fit's: {e}")
+    worst = max(float(np.abs(a.value - b.value).max()) for a, b in
+                zip(cpu_model.booster.trees, booster.trees))
+    log(f"[phase 15] the first {GBDT_CPU_ITERS} trees equal the CPU fit's "
+        f"(leaf values within {worst:.3g})")
+
+    auc_card = roc_auc(yh, booster._raw_scores(xh, GBDT_CPU_ITERS))
+    auc_cpu = roc_auc(yh, cpu_model.booster._raw_scores(xh))
+    auc_all = roc_auc(yh, booster._raw_scores(xh))
+    log(f"[phase 15] held-out AUC after {GBDT_CPU_ITERS} iterations: card "
+        f"{auc_card:.6f}, CPU {auc_cpu:.6f} (limit {GBDT_AUC_GAP}); after "
+        f"{GBDT_ITERS}: {auc_all:.6f}")
+    if not abs(auc_card - auc_cpu) <= GBDT_AUC_GAP:
+        fail(f"GBDT held-out AUC: card {auc_card} vs CPU {auc_cpu}")
+
+    host = booster._raw_scores(xh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = booster.raw_scores_jit(xh)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    err = float(np.abs(dev - host).max())
+    t0 = time.perf_counter()
+    booster._raw_scores(xh)
+    host_s = time.perf_counter() - t0
+    log(f"[phase 15] forest predictor: raw_scores_jit on the card vs "
+        f"_raw_scores {err:.3g} (limit {GBDT_TOL}) over {GBDT_HOLD} rows x "
+        f"{n_trees} trees; {pred_s * 1e3:.1f} ms (uploads included) "
+        f"against {host_s * 1e3:.1f} ms on the host")
+    if not err <= GBDT_TOL:
+        fail(f"GBDT forest predictor: {err} > {GBDT_TOL}")
+    again = Booster.from_model_string(booster.model_string())
+    if not (np.array_equal(again._raw_scores(xh), host)
+            and np.array_equal(again.raw_scores_jit(xh), dev)):
+        fail("GBDT: the model string round trip changed the scores")
+    log("[phase 15] the model string round trip gives identical scores "
+        "(host and card predictors)")
+
+    # determinism: a second card fit of the same data, no hooks
+    t0 = time.perf_counter()
+    second = GBDTClassifier(num_iterations=GBDT_ITERS).fit(table).booster
+    same, exact = same_forest(booster.trees, second.trees)
+    log(f"[phase 15] a second card fit ({time.perf_counter() - t0:.2f} s): "
+        f"split structure equal to the first's: {same}, leaf values bit "
+        f"for bit: {exact} (the first fit's {len(ties)} steered tie(s) "
+        f"aside)")
+
+
+def synthetic_reviews(n: int, seed: int = 0):
+    """examples/02_hashed_text_gbdt.py's synthetic reviews."""
+    import numpy as np
+
+    from mmlspark_tpu_torch import Table
+
+    rng = np.random.default_rng(seed)
+    good = [f"great{i}" for i in range(25)]
+    bad = [f"awful{i}" for i in range(25)]
+    filler = [f"word{i}" for i in range(400)]
+    texts, labels = [], []
+    for _ in range(n):
+        label = int(rng.random() < 0.5)
+        words = list(rng.choice(good if label else bad, 3)) + \
+            list(rng.choice(filler, 10))
+        rng.shuffle(words)
+        texts.append(" ".join(words))
+        labels.append(float(label))
+    return Table({"text": np.asarray(texts, object),
+                  "label": np.asarray(labels)})
+
+
+def gbdt_sparse_path(card) -> None:
+    """Phase 15 (b): example 02's hashed reviews through the CSR path on
+    the card."""
+    import numpy as np
+    import torch
+
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.gbdt import sparse as SP
+    from mmlspark_tpu_torch.models.statistics import roc_auc
+    from mmlspark_tpu_torch.online import VowpalWabbitFeaturizer
+
+    t0 = time.perf_counter()
+    table = VowpalWabbitFeaturizer(
+        input_cols=["text"], output_col="features", num_bits=18,
+        string_split_cols=["text"]).transform(
+            synthetic_reviews(GBDT_TEXT_ROWS))
+    feat_s = time.perf_counter() - t0
+    clock = iter_clock()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = GBDTClassifier(num_iterations=GBDT_TEXT_ITERS, num_leaves=7,
+                           min_data_in_leaf=10, delegate=clock).fit(table)
+    fit_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    mapper = model.booster.bin_mapper
+    bins = SP.effective_sparse_max_bin(255, 1 << 18, 7)
+    if not (isinstance(mapper, SP.SparseBinMapper)
+            and mapper.num_features_ == 1 << 18 and mapper.max_bin == bins):
+        fail(f"GBDT sparse: not the CSR path at 2^18 features and "
+             f"{bins} bins: {type(mapper).__name__}")
+    out = model.transform(table)
+    auc = roc_auc(np.asarray(table["label"]), out["probability"][:, 1])
+    dense_bytes = GBDT_TEXT_ROWS * (1 << 18)
+    iter_ms = clock.ms()
+    log(f"[phase 15] (b) example 02's reviews, {GBDT_TEXT_ROWS} rows -> "
+        f"VowpalWabbitFeaturizer(num_bits=18) ({feat_s:.1f} s) -> "
+        f"GBDTClassifier(7 leaves) x {GBDT_TEXT_ITERS} on the CSR path "
+        f"({mapper.max_bin} bins by effective_sparse_max_bin): fit "
+        f"{fit_s:.2f} s; ms an iteration "
+        f"{', '.join(f'{m:.1f}' for m in iter_ms)} (median after the "
+        f"first {float(np.median(iter_ms[1:])):.1f}); train AUC {auc:.6f} "
+        f"(limit > 0.9); peak device memory {peak / 2**20:.1f} MiB above "
+        f"the start (limit N x 2^18 B = {dense_bytes / 2**20:.0f} MiB)")
+    if not auc > 0.9:
+        fail(f"GBDT sparse: train AUC {auc}")
+    if not peak < dense_bytes:
+        fail(f"GBDT sparse: peak device memory {peak} >= {dense_bytes}")
+
+    # the root COO histogram on the card against the plain function on
+    # the CPU
+    from mmlspark_tpu_torch.gbdt.estimators import _features_matrix
+
+    view = mapper.transform(_features_matrix(table["features"],
+                                             table.get_meta("features")))
+    n = GBDT_TEXT_ROWS
+    rng = np.random.default_rng(17)
+    grad = rng.normal(size=n).astype(np.float32)
+    hess = np.full(n, 0.25, np.float32)
+    w = np.ones(n, np.float32)
+    b = SP.SparseHistogramBuilder(view, mapper.num_bins, device="cuda")
+    card_hist = b.build(*b.device_arrays(grad, hess, w),
+                        b.node_mask(np.ones(n, bool)))
+    put = torch.as_tensor
+    plain = SP.build_histogram_coo(
+        put(view.feat_nz), put(view.bin_nz), put(view.row_nz),
+        put(view.zero_bins), put(grad), put(hess), put(w),
+        torch.ones(n, dtype=torch.bool), mapper.num_bins, 1 << 18)
+    err = gbdt_compare().hist_err(card_hist.cpu().double().numpy(),
+                                  plain.double().numpy())
+    log(f"[phase 15] root COO histogram [2^18, {mapper.num_bins}, 3] "
+        f"({view.nnz} entries): card vs CPU plain {err:.3g} of the node's "
+        f"mass (limit {GBDT_TOL})")
+    if not err <= GBDT_TOL:
+        fail(f"GBDT COO histogram: card vs CPU {err} > {GBDT_TOL}")
+
+
 def int8_gemm_timing(card) -> None:
     """`torch._int_mm` at the ViT-B/16 qkv shape of one chunk against a
     bf16 `torch.matmul` at the same shape, each from calls queued behind
@@ -4878,6 +5304,12 @@ def main() -> None:
     paths += fleet_lm_path(card)
     paths.append(fleet_featurizer_path(repo, card))
     log(f"[phase 14] {time.perf_counter() - t14:.1f} s")
+
+    # ---- 15. the GBDT engine ---------------------------------------------
+    t15 = time.perf_counter()
+    gbdt_dense_path(card)
+    gbdt_sparse_path(card)
+    log(f"[phase 15] {time.perf_counter() - t15:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------

@@ -24,6 +24,9 @@ STAGE_MODULES = [
     "mmlspark_tpu_torch.models.deep_vision",
     "mmlspark_tpu_torch.ops.image_stages",
     "mmlspark_tpu_torch.io.http.transformers",
+    "mmlspark_tpu_torch.gbdt.estimators",
+    "mmlspark_tpu_torch.online.featurizer",
+    "mmlspark_tpu_torch.models.statistics",
 ]
 
 

@@ -55,7 +55,9 @@ def _resolve_class(path: str):
             f"mmlspark_tpu_torch load here (a stage the JAX package saved "
             f"would import it).  Rebuild the stage in mmlspark_tpu_torch and "
             f"carry its weights across with "
-            f"mmlspark_tpu_torch.models.bundle.from_flax_variables")
+            f"mmlspark_tpu_torch.models.bundle.from_flax_variables (a GBDT "
+            f"model's forest with mmlspark_tpu_torch.gbdt.Booster."
+            f"from_model_string of its model_string)")
     module, _, name = path.rpartition(".")
     mod = importlib.import_module(module)
     obj = mod

@@ -11,7 +11,9 @@ the same name, imported by module (nothing is imported here):
 - `checkpoint`: verified checkpoints of a `TrainState`;
 - `guard`: the training anomaly guard (quarantine, rollback, abort);
 - `deep_vision`: `DeepVisionClassifier` / `DeepVisionModel`, with
-  `checkpoint_dir`, ragged rows and encoded-bytes inputs.
+  `checkpoint_dir`, ragged rows and encoded-bytes inputs;
+- `statistics`: `ComputeModelStatistics`, `ComputePerInstanceStatistics`,
+  `roc_auc` and `confusion_matrix` (host).
 
 Not ported yet (ROADMAP): the `models/convnets.py` backbones, `linear.py` and
 `train_classifier.py` (A17), the 3D trainer and elastic resume (A19).

@@ -46,6 +46,14 @@ against its plain version byte for byte, on the fixtures' planes and on
 card against its CPU run on the same decoded pixels at the featurizer
 test's f32 limits.  A CUDA TrainState round-trips a checkpoint bit for
 bit, also into a live state a poisoned step filled with NaN.
+
+The GBDT engine (no kernel of its own): the dense and COO histograms on
+the card within 1e-4 of the node's absolute mass of the plain function
+on the CPU (the card's atomics add in another order), at three shapes
+each, one of 2^18 features; two builds of one node compared (whether
+bit for bit is printed); the forest predictor on the card within 1e-4
+of the host traversal; a booster fit on the card against its CPU fit by
+the tie rule of tests/torch_gbdt_compare.py.
 """
 import base64
 import functools
@@ -1615,3 +1623,127 @@ def test_a_loaded_torch_model_on_card_equals_the_unsaved_one(cuda_device,
         got = loaded.transform(table)["output"]
     assert K.LAUNCHES == 2  # B1 once per chunk of the loaded stage
     np.testing.assert_array_equal(got, want)
+
+
+# ---- the GBDT engine: no kernel of its own (stock PyTorch scatter-adds,
+# cumsums and gathers on the card), held to its CPU run ---------------------
+
+def _gbdt_node(n, seed, share=0.7):
+    rng = np.random.default_rng(seed)
+    grad = rng.normal(size=n).astype(np.float32)
+    hess = rng.uniform(0.1, 0.3, size=n).astype(np.float32)
+    w = (rng.random(n) < 0.9).astype(np.float32)
+    return grad, hess, w, rng.random(n) < share
+
+
+def _mass_err(got, want):
+    """Largest difference relative to the node's absolute mass, channel by
+    channel (tests/torch_gbdt_compare.py)."""
+    from torch_gbdt_compare import hist_err
+
+    return hist_err(got.cpu().double().numpy(), want.cpu().double().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,b", [(200_000, 28, 256), (4096, 300, 64),
+                                   (48, 1 << 18, 16)])
+def test_gbdt_dense_histogram_on_card_matches_the_cpu(cuda_device, n, f, b):
+    from mmlspark_tpu_torch.gbdt import histogram as H
+
+    binned = np.random.default_rng(n).integers(0, b, (n, f)).astype(np.uint8)
+    arrays = (binned,) + _gbdt_node(n, seed=f)
+    want = H.build_histogram(*map(torch.as_tensor, arrays), b)
+    got = H.build_histogram(*(torch.as_tensor(a, device=cuda_device)
+                              for a in arrays), b)
+    assert got.shape == (f, b, 3) and got.device.type == "cuda"
+    assert _mass_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,max_bin", [(20_000, 64, 63), (5000, 3000, 15),
+                                         (3000, 1 << 18, 15)])
+def test_gbdt_coo_histogram_on_card_matches_the_cpu(cuda_device, n, f,
+                                                    max_bin):
+    from mmlspark_tpu_torch.gbdt import sparse as SP
+
+    rng = np.random.default_rng(f)
+    nnz = 12 * n
+    rows = np.sort(rng.integers(0, n, nnz))
+    cols = rng.integers(0, min(f, 5000), nnz) * (f // min(f, 5000))
+    keys = np.unique(rows * f + cols)
+    rows, cols = keys // f, keys % f
+    indptr = np.searchsorted(rows, np.arange(n + 1))
+    csr = SP.CSRMatrix(rng.normal(size=len(keys)), cols, indptr, (n, f))
+    view = SP.SparseBinMapper(max_bin).fit_transform(csr)
+    arrays = (view.feat_nz, view.bin_nz, view.row_nz, view.zero_bins) + \
+        _gbdt_node(n, seed=n)
+    want = SP.build_histogram_coo(*map(torch.as_tensor, arrays),
+                                  max_bin + 1, f)
+    got = SP.build_histogram_coo(*(torch.as_tensor(a, device=cuda_device)
+                                   for a in arrays), max_bin + 1, f)
+    assert got.shape == (f, max_bin + 1, 3) and got.device.type == "cuda"
+    assert _mass_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_gbdt_two_builds_of_one_node_on_card(cuda_device):
+    """The same node built twice on the card: equal within 1e-4 of its
+    mass; whether bit for bit is printed (index_add_ adds with atomics)."""
+    from mmlspark_tpu_torch.gbdt import histogram as H
+
+    n, f, b = 500_000, 28, 256
+    binned = np.random.default_rng(3).integers(0, b, (n, f)).astype(np.uint8)
+    builder = H.HistogramBuilder(binned, b, device="cuda")
+    grad, hess, w, mask = _gbdt_node(n, seed=4)
+    arrs = builder.device_arrays(grad, hess, w)
+    first = builder.build(*arrs, builder.node_mask(mask))
+    second = builder.build(*arrs, builder.node_mask(mask))
+    assert _mass_err(second, first.cpu()) <= 1e-4
+    print(f"two card builds of one node bitwise equal: "
+          f"{bool(torch.equal(first, second))}, max diff "
+          f"{float((first - second).abs().max()):.3g}")
+
+
+@pytest.mark.cuda
+def test_gbdt_predict_forest_on_card_matches_the_host_traversal(cuda_device):
+    from mmlspark_tpu_torch.gbdt import Booster, TrainConfig
+
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(3000, 8))
+    y = 3 * x[:, 0] + np.sin(2 * x[:, 1]) + 0.1 * rng.normal(size=3000)
+    b = Booster(TrainConfig(num_iterations=12, num_leaves=15,
+                            min_data_in_leaf=5)).fit(x, y, device="cpu")
+    xt = rng.normal(size=(5000, 8))
+    xt[::9, 3] = np.nan                      # NaN goes left
+    got = b.raw_scores_jit(xt, device="cuda")
+    np.testing.assert_allclose(got, b._raw_scores(xt), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, b.raw_scores_jit(xt, device="cpu"),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boosting", ["gbdt", "goss"])
+def test_gbdt_fit_on_card_matches_the_cpu_fit(cuda_device, boosting):
+    """A booster fit on the card against the same fit on the CPU by the tie
+    rule of tests/torch_gbdt_compare.py; the estimator's default device is
+    the card."""
+    from mmlspark_tpu_torch.gbdt import (Booster, GBDTClassifier,
+                                         TrainConfig, tree as T)
+    from torch_gbdt_compare import (compare_fits, following_splits,
+                                    recorded_splits)
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(20_000, 10))
+    y = (x[:, 0] * 2 - x[:, 1] + 0.5 * x[:, 2] * x[:, 3]
+         + rng.normal(scale=0.5, size=20_000) > 0).astype(np.float64)
+    cfg = dict(objective="binary", num_iterations=8, num_leaves=31,
+               boosting_type=boosting)
+    with recorded_splits(T) as calls:
+        cpu = Booster(TrainConfig(**cfg)).fit(x, y, device="cpu")
+    with following_splits(T, calls, f"card {boosting}",
+                          cpu.trees if boosting == "goss" else None):
+        card = Booster(TrainConfig(**cfg)).fit(x, y, device="cuda")
+    compare_fits(cpu, card, label=f"card {boosting}")
+    model = GBDTClassifier(num_iterations=3).fit(Table({"features": x,
+                                                        "label": y}))
+    assert model.booster.config.num_iterations == 3

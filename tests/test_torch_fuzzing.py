@@ -19,13 +19,15 @@ class sits in one bucket:
 An uncovered registry class or a stale bucket entry fails the sweep.
 Imports nothing of the JAX package.
 """
+import numpy as np
 import pytest
 import torch
 
 from mmlspark_tpu_torch.core import registry
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
 
-from torch_fuzzing import (check_params_equal, example, fuzz, roundtrip,
+from torch_fuzzing import (GBDT_EXAMPLES, ONLINE_STATS_EXAMPLES,
+                           check_params_equal, example, fuzz, roundtrip,
                            serde_example)
 
 torch.set_num_threads(2)
@@ -34,7 +36,8 @@ FULL = ["ImageTransformer", "ResizeImageTransformer", "UnrollImage",
         "UnrollBinaryImage", "ImageSetAugmenter", "TorchModel",
         "ImageFeaturizer", "DeepVisionClassifier", "DeepVisionModel",
         "JSONInputParser", "CustomInputParser", "JSONOutputParser",
-        "StringOutputParser", "CustomOutputParser"]
+        "StringOutputParser", "CustomOutputParser"] + GBDT_EXAMPLES + \
+    ONLINE_STATS_EXAMPLES
 
 _NETWORK = ("sends requests over the network; echo-server transform tests "
             "live in test_torch_http.py")
@@ -54,7 +57,7 @@ def test_every_registered_stage_is_covered():
         f"SERDE in test_torch_fuzzing.py): {uncovered}")
     stale = sorted(n for n in covered if n not in stages)
     assert not stale, f"bucket entries not in the registry: {stale}"
-    assert len(stages) == 16, sorted(stages)
+    assert len(stages) == 30, sorted(stages)
 
 
 @pytest.mark.parametrize("name", FULL)
@@ -65,6 +68,13 @@ def test_fuzz_full(name):
         model, _ = result
         # the estimator's example also round-trips the model it fits
         assert isinstance(model, Model) and type(model).__name__ in FULL
+    elif isinstance(stage, Model) and name.startswith("GBDT"):
+        # a fitted GBDT model reloads bit for bit, the forest included
+        loaded = roundtrip(stage)
+        assert loaded.model_string == stage.model_string
+        table = example(name)[1]
+        np.testing.assert_array_equal(
+            loaded.predict_leaf(table), stage.predict_leaf(table))
 
 
 @pytest.mark.parametrize("name", sorted(SERDE))

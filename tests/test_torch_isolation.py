@@ -161,6 +161,24 @@ def test_the_scan_covers_the_fleet_slice():
         assert m in mods, m
 
 
+def test_the_scan_covers_the_gbdt_slice():
+    """... and so are the GBDT engine's, the hashed featurizer's and the
+    model statistics'."""
+    mods = set(_modules())
+    for m in ("mmlspark_tpu_torch.gbdt", "mmlspark_tpu_torch.gbdt.binning",
+              "mmlspark_tpu_torch.gbdt.objectives",
+              "mmlspark_tpu_torch.gbdt.histogram",
+              "mmlspark_tpu_torch.gbdt.tree", "mmlspark_tpu_torch.gbdt.sparse",
+              "mmlspark_tpu_torch.gbdt.boosting",
+              "mmlspark_tpu_torch.gbdt.delegate",
+              "mmlspark_tpu_torch.gbdt.aggregator",
+              "mmlspark_tpu_torch.gbdt.estimators",
+              "mmlspark_tpu_torch.online", "mmlspark_tpu_torch.online.hashing",
+              "mmlspark_tpu_torch.online.featurizer",
+              "mmlspark_tpu_torch.models.statistics"):
+        assert m in mods, m
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_source_imports_the_repo_tools(path):
     """`tools/` is the JAX package's tooling (the bench gate the JAX

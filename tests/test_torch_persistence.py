@@ -3,8 +3,9 @@
 surface: `FunctionBundle`, and the readers of io/binary.py and
 io/image.py held against the JAX package's on the same files.
 
-1. Each of the nine registered stages (the estimator and the model it
-   fits), a `Pipeline` and a fitted `PipelineModel`, and a `TorchModel`
+1. Each of thirteen registered stages (each estimator and the model it
+   fits; the GBDT, hashed featurizer and statistics stages among them),
+   a `Pipeline` and a fitted `PipelineModel`, and a `TorchModel`
    over a `FunctionBundle` are saved here and loaded in a fresh
    interpreter with the JAX package blocked: a load builds a stage
    without its `__init__`, so the loaded stage must carry everything in
@@ -15,6 +16,9 @@ io/image.py held against the JAX package's on the same files.
    JAX package is imported (checked with it blocked).
 3. A prequantized int8 bundle keeps its int8 buffers through a round
    trip, and a TorchBundle pickles to numpy and plain attributes only.
+4. A fitted GBDT model (dense and hashed-sparse) saves, loads and
+   transforms bit for bit, its forest on the device predictor too; a
+   JAX-saved one is refused, and its model string carries the forest.
 """
 import io
 import json
@@ -52,7 +56,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(ROOT, "tests")
 STAGES = ["ImageTransformer", "ResizeImageTransformer", "UnrollImage",
           "UnrollBinaryImage", "ImageSetAugmenter", "TorchModel",
-          "ImageFeaturizer", "DeepVisionClassifier", "DeepVisionModel"]
+          "ImageFeaturizer", "DeepVisionClassifier", "DeepVisionModel",
+          "GBDTClassifier", "GBDTRegressionModel", "VowpalWabbitFeaturizer",
+          "ComputeModelStatistics"]
 BLOCKER = """
 import importlib.abc, sys
 BLOCKED = ("jax", "jaxlib", "flax", "mmlspark_tpu")
@@ -105,8 +111,8 @@ def test_every_stage_loads_in_a_fresh_interpreter(tmp_path):
     for name in STAGES:
         stage, table = example(name)
         cases[name] = (stage, table)
-        if name == "DeepVisionClassifier":
-            cases["DeepVisionClassifier.model"] = (stage.fit(table), table)
+        if hasattr(stage, "fit"):
+            cases[f"{name}.model"] = (stage.fit(table), table)
     table = img_table(5)
     cases["Pipeline"] = (_pipeline(), table)
     cases["PipelineModel"] = (_pipeline().fit(table), table)
@@ -310,3 +316,43 @@ def test_a_torch_bundle_pickles_to_numpy_and_plain_attributes():
         "state_dict", "layer_names", "input_dtype"}
     assert all(isinstance(v, np.ndarray) for v in bundle.state_dict.values())
     assert loaded.bundle_id == bundle.bundle_id
+
+
+def test_a_fitted_gbdt_model_round_trips_bit_for_bit(tmp_path):
+    from mmlspark_tpu.gbdt import GBDTRegressor as JRegressor
+
+    from mmlspark_tpu_torch.gbdt import Booster, GBDTRegressor
+
+    for name in ("GBDTClassificationModel", "GBDTRegressionModel",
+                 "GBDTRankerModel"):
+        model, table = example(name)
+        want = model.transform(table)
+        model.save(str(tmp_path / name))
+        loaded = PipelineStage.load(str(tmp_path / name))
+        check_params_equal(model, loaded)
+        assert loaded.model_string == model.model_string
+        assert loaded.transform(table).approx_equals(want, rtol=0.0,
+                                                     atol=0.0)
+        np.testing.assert_array_equal(
+            loaded.features_shap(table), model.features_shap(table))
+    # the dense regressor's forest on the device predictor, after a load
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(80, 4))
+    y = x[:, 0] - 2 * x[:, 1]
+    t = Table({"features": x, "label": y})
+    model = GBDTRegressor(num_iterations=6, num_leaves=7, min_data_in_leaf=5,
+                          device="cpu").fit(t)
+    loaded = roundtrip(model)
+    np.testing.assert_array_equal(
+        loaded.booster.raw_scores_jit(x, device="cpu"),
+        model.booster.raw_scores_jit(x, device="cpu"))
+    # a JAX-saved GBDT model is refused by name; its model string carries
+    # the forest across with equal scores
+    jmodel = JRegressor(num_iterations=6, num_leaves=7, min_data_in_leaf=5,
+                        parallelism="serial").fit(
+        __import__("mmlspark_tpu").Table({"features": x, "label": y}))
+    jmodel.save(str(tmp_path / "jax_gbdt"))
+    with pytest.raises(ValueError, match="from_model_string"):
+        PipelineStage.load(str(tmp_path / "jax_gbdt"))
+    bridged = Booster.from_model_string(jmodel.model_string)
+    np.testing.assert_array_equal(bridged.score(x), jmodel.booster.score(x))

@@ -77,3 +77,21 @@ def test_get_stage_class_resolves_in_a_fresh_interpreter(name):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == f"ok {name}", \
         proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name,module", [
+    ("GBDTClassifier", "mmlspark_tpu_torch.gbdt.estimators"),
+    ("LightGBMRanker", "mmlspark_tpu_torch.gbdt.estimators"),
+    ("VowpalWabbitFeaturizer", "mmlspark_tpu_torch.online.featurizer"),
+    ("ComputeModelStatistics", "mmlspark_tpu_torch.models.statistics")])
+def test_the_gbdt_slice_stages_resolve_in_a_fresh_interpreter(name, module):
+    script = (
+        "from mmlspark_tpu_torch.core import registry\n"
+        f"cls = registry.get_stage_class({name!r})\n"
+        f"assert cls.__module__ == {module!r}, cls.__module__\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
+        proc.stdout + proc.stderr

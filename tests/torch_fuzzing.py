@@ -186,7 +186,114 @@ def example(name: str):
     if name == "CustomOutputParser":
         from mmlspark_tpu_torch.io.http.transformers import CustomOutputParser
         return CustomOutputParser(udf=response_status), fake_responses_table()
+    if name in GBDT_EXAMPLES:
+        return gbdt_example(name)
+    if name in ONLINE_STATS_EXAMPLES:
+        return online_stats_example(name)
     raise KeyError(name)
+
+
+# the GBDT stages (as the JAX package's tests/test_fuzzing_coverage.py
+# fuzzes them): an estimator per family, the model it fits, and the
+# LightGBM* aliases, which are the same classes
+GBDT_EXAMPLES = ["GBDTClassifier", "GBDTClassificationModel",
+                 "GBDTRegressor", "GBDTRegressionModel", "GBDTRanker",
+                 "GBDTRankerModel", "LightGBMClassifier", "LightGBMRegressor",
+                 "LightGBMRanker"]
+ONLINE_STATS_EXAMPLES = ["VowpalWabbitFeaturizer", "VowpalWabbitInteractions",
+                         "VectorZipper", "ComputeModelStatistics",
+                         "ComputePerInstanceStatistics"]
+
+
+def cls_table(n=60, seed=46) -> Table:
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 4))
+    y = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(np.float64)
+    return Table({"features": x, "label": y})
+
+
+def reg_table(n=60, seed=47) -> Table:
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 4))
+    return Table({"features": x, "label": 2 * x[:, 0] - x[:, 2] + 0.1 *
+                  rng.normal(size=n)})
+
+
+def rank_table() -> Table:
+    t = reg_table(48)
+    return Table({"features": t["features"],
+                  "label": (np.asarray(t["label"]) > 0).astype(np.float64),
+                  "group": np.repeat(np.arange(8), 6)})
+
+
+def hashed_table() -> Table:
+    from mmlspark_tpu_torch.online import VowpalWabbitFeaturizer
+
+    rng = np.random.default_rng(48)
+    words = [f"w{i}" for i in range(30)]
+    text = np.asarray([" ".join(rng.choice(words, 5)) for _ in range(40)],
+                      object)
+    label = np.asarray([float("w1" in t.split()) for t in text])
+    return VowpalWabbitFeaturizer(
+        input_cols=["text"], output_col="features", num_bits=12,
+        string_split_cols=["text"]).transform(Table({"text": text,
+                                                     "label": label}))
+
+
+def gbdt_example(name: str):
+    from mmlspark_tpu_torch.gbdt import estimators as G
+
+    small = dict(num_leaves=7, min_data_in_leaf=5, device="cpu")
+    family = name.replace("LightGBM", "GBDT").replace("Classification",
+                                                       "Classifier")
+    family = family.replace("RegressionModel", "Regressor").replace(
+        "RankerModel", "Ranker")
+    if family == "GBDTClassifier":
+        # the hashed CSR path for the classifier, dense for the others
+        est, table = G.GBDTClassifier(num_iterations=5, **small), \
+            hashed_table()
+    elif family == "GBDTRegressor":
+        est, table = G.GBDTRegressor(num_iterations=5, boosting_type="dart",
+                                     **small), reg_table()
+    else:
+        est, table = G.GBDTRanker(num_iterations=4, num_leaves=7,
+                                  min_data_in_leaf=3, device="cpu"), \
+            rank_table()
+    if name.endswith("Model"):
+        return est.fit(table), table
+    return est, table
+
+
+def online_stats_example(name: str):
+    from mmlspark_tpu_torch.models import statistics as S
+    from mmlspark_tpu_torch.online import featurizer as F
+
+    if name == "VowpalWabbitFeaturizer":
+        text = np.asarray(["good movie", "bad film", "good film"], object)
+        return F.VowpalWabbitFeaturizer(input_cols=["text", "n"], num_bits=10,
+                                        string_split_cols=["text"]), \
+            Table({"text": text, "n": np.array([1.0, 0.0, 2.5])})
+    if name == "VowpalWabbitInteractions":
+        t = Table({"a": np.arange(4.0), "b": np.arange(4.0) * 3})
+        t = F.VowpalWabbitFeaturizer(input_cols=["a"], output_col="na",
+                                     num_bits=10).transform(t)
+        t = F.VowpalWabbitFeaturizer(input_cols=["b"], output_col="nb",
+                                     num_bits=10).transform(t)
+        return F.VowpalWabbitInteractions(input_cols=["na", "nb"],
+                                          num_bits=10), t
+    if name == "VectorZipper":
+        return F.VectorZipper(input_cols=["value", "k"], output_col="zipped"), \
+            Table({"value": np.array([1.0, 2.0, 3.0]),
+                   "k": np.array([4, 5, 6])})
+    if name == "ComputeModelStatistics":
+        t = Table({"label": np.array([0.0, 1.0, 1.0, 0.0]),
+                   "prediction": np.array([0.0, 1.0, 0.0, 0.0]),
+                   "scores": np.array([0.2, 0.9, 0.4, 0.1])})
+        return S.ComputeModelStatistics(evaluation_metric="classification"), t
+    t = Table({"label": np.array([1, 0]), "prediction": np.array([1.0, 0.0]),
+               "scores": np.array([[0.2, 0.8], [0.7, 0.3]])})
+    return S.ComputePerInstanceStatistics(
+        evaluation_metric="classification"), t
 
 
 def serde_example(name: str):
