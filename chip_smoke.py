@@ -236,11 +236,13 @@ exit, no result line) if anything in it fails:
    histograms against each source's own `/metrics.json`, exactly; a
    client `X-Trace-Id` stitched by `/trace/<id>` into a gateway span
    over a replica child; `/fleet/alerts`' SLO states.
-   (b) a second query over the same bundle with int8 pools registered as
-   version v2; `RolloutController` (canary weight 0.25) promotes it on
+   (b) a rollout between two queries over the same bundle with int8
+   pools: v1 behind `distributed_server(replicas=2)`, v2 one replica,
+   both under a gateway of their own (fresh per-version latency
+   windows); `RolloutController` (canary weight 0.25) promotes v2 on
    `ROLLOUT_METRICS` while clients keep posting, and v1's replicas are
    drained and retired: every answer 200 with 64 tokens, B8 once a layer
-   a v2 tick and B7 a v1 tick, exactly.
+   a tick of either version, exactly.
    (d) the featurizer pipeline of tests/test_serving_model.py (base64
    JPEG -> ImageFeaturizer(ResNet-50, 224x224) -> reply) behind
    `DistributedServingServer(replicas=2)` and a gateway, the client a
@@ -271,6 +273,30 @@ exit, no result line) if anything in it fails:
    train AUC above 0.9, peak device memory below N x 2^18 bytes, the
    root COO histogram against its plain function on the CPU; ms an
    iteration.
+16. the classic-ML slice (after phase 15; its seconds on a line of their
+   own; no kernel: host numpy featurization and stages, as in the JAX
+   package, and the linear learners' plain PyTorch products on the card):
+   the host library (`native/src/host.cpp`, g++) builds and its
+   `murmur3_batch` equals the Python `murmurhash3_32` over 1M strings
+   (both timed); (a) an Adult-shaped table (UCI Adult's 32,561 / 16,281
+   split, six numeric columns, eight categoricals with Adult's level
+   counts, a string label) through `TrainClassifier()` at its defaults
+   on the card, held against the CPU fit (weights within 1e-4 of max |w|,
+   scores within 5e-2, the same predictions where the CPU's top
+   probability is at least 0.55; the CPU fit's weights scored on the card
+   within 1e-3), and a control fit with TF32 on and the learners'
+   full-f32 guard bypassed outside the weight limit; scored with `ComputeModelStatistics`, saved, loaded and
+   scored again bit for bit; (b) example 21's flight delays at On-Time
+   Performance widths, 200,000 rows: the numeric columns through a CSV
+   that `read_csv` parses on the host library (equal to np.loadtxt's),
+   `CleanMissingData` -> `TrainRegressor()` with the ridge solved in f64
+   on the card, weights within 1e-4 of max |w| and predictions within
+   1e-8 of max |prediction| of the CPU fit's; (c) example 23's book
+   reviews, 20,000, `TextFeaturizer(num_features=4096)` ->
+   `LogisticRegression` on the card, held-out accuracy above 0.85.
+   Printed for each: the fit's wall time split into host featurization
+   and device learner, ms an Adam step (CUDA events) or the ridge's ms,
+   rows/s and peak device memory.
 9. record: a `{"kernels": [...]}` JSON line (the eight TPU kernels and
    C2), the nvidia-smi line, and last the `{"ok": true, "device": ...}`
    line.
@@ -280,6 +306,7 @@ Imports nothing of JAX or of the JAX package, and no PIL itself (phase
 does): the images, tokens and weights are made from seeds, the JPEGs
 are the committed fixtures.
 """
+import contextlib
 import json
 import re
 import math
@@ -427,6 +454,11 @@ DISTILL_LAYERS, DISTILL_BATCH, DISTILL_STEPS = 2, 8, 4
 # rows, 8 requests in flight) and its features against the direct run
 FLEET_REPLICAS = 2
 CANARY_WEIGHT, CANARY_MIN = 0.25, 6
+# phase 14 (b)'s clients post in rounds of this many requests: with 4 a
+# round, a third of the rounds sent the canary none, so about 40% of the
+# base's requests ran while the canary's batcher was idle, up to twice as
+# fast as any canary request; with 8 (the slot count) a tenth do
+ROLLOUT_CLIENTS = SERVE_SLOTS
 FLEET_ROWS, FLEET_CONCURRENCY = 64, 8
 FLEET_FEATURES_RTOL = 2e-2   # relative L2, bf16 forward on both sides
 
@@ -441,6 +473,37 @@ GBDT_ROWS, GBDT_HOLD, GBDT_FEATURES = 1_000_000, 100_000, 28
 GBDT_ITERS, GBDT_CPU_ITERS = 10, 2
 GBDT_TEXT_ROWS, GBDT_TEXT_ITERS = 50_000, 12
 GBDT_TOL, GBDT_AUC_GAP = 1e-4, 2e-3
+
+# the classic-ML slice (phase 16): MMLSpark's TrainClassifier sample, UCI
+# Adult (its 32,561 / 16,281 split, six numeric columns, eight
+# categoricals with Adult's level counts, "?" included: 108 features);
+# example 21's flight delays at On-Time Performance widths (14 carriers,
+# ~300 origin and ~300 destination airports, hashed at 256 dimensions
+# each), cut to 200,000 rows for the phase's time; example 23's book
+# reviews (hashed TF-IDF at 4,096 dimensions, a 75/25 split)
+ADULT_TRAIN, ADULT_TEST = 32_561, 16_281
+ADULT_LEVELS = (("workclass", 9, True), ("education", 16, False),
+                ("marital-status", 7, False), ("occupation", 15, True),
+                ("relationship", 6, False), ("race", 5, False),
+                ("sex", 2, False), ("native-country", 42, True))
+FLIGHT_ROWS, FLIGHT_CARRIERS, FLIGHT_AIRPORTS = 200_000, 14, 300
+REVIEW_ROWS, REVIEW_TRAIN, REVIEW_FEATURES = 20_000, 15_000, 4096
+REVIEW_STEPS, REVIEW_ACC = 150, 0.85
+MURMUR_STRINGS = 1_000_000
+# the card's fit against the CPU's (f32 Adam: its scale-free step turns
+# rounding in a near-zero gradient into a step of up to lr, and Adult's
+# raw columns, fnlwgt near 1e5, give logits in the thousands): weights
+# within this of max |w|, scores within this, and the same predictions
+# where the CPU's top probability is at least LR_FAR; the same weights on
+# both devices within LR_SAME_ATOL (f32 products in another order);
+# the f64 ridge: weights within this of max |w| (the one-hot and hashed
+# blocks each sum to the intercept, a null space the 1e-6 ridge alone
+# pins) and predictions within this of max |prediction|.  The weight
+# limits are those of tests/test_torch_cuda.py's card fits; phase 16 (a)
+# also fits with TF32 on and the learners' full-f32 guard bypassed, a
+# control that must miss LR_W_RTOL
+LR_W_RTOL, LR_SCORE_ATOL, LR_FAR, LR_SAME_ATOL = 1e-4, 5e-2, 0.55, 1e-3
+RIDGE_W_RTOL, RIDGE_PRED_RTOL = 1e-4, 1e-8
 
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
@@ -4271,25 +4334,36 @@ def fleet_telemetry_check(gw, query):
         f"/fleet/alerts: {states}")
 
 
-def fleet_rollout(gw, v1, bundle, url):
-    """Phase 14 (b): a second query over the same bundle with int8 pools
-    (B8), registered as version v2; a `RolloutController` canary that
-    promotes on `ROLLOUT_METRICS`, then v1's replicas drained and retired
-    while clients keep posting.  Returns {kernel: launches}."""
+def fleet_rollout(bundle, url):
+    """Phase 14 (b): two queries over the same bundle with int8 pools
+    (B8): v1 behind `distributed_server(replicas=2)`, v2 one replica
+    registered as version v2; a `RolloutController` canary that promotes
+    on `ROLLOUT_METRICS`, then v1's replicas drained and retired while
+    clients keep posting.  The rollout has a gateway of its own, started
+    with both versions in the registry, so each version's latency window
+    holds only requests served while both batchers share the host, and
+    the clients post ROLLOUT_CLIENTS at a time, so that both batchers
+    are busy in almost every round.  Both versions keep int8 pools: an
+    int8 tick costs 1.4 x a bf16 one on the host (phase 12).  Returns
+    {kernel: launches}."""
     import threading
 
     import numpy as np
-    from mmlspark_tpu_torch.serving import (RolloutController, ServiceInfo,
-                                            register_service)
+    from mmlspark_tpu_torch.serving import (FleetGateway, RolloutController,
+                                            ServiceInfo, register_service)
 
-    v2 = start_lm_fleet(bundle, "fleet-lm-v2", 1, None, SERVE_NEW,
+    v1 = start_lm_fleet(bundle, "fleet-lm-int8", FLEET_REPLICAS, url,
+                        SERVE_NEW, SERVE_SLOTS, kv_cache_dtype="int8")
+    v2 = start_lm_fleet(bundle, "fleet-lm-int8-v2", 1, None, SERVE_NEW,
                         SERVE_SLOTS, kv_cache_dtype="int8")
     prefills = None
     try:
         i2 = v2.service_info
-        register_service(url, ServiceInfo("fleet-lm", i2.host, i2.port,
+        register_service(url, ServiceInfo("fleet-lm-int8", i2.host, i2.port,
                                           i2.path, version="v2"))
-        gw.sync_registry()
+        gw = FleetGateway(name="fleet-lm-int8", registry_url=url,
+                          probe_interval_s=5.0)
+        gw.start()
         versions = sorted(r.version for r in gw.replicas())
         if versions != ["v1"] * FLEET_REPLICAS + ["v2"]:
             fail(f"gateway versions after the v2 registration: {versions}")
@@ -4311,10 +4385,10 @@ def fleet_rollout(gw, v1, bundle, url):
                 while not stop.is_set():
                     bodies = [{"prompt": rng.integers(
                         0, LM["vocab_size"], n).tolist()}
-                        for n in rng.integers(16, 400, 4)]
+                        for n in rng.integers(16, 400, ROLLOUT_CLIENTS)]
                     posted.extend(bodies)
                     results.extend(post_streams(gi.host, gi.port, gi.path,
-                                                bodies, 4))
+                                                bodies, ROLLOUT_CLIENTS))
             except BaseException as e:  # noqa: BLE001 — reported below
                 errors.append(repr(e))
 
@@ -4346,20 +4420,22 @@ def fleet_rollout(gw, v1, bundle, url):
     served = gw.version_stats("v2")["requests"]
     layers = LM["num_layers"]
     want = dict(NO_LAUNCHES, flash_attention_fwd=layers * prefills.forwards,
-                paged_decode_attention=layers * t1.ticks,
-                paged_decode_attention_int8=layers * t2.ticks)
+                paged_decode_attention_int8=layers * (t1.ticks + t2.ticks))
     rows = {r["metric"]: (round(r["base"], 4), round(r["fresh"], 4),
                           r["regressed"]) for r in ctl.last_rows}
-    log(f"[fleet] rollout: v2 (int8 pools) canary at weight {CANARY_WEIGHT}"
+    log(f"[fleet] rollout (int8 pools, v1 on {FLEET_REPLICAS} replicas): "
+        f"v2 canary at weight {CANARY_WEIGHT}"
         f" promoted after {promoted_s:.2f} s on rows {rows}; v1's "
         f"{FLEET_REPLICAS} replicas drained and retired; {len(toks)} "
         f"requests during the rollout, every one 200 with {SERVE_NEW} "
         f"tokens; v2 served {served}; ticks v1 {t1.ticks} v2 {t2.ticks}, "
         f"{prefills.forwards} admission prefill forwards; launches "
         f"{launches}")
-    if launches != want or t2.ticks == 0 or served == 0:
+    if launches != want or t1.ticks == 0 or t2.ticks == 0 or served == 0:
         fail(f"rollout launches {launches}, expected {want} (v2 served "
              f"{served})")
+    gw.stop()
+    v1.stop()
     v2.stop()
     return launches
 
@@ -4463,7 +4539,7 @@ def fleet_lm_path(card):
             f"concurrent requests, in turns; {card})")
         out.append(launches)
         fleet_telemetry_check(gw, query)
-        out.append(fleet_rollout(gw, query, bundle, url))
+        out.append(fleet_rollout(bundle, url))
     finally:
         if prefills is not None:
             prefills.remove()
@@ -5005,6 +5081,485 @@ def gbdt_sparse_path(card) -> None:
         fail(f"GBDT COO histogram: card vs CPU {err} > {GBDT_TOL}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the classic-ML slice
+# ---------------------------------------------------------------------------
+
+def adult_like(n: int, seed: int) -> dict:
+    """UCI Adult's columns, made from a seed: age, fnlwgt, education-num,
+    capital-gain, capital-loss and hours-per-week (int64, in Adult's
+    ranges: 92% and 95% of the capital columns zero), the eight
+    categoricals with Adult's level counts ("?" a level of workclass,
+    occupation and native-country) and the string label "income",
+    ">50K" for about 24% of the rows by a fixed rule plus logistic
+    noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cols = {
+        "age": np.clip(rng.gamma(6.0, 3.6, n) + 17, 17, 90).astype(np.int64),
+        "fnlwgt": np.clip(rng.lognormal(12.0, 0.55, n), 12_285,
+                          1_484_705).astype(np.int64),
+        "education-num": np.clip(np.round(rng.normal(10.1, 2.6, n)), 1,
+                                 16).astype(np.int64),
+        "capital-gain": np.where(
+            rng.random(n) < 0.083,
+            np.where(rng.random(n) < 0.05, 99_999,
+                     np.minimum(rng.lognormal(8.5, 0.8, n), 99_998)),
+            0).astype(np.int64),
+        "capital-loss": np.where(rng.random(n) < 0.047,
+                                 rng.normal(1_900, 350, n), 0).clip(
+                                     0, 4_356).astype(np.int64),
+        "hours-per-week": np.clip(np.round(rng.normal(40.4, 12.3, n)), 1,
+                                  99).astype(np.int64),
+    }
+    score = (0.04 * (cols["age"] - 38) + 0.35 * (cols["education-num"] - 10)
+             + 0.03 * (cols["hours-per-week"] - 40)
+             + 2.5 * (cols["capital-gain"] > 5_000)
+             + 0.8 * (cols["capital-loss"] > 1_500))
+    for name, k, unknown in ADULT_LEVELS:
+        levels = (["?"] if unknown else []) + \
+            [f"{name}-{i}" for i in range(k - unknown)]
+        idx = rng.choice(k, n, p=rng.dirichlet(np.full(k, 0.8)))
+        cols[name] = np.asarray(levels, object)[idx]
+        score = score + rng.normal(0.0, 0.6, k)[idx]
+    score = score + 0.8 * rng.logistic(size=n)
+    cols["income"] = np.where(score > np.quantile(score, 0.76), ">50K",
+                              "<=50K").astype(object)
+    return cols
+
+
+def flights_like(n: int, seed: int) -> dict:
+    """Example 21's flight rows at On-Time Performance widths, made from a
+    seed: 14 carriers, FLIGHT_AIRPORTS origin and destination airports
+    (three-letter codes, Zipf-like traffic), departure hour (8% NaN),
+    day of week, distance (from the airports' places, 5% NaN) and the
+    delay in minutes (example 21's rule: the evening cascade, a
+    carrier's and a hub's effect, distance, noise)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    codes = []
+    while len(codes) < FLIGHT_AIRPORTS:
+        c = "".join(rng.choice(letters, 3))
+        if c not in codes:
+            codes.append(c)
+    codes = np.asarray(codes, object)
+    place = rng.uniform((0.0, 0.0), (2_500.0, 1_200.0), (FLIGHT_AIRPORTS, 2))
+    traffic = 1.0 / np.arange(1, FLIGHT_AIRPORTS + 1) ** 0.8
+    traffic /= traffic.sum()
+    origin = rng.choice(FLIGHT_AIRPORTS, n, p=traffic)
+    dest = (origin + 1 + rng.choice(FLIGHT_AIRPORTS - 1, n,
+                                    p=np.roll(traffic, -1)[:-1] /
+                                    np.roll(traffic, -1)[:-1].sum())) \
+        % FLIGHT_AIRPORTS
+    carriers = np.asarray(["AA", "AS", "B6", "DL", "EV", "F9", "G4", "HA",
+                           "MQ", "NK", "OH", "OO", "UA", "WN"], object)
+    carrier = rng.choice(FLIGHT_CARRIERS, n)
+    dep_hour = rng.integers(5, 23, n).astype(np.float64)
+    day = rng.integers(1, 8, n).astype(np.int64)
+    distance = np.hypot(*(place[origin] - place[dest]).T) + 50.0
+    delay = (3.0 * (dep_hour - 12).clip(0)
+             + rng.normal(0.0, 4.0, FLIGHT_CARRIERS)[carrier]
+             + rng.gamma(1.0, 4.0, FLIGHT_AIRPORTS)[origin]
+             + 1.5 * (day >= 5) + 0.004 * distance
+             + rng.normal(size=n) * 5.0)
+    dep_hour[rng.random(n) < 0.08] = np.nan
+    distance[rng.random(n) < 0.05] = np.nan
+    return {"carrier": carriers[carrier], "origin": codes[origin],
+            "dest": codes[dest], "dep_hour": dep_hour, "day_of_week": day,
+            "distance": distance, "delay": delay}
+
+
+# example 23's review words (examples/23_text_analytics_word2vec.py)
+REVIEW_POS = ["wonderful", "gripping", "masterful", "delightful", "superb"]
+REVIEW_NEG = ["tedious", "shallow", "clumsy", "dreadful", "forgettable"]
+REVIEW_FILL = ["the", "book", "plot", "chapters", "author", "characters",
+               "story", "prose", "pacing", "ending"]
+
+
+def book_reviews(n: int, seed: int):
+    """Example 23's synthetic book reviews: (texts, 1-5 star ratings);
+    seven filler words and two words of the rating's sentiment."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    texts, stars = [], []
+    for _ in range(n):
+        rating = int(rng.integers(1, 6))
+        lex = REVIEW_POS if rating > 3 else REVIEW_NEG
+        words = list(rng.choice(REVIEW_FILL, size=7))
+        for _k in range(2):
+            words.insert(int(rng.integers(len(words))), str(rng.choice(lex)))
+        texts.append(" ".join(words))
+        stars.append(rating)
+    return np.asarray(texts, object), np.asarray(stars)
+
+
+@contextlib.contextmanager
+def timed_fits(cls):
+    """Wall seconds of each `cls._fit` call (the learner: the features'
+    upload, the fit on the device, the weights' download), the device
+    synchronized on both sides."""
+    import torch
+
+    spans, orig = [], cls._fit
+
+    def wrapped(self, table):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(self, table)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t)
+        return out
+
+    cls._fit = wrapped
+    try:
+        yield spans
+    finally:
+        cls._fit = orig
+
+
+def adam_step_ms(x, y, n_classes: int, steps: int) -> float:
+    """ms an Adam step of `linear.fit_logistic` at the learners' defaults
+    on device tensors (CUDA events around `steps` steps)."""
+    import torch
+
+    from mmlspark_tpu_torch.models import linear as L
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    L.fit_logistic(x, y, n_classes, 1e-4, steps, 0.1)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def weights_gap(a: dict, b: dict) -> float:
+    """max |a - b| over a linear model's weights and bias, over max |a|."""
+    import numpy as np
+
+    wa = np.concatenate([np.ravel(a["w"]), np.ravel(a["b"])])
+    wb = np.concatenate([np.ravel(b["w"]), np.ravel(b["b"])])
+    return float(np.abs(wa - wb).max() / np.abs(wa).max())
+
+
+def tf32_fit_gap(x, y, n_classes: int, want: dict) -> float:
+    """The control for LR_W_RTOL: `linear.fit_logistic` at the learners'
+    defaults on device tensors with TF32 on and the module's full-f32
+    guard bypassed; its weights' gap to `want` (as `weights_gap`)."""
+    import contextlib
+
+    import torch
+
+    from mmlspark_tpu_torch.models import linear as L
+
+    guard = L._full_f32
+    L._full_f32 = contextlib.nullcontext
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        w, b, _ = L.fit_logistic(x, y, n_classes, 1e-4, 200, 0.1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        L._full_f32 = guard
+    return weights_gap(want, {"w": w.cpu().numpy(), "b": b.cpu().numpy()})
+
+
+def peak_mib(base: int) -> str:
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    return (f"peak device memory {(peak - base) / 2**20:.1f} MiB above the "
+            f"start ({peak / 2**20:.1f} MiB in all)")
+
+
+def adult_path(card) -> None:
+    """Phase 16 (a): TrainClassifier at its defaults on the Adult-shaped
+    table on the card, held against the CPU fit; scored with
+    ComputeModelStatistics; saved, loaded and scored again."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mmlspark_tpu_torch import PipelineStage, Table
+    from mmlspark_tpu_torch.models.linear import (LogisticRegression,
+                                                  LogisticRegressionModel)
+    from mmlspark_tpu_torch.models.statistics import ComputeModelStatistics
+    from mmlspark_tpu_torch.models.train_classifier import TrainClassifier
+
+    cols = adult_like(ADULT_TRAIN + ADULT_TEST, seed=16)
+    train = Table({k: v[:ADULT_TRAIN] for k, v in cols.items()})
+    test = Table({k: v[ADULT_TRAIN:] for k, v in cols.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with timed_fits(LogisticRegression) as learner:
+        t0 = time.perf_counter()
+        model = TrainClassifier(label_col="income").fit(train)
+        fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scored = model.transform(test)
+    score_s = time.perf_counter() - t0
+    memory = peak_mib(base)
+    n_feat = model.featurizer.transform(test.slice(0, 1))["features"].shape[1]
+    lm = model.label_model.levels
+    t0 = time.perf_counter()
+    cpu = TrainClassifier(label_col="income", device="cpu").fit(train)
+    cpu_s = time.perf_counter() - t0
+    cpu_scored = cpu.transform(test)
+
+    # the card's fit against the CPU's: weights, scores, predictions
+    gap = weights_gap(cpu.inner_model.weights, model.inner_model.weights)
+    s_card, s_cpu = scored["scores"], cpu_scored["scores"]
+    score_err = float(np.abs(s_card - s_cpu).max())
+    far = s_cpu.max(axis=1) >= LR_FAR
+    differ = np.asarray(scored["prediction"]) != \
+        np.asarray(cpu_scored["prediction"])
+    # the CPU fit's weights on both devices: the transform alone
+    same_w = LogisticRegressionModel(
+        weights=cpu.inner_model.weights, device="cuda").transform(
+            cpu.featurizer.transform(test))["scores"]
+    same_err = float(np.abs(same_w - s_cpu).max())
+
+    # held-out statistics over the restored string labels
+    def stats(out):
+        t = Table({"label": [lm.get_index(v) for v in test["income"]],
+                   "prediction": [lm.get_index(v)
+                                  for v in out["prediction"]],
+                   "scores": out["scores"]})
+        return ComputeModelStatistics(
+            evaluation_metric="classification").transform(t)
+
+    st, st_cpu = stats(scored), stats(cpu_scored)
+    x = torch.as_tensor(model.featurizer.transform(
+        model.label_model.transform(train))["features"], device="cuda")
+    y = torch.as_tensor(np.asarray([lm.get_index(v)
+                                    for v in train["income"]]),
+                        device="cuda")
+    step_ms = adam_step_ms(x, y, 2, 200)
+    tf32_gap = tf32_fit_gap(x, y, 2, cpu.inner_model.weights)
+    del x, y
+    log(f"[phase 16] (a) Adult-shaped {ADULT_TRAIN} + {ADULT_TEST} rows, "
+        f"{n_feat} features, label '>50K' for "
+        f"{np.mean(cols['income'] == '>50K'):.4f}: TrainClassifier() on "
+        f"the card (LogisticRegression, 200 Adam steps, lr 0.1) fit "
+        f"{fit_s:.3f} s = host featurization {fit_s - sum(learner):.3f} s "
+        f"+ device learner {sum(learner):.3f} s; {step_ms:.4f} ms an Adam "
+        f"step (CUDA events, 200 steps); {ADULT_TRAIN / fit_s:,.0f} training"
+        f" rows/s; scoring {ADULT_TEST / score_s:,.0f} rows/s; {memory} "
+        f"({card})")
+    acc, auc = float(st["accuracy"][0]), float(st["AUC"][0])
+    acc_cpu, auc_cpu = float(st_cpu["accuracy"][0]), float(st_cpu["AUC"][0])
+    log(f"[phase 16] (a) held-out accuracy {acc:.6f}, AUC {auc:.6f} (CPU "
+        f"fit {acc_cpu:.6f}, {auc_cpu:.6f}; the CPU fit {cpu_s:.2f} s); "
+        f"card vs CPU fit: weights {gap:.3g} of max |w| (limit {LR_W_RTOL}),"
+        f" scores {score_err:.3g} (limit {LR_SCORE_ATOL}), predictions "
+        f"differing {int(differ.sum())} ({int(differ[far].sum())} where the "
+        f"CPU's top probability >= {LR_FAR}); the same weights on both "
+        f"devices: scores {same_err:.3g} (limit {LR_SAME_ATOL}); the "
+        f"control, the card's fit with TF32 on and the full-f32 guard "
+        f"bypassed: weights {tf32_gap:.3g} of max |w| (must exceed "
+        f"{LR_W_RTOL})")
+    if not tf32_gap > LR_W_RTOL:
+        fail(f"Adult: a TF32 fit's weights {tf32_gap} lie within the "
+             f"limit {LR_W_RTOL}: the limit does not tell it from a full "
+             f"f32 fit")
+    if not (gap <= LR_W_RTOL and score_err <= LR_SCORE_ATOL
+            and not differ[far].any() and same_err <= LR_SAME_ATOL):
+        fail(f"Adult: the card's TrainClassifier fit against the CPU's: "
+             f"weights {gap}, scores {score_err}, predictions away from "
+             f"the boundary {int(differ[far].sum())}, same weights "
+             f"{same_err}")
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        t0 = time.perf_counter()
+        model.save(os.path.join(d, "adult"))
+        loaded = PipelineStage.load(os.path.join(d, "adult"))
+        io_s = time.perf_counter() - t0
+    again = loaded.transform(test)
+    if not (again.approx_equals(scored, rtol=0.0, atol=0.0)
+            and list(again["prediction"]) == list(scored["prediction"])):
+        fail("Adult: the loaded TrainedClassifierModel's output differs "
+             "from the unsaved model's")
+    log(f"[phase 16] (a) TrainedClassifierModel saved and loaded in "
+        f"{io_s:.3f} s; the loaded model's output equals the unsaved "
+        f"model's bit for bit")
+
+
+def flights_path(card) -> None:
+    """Phase 16 (b): example 21's flight delays: the numeric columns
+    through a CSV that `read_csv` parses on the host library, then
+    CleanMissingData -> TrainRegressor() with the ridge solved in f64 on
+    the card, held against the CPU fit."""
+    import numpy as np
+    import torch
+
+    from mmlspark_tpu_torch import Table, native
+    from mmlspark_tpu_torch.featurize import CleanMissingData
+    from mmlspark_tpu_torch.io.binary import read_csv
+    from mmlspark_tpu_torch.models import linear as L
+    from mmlspark_tpu_torch.models.statistics import ComputeModelStatistics
+    from mmlspark_tpu_torch.models.train_classifier import TrainRegressor
+
+    cols = flights_like(FLIGHT_ROWS, seed=21)
+    numeric = ["dep_hour", "day_of_week", "distance", "delay"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "flights.csv")
+    t0 = time.perf_counter()
+    np.savetxt(path, np.column_stack([cols[c] for c in numeric]),
+               delimiter=",", header=",".join(numeric), comments="",
+               fmt="%.17g")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csv = read_csv(path)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = native.load_csv_numeric_plain(path)
+    plain_s = time.perf_counter() - t0
+    mib = os.path.getsize(path) / 2**20
+    os.remove(path)
+    for i, c in enumerate(numeric):
+        if not (np.array_equal(csv[c], np.asarray(cols[c], np.float64),
+                               equal_nan=True)
+                and np.array_equal(csv[c], plain[:, i], equal_nan=True)):
+            fail(f"flights: read_csv's column {c} differs from the data "
+                 f"written or from np.loadtxt's")
+    table = Table({**{c: cols[c] for c in ("carrier", "origin", "dest")},
+                   **{c: csv[c] for c in numeric}})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cleaned = CleanMissingData(input_cols=numeric[:3]).fit(table).transform(
+        table)
+    clean_s = time.perf_counter() - t0
+    with timed_fits(L.LinearRegression) as learner:
+        t0 = time.perf_counter()
+        model = TrainRegressor(label_col="delay").fit(cleaned)
+        fit_s = time.perf_counter() - t0
+    memory = peak_mib(base)
+    t0 = time.perf_counter()
+    cpu = TrainRegressor(label_col="delay", device="cpu").fit(cleaned)
+    cpu_s = time.perf_counter() - t0
+    gap = weights_gap(cpu.inner_model.weights, model.inner_model.weights)
+    pred = np.asarray(model.transform(cleaned)["prediction"])
+    pred_cpu = np.asarray(cpu.transform(cleaned)["prediction"])
+    pred_err = float(np.abs(pred - pred_cpu).max() / np.abs(pred_cpu).max())
+    r2 = float(ComputeModelStatistics(
+        label_col="delay", evaluation_metric="regression").transform(
+            cleaned.with_column("prediction", pred))["r2"][0])
+    x = torch.as_tensor(model.featurizer.transform(cleaned)["features"],
+                        device="cuda")
+    y = torch.as_tensor(np.asarray(cleaned["delay"]), device="cuda")
+    solve_ms = cuda_ms(lambda: L.solve_ridge(x, y, 1e-6), 3)
+    d = x.shape[1] + 1
+    del x, y
+    log(f"[phase 16] (b) flights {FLIGHT_ROWS} rows: a {mib:.1f} MiB CSV "
+        f"of the 4 numeric columns written in {write_s:.2f} s, read_csv on "
+        f"the host library {read_s:.3f} s (np.loadtxt {plain_s:.3f} s, "
+        f"equal); CleanMissingData {clean_s:.3f} s; TrainRegressor() on "
+        f"the card (X~ {FLIGHT_ROWS} x {d} f64, "
+        f"{FLIGHT_ROWS * d * 8 / 2**20:.0f} MiB) fit {fit_s:.3f} s = host "
+        f"featurization {fit_s - sum(learner):.3f} s + device learner "
+        f"{sum(learner):.3f} s; the f64 ridge {solve_ms:.3f} ms (CUDA "
+        f"events, 3 back to back: Gram, X~'y, solve); "
+        f"{FLIGHT_ROWS / fit_s:,.0f} rows/s; {memory} ({card})")
+    log(f"[phase 16] (b) training r2 {r2:.6f}; card vs CPU fit ({cpu_s:.2f}"
+        f" s): weights {gap:.3g} of max |w| (limit {RIDGE_W_RTOL}), "
+        f"predictions {pred_err:.3g} of max |prediction| (limit "
+        f"{RIDGE_PRED_RTOL})")
+    if not (gap <= RIDGE_W_RTOL and pred_err <= RIDGE_PRED_RTOL):
+        fail(f"flights: the card's ridge against the CPU's: weights {gap}, "
+             f"predictions {pred_err}")
+
+
+def reviews_path(card) -> None:
+    """Phase 16 (c): example 23's hashed TF-IDF reviews into
+    LogisticRegression on the card; held-out accuracy above 0.85."""
+    import numpy as np
+    import torch
+
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.featurize import TextFeaturizer
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+
+    texts, stars = book_reviews(REVIEW_ROWS, seed=2)
+    labels = (stars > 3).astype(np.float64)
+    cut = REVIEW_TRAIN
+    t0 = time.perf_counter()
+    tf = TextFeaturizer(input_col="text", output_col="features",
+                        num_features=REVIEW_FEATURES).fit(
+                            Table({"text": texts[:cut]}))
+    train_x = tf.transform(Table({"text": texts[:cut]}))["features"]
+    test_x = tf.transform(Table({"text": texts[cut:]}))["features"]
+    feat_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with timed_fits(LogisticRegression) as learner:
+        t0 = time.perf_counter()
+        clf = LogisticRegression(max_iter=REVIEW_STEPS).fit(
+            Table({"features": train_x, "label": labels[:cut]}))
+        fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = np.asarray(clf.transform(
+        Table({"features": test_x}))["prediction"])
+    score_s = time.perf_counter() - t0
+    memory = peak_mib(base)
+    acc = float(np.mean(pred == labels[cut:]))
+    x = torch.as_tensor(train_x, device="cuda")
+    y = torch.as_tensor(labels[:cut].astype(np.int64), device="cuda")
+    step_ms = adam_step_ms(x, y, 2, REVIEW_STEPS)
+    del x, y
+    log(f"[phase 16] (c) book reviews {REVIEW_ROWS} ({cut} to train, "
+        f"{train_x.nbytes / 2**20:.0f} MiB of f32 features): "
+        f"TextFeaturizer(num_features={REVIEW_FEATURES}) fit + transform "
+        f"on the host {feat_s:.3f} s; LogisticRegression(max_iter="
+        f"{REVIEW_STEPS}) on the card fit {fit_s:.3f} s (device learner "
+        f"{sum(learner):.3f} s); {step_ms:.4f} ms an Adam step (CUDA "
+        f"events); {cut / (feat_s * cut / REVIEW_ROWS + fit_s):,.0f} "
+        f"training rows/s (featurization included); scoring "
+        f"{(REVIEW_ROWS - cut) / score_s:,.0f} rows/s; held-out accuracy "
+        f"{acc:.6f} (limit > {REVIEW_ACC}); {memory} ({card})")
+    if not acc > REVIEW_ACC:
+        fail(f"book reviews: held-out accuracy {acc} <= {REVIEW_ACC}")
+
+
+def host_library_path() -> None:
+    """Phase 16: the host library builds here (g++) and its murmur3
+    agrees with the Python hash on 1M strings."""
+    import numpy as np
+
+    from mmlspark_tpu_torch import native
+    from mmlspark_tpu_torch.online.hashing import murmurhash3_32
+
+    t0 = time.perf_counter()
+    try:
+        native.host_library()
+    except native.HostLibraryError as e:
+        fail(f"the host library did not build: {e}")
+    build_s = time.perf_counter() - t0
+    strings = [f"feature_{i}={i * 7919 % 1_000_003}"
+               for i in range(MURMUR_STRINGS)]
+    t0 = time.perf_counter()
+    got = native.murmur3_batch(strings, seed=42)
+    lib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = np.array([murmurhash3_32(s.encode(), 42) for s in strings],
+                    np.uint32)
+    py_s = time.perf_counter() - t0
+    log(f"[phase 16] host library (native/src/host.cpp, g++) built in "
+        f"{build_s:.2f} s; murmur3_batch over {MURMUR_STRINGS:,} strings "
+        f"{lib_s:.3f} s against {py_s:.3f} s for the Python "
+        f"murmurhash3_32, equal: {np.array_equal(got, want)}")
+    if not np.array_equal(got, want):
+        fail("murmur3_batch differs from murmurhash3_32")
+
+
 def int8_gemm_timing(card) -> None:
     """`torch._int_mm` at the ViT-B/16 qkv shape of one chunk against a
     bf16 `torch.matmul` at the same shape, each from calls queued behind
@@ -5310,6 +5865,19 @@ def main() -> None:
     gbdt_dense_path(card)
     gbdt_sparse_path(card)
     log(f"[phase 15] {time.perf_counter() - t15:.1f} s")
+
+    # ---- 16. the classic-ML slice ----------------------------------------
+    t16 = time.perf_counter()
+    zero_launches()
+    host_library_path()
+    adult_path(card)
+    flights_path(card)
+    reviews_path(card)
+    classic = read_launches()
+    log(f"[phase 16] kernel launches (none of the nine is on this path): "
+        f"{classic}")
+    paths.append(classic)
+    log(f"[phase 16] {time.perf_counter() - t16:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------

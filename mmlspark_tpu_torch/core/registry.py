@@ -27,6 +27,16 @@ STAGE_MODULES = [
     "mmlspark_tpu_torch.gbdt.estimators",
     "mmlspark_tpu_torch.online.featurizer",
     "mmlspark_tpu_torch.models.statistics",
+    "mmlspark_tpu_torch.stages.basic",
+    "mmlspark_tpu_torch.stages.batching",
+    "mmlspark_tpu_torch.stages.text",
+    "mmlspark_tpu_torch.featurize.featurize",
+    "mmlspark_tpu_torch.featurize.value_indexer",
+    "mmlspark_tpu_torch.featurize.clean_missing",
+    "mmlspark_tpu_torch.featurize.text",
+    "mmlspark_tpu_torch.featurize.tokenizer",
+    "mmlspark_tpu_torch.models.linear",
+    "mmlspark_tpu_torch.models.train_classifier",
 ]
 
 

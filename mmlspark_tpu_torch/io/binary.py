@@ -1,14 +1,14 @@
 """Binary file ingestion: files -> columnar Table.
 
 A copy of the JAX package's `io/binary.py` (`zip_iterator`,
-`read_binary_files`) for this package.  Reference: core
+`read_binary_files`, `read_csv`) for this package.  Reference: core
 io/binary/BinaryFileFormat.scala:112 (Hadoop-FS binary DataSource
 producing (path, bytes) rows with sampleRatio push-down) +
 BinaryFileReader.scala:20 (parallel read).
 
-This is THE binary reader; io/image.py's readers delegate here.  The JAX
-package's `read_csv` rides its native C++ CSV parser, whose port waits
-for the host library of ROADMAP A20: it is not here yet.
+This is THE binary reader; io/image.py's readers delegate here.
+`read_csv` parses on the port's host library (`native.load_csv_numeric`),
+which raises when it does not build instead of going to `np.loadtxt`.
 """
 from __future__ import annotations
 
@@ -16,12 +16,13 @@ import glob as _glob
 import os
 import random
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence
 
 import numpy as np
 
 from ..core.schema import Table
 
-__all__ = ["read_binary_files", "zip_iterator"]
+__all__ = ["read_binary_files", "read_csv", "zip_iterator"]
 
 
 def zip_iterator(path: str, sample_ratio: float = 1.0, seed: int = 0):
@@ -72,3 +73,22 @@ def read_binary_files(pattern: str, recursive: bool = True,
     for i, b in enumerate(blobs):
         data[i] = b
     return Table({"path": np.array(files, dtype=object), "bytes": data})
+
+
+def read_csv(path: str, has_header: bool = True,
+             column_names: Optional[Sequence[str]] = None) -> Table:
+    """Numeric CSV -> Table of f64 columns via the host library's parser."""
+    from .. import native
+
+    mat = native.load_csv_numeric(path, has_header=has_header)
+    if column_names is None:
+        if has_header:
+            with open(path) as f:
+                column_names = f.readline().strip().split(",")
+        else:
+            column_names = [f"c{i}" for i in range(mat.shape[1])]
+    if len(column_names) != mat.shape[1]:
+        raise ValueError(
+            f"{len(column_names)} names for {mat.shape[1]} columns"
+        )
+    return Table({name: mat[:, i] for i, name in enumerate(column_names)})

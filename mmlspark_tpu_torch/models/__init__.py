@@ -13,8 +13,11 @@ the same name, imported by module (nothing is imported here):
 - `deep_vision`: `DeepVisionClassifier` / `DeepVisionModel`, with
   `checkpoint_dir`, ragged rows and encoded-bytes inputs;
 - `statistics`: `ComputeModelStatistics`, `ComputePerInstanceStatistics`,
-  `roc_auc` and `confusion_matrix` (host).
+  `roc_auc` and `confusion_matrix` (host);
+- `linear`: `LogisticRegression` and `LinearRegression` on the card;
+- `train_classifier`: `TrainClassifier` / `TrainRegressor` over
+  auto-featurized tables.
 
-Not ported yet (ROADMAP): the `models/convnets.py` backbones, `linear.py` and
-`train_classifier.py` (A17), the 3D trainer and elastic resume (A19).
+Not ported yet (ROADMAP): the `models/convnets.py` and `bilstm.py` models
+(A17), the 3D trainer and elastic resume (A19).
 """

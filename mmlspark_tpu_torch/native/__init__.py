@@ -1,10 +1,19 @@
-"""The port's host JPEG decoder: ctypes bindings to a library built here.
+"""The port's host libraries: ctypes bindings to two libraries built here.
 
-Counterpart of the JPEG half of the JAX package's `native` module
+Counterpart of the JAX package's `native` module.  Its JPEG half
 (`jpeg_available`, `jpeg_probe`, `decode_jpeg_bgr`,
-`decode_jpeg_bgr_into`; its murmur3, histogram and CSV entries are not
-copied).  The library is built at first use, from one of two sources
-with the same C entries, by what the machine has:
+`decode_jpeg_bgr_into`) is one library; its host half (`murmur3_batch`,
+`histogram`, `load_csv_numeric`) is the other, built with g++ from
+`src/host.cpp`, a copy of the plain-C part of the JAX package's
+`native.cpp`, apart from the decoder so that it needs no `jpeglib.h`.
+Where the JAX package goes quietly to Python or `np.loadtxt` when its
+library does not build, a failed build of the host library raises
+`HostLibraryError` with the compiler's output, at every call; the
+Python / numpy versions (`murmur3_batch_plain`, `histogram_plain`,
+`load_csv_numeric_plain`) are what the tests hold the library against.
+
+The JPEG library is built at first use, from one of two sources with
+the same C entries, by what the machine has:
 
 - `src/jpeg_libjpeg.cpp` where `jpeglib.h` exists (g++): a copy of the
   JAX package's libjpeg entries, so the pixels equal its decoder's byte
@@ -33,8 +42,8 @@ the JAX package does with a stream libjpeg refuses.  Anything else raises
 has that fails to build, a failure of the card or of nvJPEG in a probe or
 a decode (no handle, no stream, no device memory, an nvJPEG error, a
 refused launch), and nvJPEG's view of a stream disagreeing with its
-header.  The library goes to `native/build/` (listed in `.gitignore`)
-under a name that hashes its sources and flags; a file lock keeps two
+header.  Both libraries go to `native/build/` (listed in `.gitignore`)
+under a name that hashes their sources and flags; a file lock keeps two
 processes from building at once.  The C calls release the GIL, so decode
 threads run in parallel.
 """
@@ -55,7 +64,9 @@ __all__ = ["jpeg_available", "jpeg_backend", "jpeg_probe", "decode_jpeg_bgr",
            "decode_jpeg_bgr_into", "build_error", "jpeg_layout",
            "decode_jpeg_planes", "ycc_library", "ycc_launches",
            "reset_ycc_launches", "build_log", "DecoderError", "JpegLayout",
-           "MAX_JPEG_PIXELS"]
+           "MAX_JPEG_PIXELS", "HostLibraryError", "host_library",
+           "murmur3_batch", "histogram", "load_csv_numeric",
+           "murmur3_batch_plain", "histogram_plain", "load_csv_numeric_plain"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "build")
@@ -65,7 +76,8 @@ _CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC,-Wall", "-Xptxas", "-v")
 _SOURCES = {"libjpeg": ("jpeg_libjpeg.cpp",),
-            "nvjpeg": ("jpeg_nvjpeg.cpp", "jpeg_ycc.cu", "jpeg_ycc.h")}
+            "nvjpeg": ("jpeg_nvjpeg.cpp", "jpeg_ycc.cu", "jpeg_ycc.h"),
+            "host": ("host.cpp",)}
 
 # same default ceiling as PIL's DecompressionBombError threshold
 MAX_JPEG_PIXELS = 178_956_970
@@ -113,8 +125,9 @@ def _target(backend: str, command: Tuple[str, ...]) -> str:
     for name in _SOURCES[backend]:
         with open(os.path.join(_DIR, "src", name), "rb") as f:
             digest.update(f.read())
+    stem = "host" if backend == "host" else f"jpeg_{backend}"
     return os.path.join(BUILD_DIR,
-                        f"libmmk_jpeg_{backend}-{digest.hexdigest()[:16]}.so")
+                        f"libmmk_{stem}-{digest.hexdigest()[:16]}.so")
 
 
 def _build(backend: str, command: Tuple[str, ...]) -> str:
@@ -401,3 +414,140 @@ def reset_ycc_launches() -> None:
     lib = _load()
     if _STATE["backend"] == "nvjpeg":
         lib.mml_ycc_reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# the host library: murmur3, histogram, CSV
+# ---------------------------------------------------------------------------
+
+class HostLibraryError(RuntimeError):
+    """The host library (`src/host.cpp`) failed to build or to load."""
+
+
+_HOST: dict = {}  #: guarded-by _LOCK — "lib" or "error" once tried
+
+
+def host_library() -> ctypes.CDLL:
+    """The host library, built and loaded at the first call.  A failed
+    build raises HostLibraryError with the compiler's output, at this
+    call and every later one: nothing takes its place."""
+    with _LOCK:
+        if not _HOST:
+            cxx = shutil.which("g++") or shutil.which("c++")
+            try:
+                if cxx is None:
+                    raise HostLibraryError("no C++ compiler (g++ or c++)")
+                lib = ctypes.CDLL(_build("host", (cxx, *_CXX_FLAGS)))
+                vp, i64 = ctypes.c_void_p, ctypes.c_int64
+                lib.murmur3_batch.argtypes = [vp, vp, i64, ctypes.c_uint32,
+                                              vp]
+                lib.murmur3_batch.restype = None
+                lib.histogram_f64.argtypes = [vp, vp, vp, vp, i64, i64, i64,
+                                              i64, vp]
+                lib.histogram_f64.restype = None
+                lib.csv_count.argtypes = [ctypes.c_char_p, vp, vp,
+                                          ctypes.c_int]
+                lib.csv_count.restype = i64
+                lib.csv_parse.argtypes = [ctypes.c_char_p, ctypes.c_int, vp,
+                                          i64]
+                lib.csv_parse.restype = i64
+                _HOST["lib"] = lib
+            except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+                _HOST["error"] = f"the host library did not build: {e}"
+        if "lib" not in _HOST:
+            raise HostLibraryError(_HOST["error"])
+        return _HOST["lib"]
+
+
+def _blobs(strings) -> List[bytes]:
+    return [s.encode("utf-8") if isinstance(s, str) else bytes(s)
+            for s in strings]
+
+
+def murmur3_batch(strings, seed: int = 0) -> np.ndarray:
+    """Hash a batch of strings (str as UTF-8, or bytes); uint32, bit-exact
+    with `online.hashing.murmurhash3_32`."""
+    blobs = _blobs(strings)
+    lib = host_library()
+    data = b"".join(blobs)
+    offsets = np.zeros(len(blobs) + 1, np.int64)
+    np.cumsum([len(b) for b in blobs], out=offsets[1:])
+    out = np.zeros(len(blobs), np.uint32)
+    buf = np.frombuffer(data, np.uint8) if data else np.zeros(1, np.uint8)
+    lib.murmur3_batch(buf.ctypes.data, offsets.ctypes.data, len(blobs),
+                      ctypes.c_uint32(seed & 0xFFFFFFFF), out.ctypes.data)
+    return out
+
+
+def murmur3_batch_plain(strings, seed: int = 0) -> np.ndarray:
+    """`murmur3_batch` in Python, one `murmurhash3_32` a string."""
+    from ..online.hashing import murmurhash3_32
+
+    return np.array([murmurhash3_32(b, seed) for b in _blobs(strings)],
+                    np.uint32)
+
+
+def _histogram_args(bins, grad, hess, node_idx):
+    return (np.ascontiguousarray(bins, np.uint8),
+            np.ascontiguousarray(grad, np.float32),
+            np.ascontiguousarray(hess, np.float32),
+            np.ascontiguousarray(node_idx, np.int32))
+
+
+def histogram(bins: np.ndarray, grad: np.ndarray, hess: np.ndarray,
+              node_idx: np.ndarray, n_nodes: int,
+              n_bins: int = 256) -> np.ndarray:
+    """(n_nodes, n_features, n_bins, 2) f64 gradient/hessian histograms.
+
+    bins: (n, f) uint8; node_idx: (n,) int32, -1 = skip row."""
+    bins, grad, hess, node_idx = _histogram_args(bins, grad, hess, node_idx)
+    lib = host_library()
+    n, f = bins.shape
+    out = np.zeros((n_nodes, f, n_bins, 2), np.float64)
+    lib.histogram_f64(bins.ctypes.data, grad.ctypes.data, hess.ctypes.data,
+                      node_idx.ctypes.data, n, f, n_bins, n_nodes,
+                      out.ctypes.data)
+    return out
+
+
+def histogram_plain(bins: np.ndarray, grad: np.ndarray, hess: np.ndarray,
+                    node_idx: np.ndarray, n_nodes: int,
+                    n_bins: int = 256) -> np.ndarray:
+    """`histogram` in numpy (`np.add.at` a node and feature)."""
+    bins, grad, hess, node_idx = _histogram_args(bins, grad, hess, node_idx)
+    out = np.zeros((n_nodes, bins.shape[1], n_bins, 2), np.float64)
+    for node in range(n_nodes):
+        mask = node_idx == node
+        for j in range(bins.shape[1]):
+            np.add.at(out[node, j, :, 0], bins[mask, j], grad[mask])
+            np.add.at(out[node, j, :, 1], bins[mask, j], hess[mask])
+    return out
+
+
+def load_csv_numeric(path: str, has_header: bool = True) -> np.ndarray:
+    """Parse a numeric CSV into a float64 (rows, cols) matrix.  A missing
+    file raises FileNotFoundError; a ragged or non-numeric one
+    ValueError."""
+    lib = host_library()
+    n_rows, n_cols = ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.csv_count(path.encode(), ctypes.byref(n_rows),
+                       ctypes.byref(n_cols), int(has_header))
+    if rc == -1:
+        raise FileNotFoundError(path)
+    if rc < 0:
+        raise ValueError(f"ragged CSV: {path}")
+    r, c = n_rows.value, n_cols.value
+    out = np.zeros(r * c, np.float64)
+    written = lib.csv_parse(path.encode(), int(has_header), out.ctypes.data,
+                            r * c)
+    if written == -4:
+        raise ValueError(f"non-numeric cell in CSV: {path}")
+    if written != r * c:
+        raise ValueError(f"CSV parse mismatch: {written} != {r * c}")
+    return out.reshape(r, c)
+
+
+def load_csv_numeric_plain(path: str, has_header: bool = True) -> np.ndarray:
+    """`load_csv_numeric` by `np.loadtxt`."""
+    return np.loadtxt(path, delimiter=",", dtype=np.float64,
+                      skiprows=1 if has_header else 0, ndmin=2)

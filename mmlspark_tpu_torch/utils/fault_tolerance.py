@@ -1,14 +1,16 @@
-"""Generic retry with exponential backoff, and the load-shedding error.
+"""Generic retry with timeout / exponential backoff, and the load-shedding
+error.
 
-A copy of `retry_with_backoff` and `Overloaded` from the JAX package's
-`utils/fault_tolerance.py` for this package (the model zoo's
-sha-verified load retries through the first; the batcher's bounded
-intake raises the second).  Reference:
+A copy of `retry_with_timeout`, `retry_with_backoff` and `Overloaded`
+from the JAX package's `utils/fault_tolerance.py` for this package (the
+model zoo's sha-verified load retries through the second; the batcher's
+bounded intake raises the third).  Reference:
 core/utils/FaultToleranceUtils.scala:9 and the retry idioms in
 io/http/HTTPClients.scala:74-121.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import random
 from typing import Callable, Optional, Tuple, Type, TypeVar
 
@@ -16,13 +18,50 @@ from .faults import sleep as _clock_sleep
 
 T = TypeVar("T")
 
-__all__ = ["retry_with_backoff", "Overloaded"]
+__all__ = ["retry_with_timeout", "retry_with_backoff", "Overloaded"]
 
 
 class Overloaded(RuntimeError):
     """Raised by bounded intake paths (ContinuousBatcher.submit) when load
     shedding rejects a request; the serving layer maps it to 503 +
     Retry-After."""
+
+
+def retry_with_timeout(fn: Callable[[], T], timeout_sec: float,
+                       retries: int = 3,
+                       retryable: Tuple[Type[BaseException], ...] = (Exception,),
+                       ) -> T:
+    """Run `fn` with a wall-clock timeout, retrying on failure/timeout.
+
+    The timeout is enforced at the caller: on expiry the attempt is abandoned
+    (its daemon thread may still run to completion in the background — Python
+    cannot kill threads) and the next retry starts immediately.  Only safe for
+    idempotent operations, same as the reference's retryWithTimeout.
+
+    Timeouts always retry; other exceptions retry only when they match
+    `retryable` (everything else propagates immediately, like the sibling
+    retry_with_backoff).
+    """
+    if retries < 1:
+        # a bare `raise last` with last=None was a TypeError here; make the
+        # contract explicit instead
+        raise ValueError(f"retries must be >= 1, got {retries}")
+    last: Optional[BaseException] = None
+    for _ in range(retries):
+        ex = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="retry_with_timeout"
+        )
+        fut = ex.submit(fn)
+        try:
+            return fut.result(timeout=timeout_sec)
+        except concurrent.futures.TimeoutError as e:
+            last = e
+        except retryable as e:
+            last = e
+        finally:
+            ex.shutdown(wait=False)
+    assert last is not None
+    raise last
 
 
 def retry_with_backoff(

@@ -54,6 +54,14 @@ each, one of 2^18 features; two builds of one node compared (whether
 bit for bit is printed); the forest predictor on the card within 1e-4
 of the host traversal; a booster fit on the card against its CPU fit by
 the tie rule of tests/torch_gbdt_compare.py.
+
+The classic-ML slice (no kernel of its own): the linear learners' card
+fits against their CPU fits at the CPU parity test's tolerances
+(tests/test_torch_linear.py: weights within 1e-4 of max |w|, scores
+within 1e-5; the f64 ridge within 1e-9), the same fit under a process's
+TF32 setting on and off (within 1e-6), `TrainClassifier` /
+`TrainRegressor` on the card by default, and the host library built by
+that machine's g++, equal to its plain versions.
 """
 import base64
 import functools
@@ -1747,3 +1755,130 @@ def test_gbdt_fit_on_card_matches_the_cpu_fit(cuda_device, boosting):
     model = GBDTClassifier(num_iterations=3).fit(Table({"features": x,
                                                         "label": y}))
     assert model.booster.config.num_iterations == 3
+
+
+# ---- the classic-ML slice: the linear learners and the host library -------
+
+def _standard_cls(n, d, classes, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = (x[:, :classes] * 2 + 0.5 * rng.normal(size=(n, classes))).argmax(1)
+    return Table({"features": x, "label": y.astype(np.float64)})
+
+
+def _close_fits(cpu, card, w_rtol, s_atol, table):
+    scale = np.abs(cpu.weights["w"]).max()
+    for k in ("w", "b"):
+        assert card.weights[k].dtype == cpu.weights[k].dtype
+        assert np.abs(card.weights[k] - cpu.weights[k]).max() <= \
+            w_rtol * scale, k
+    a, b = cpu.transform(table), card.transform(table)
+    np.testing.assert_allclose(b["scores"], a["scores"], rtol=0, atol=s_atol)
+    top2 = np.sort(a["scores"], axis=1)[:, -2:]
+    sure = top2[:, 1] - top2[:, 0] >= 1e-3
+    np.testing.assert_array_equal(np.asarray(b["prediction"])[sure],
+                                  np.asarray(a["prediction"])[sure])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("classes,steps", [(2, 200), (5, 60)])
+def test_logistic_regression_on_card_matches_the_cpu(cuda_device, classes,
+                                                     steps):
+    """The card's fit (the default device) against the CPU's at the CPU
+    parity test's tolerances (tests/test_torch_linear.py): weights within
+    1e-4 of max |w|, scores within 1e-5."""
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+
+    t = _standard_cls(4000, 32, classes, seed=classes)
+    card = LogisticRegression(max_iter=steps).fit(t)
+    cpu = LogisticRegression(max_iter=steps, device="cpu").fit(t)
+    assert card.device is None and cpu.device == "cpu"
+    _close_fits(cpu, card, 1e-4, 1e-5, _standard_cls(1000, 32, classes, 9))
+
+
+@pytest.mark.cuda
+def test_learners_ignore_the_process_tf32_setting(cuda_device):
+    """A process with TF32 on gets the same fit as one with it off: the
+    learners run their f32 products at full precision."""
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+
+    t = _standard_cls(4000, 64, 3, seed=11)
+    fits = []
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            fits.append(LogisticRegression(max_iter=100).fit(t))
+            assert torch.backends.cuda.matmul.allow_tf32 is tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    _close_fits(fits[0], fits[1], 1e-6, 1e-6, t)
+
+
+@pytest.mark.cuda
+def test_linear_regression_on_card_matches_the_cpu(cuda_device):
+    """The f64 ridge solved on the card against the CPU's: weights within
+    1e-9 of max |w| on a full-rank table."""
+    from mmlspark_tpu_torch.models.linear import LinearRegression
+
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(20_000, 50)).astype(np.float32)
+    y = x @ rng.normal(size=50) + 0.1 * rng.normal(size=20_000)
+    t = Table({"features": x, "label": y})
+    card = LinearRegression().fit(t)
+    cpu = LinearRegression(device="cpu").fit(t)
+    scale = np.abs(cpu.weights["w"]).max()
+    for k in ("w", "b"):
+        assert np.abs(card.weights[k] - cpu.weights[k]).max() <= 1e-9 * scale
+    np.testing.assert_allclose(card.transform(t)["prediction"],
+                               cpu.transform(t)["prediction"], rtol=1e-9,
+                               atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_train_classifier_runs_on_the_card_by_default(cuda_device):
+    from mmlspark_tpu_torch.models.train_classifier import (TrainClassifier,
+                                                            TrainRegressor)
+
+    rng = np.random.default_rng(13)
+    n = 3000
+    cols = {"a": rng.normal(size=n), "cat": rng.choice(["x", "y", "z"], n)}
+    cols["label"] = np.where(cols["a"] + (cols["cat"] == "x") > 0.5, "yes",
+                             "no").astype(object)
+    t = Table(cols)
+    card = TrainClassifier().fit(t)
+    cpu = TrainClassifier(device="cpu").fit(t)
+    assert card.inner_model.device is None
+    _close_fits(cpu.inner_model, card.inner_model, 1e-4, 1e-5,
+                cpu.featurizer.transform(t))
+    assert list(card.transform(t)["prediction"][:5]) == \
+        list(cpu.transform(t)["prediction"][:5])
+    reg = Table({"a": cols["a"], "cat": cols["cat"],
+                 "label": 2 * cols["a"] + (cols["cat"] == "z")})
+    p_card = TrainRegressor().fit(reg).transform(reg)["prediction"]
+    p_cpu = TrainRegressor(device="cpu").fit(reg).transform(reg)["prediction"]
+    np.testing.assert_allclose(p_card, p_cpu, rtol=0, atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_the_host_library_builds_on_the_cards_machine(cuda_device, tmp_path):
+    """native/src/host.cpp builds with that machine's g++ (no jpeglib.h
+    there) and its entries equal their plain versions."""
+    from mmlspark_tpu_torch import native
+    from mmlspark_tpu_torch.io.binary import read_csv
+
+    native.host_library()
+    s = [f"w{i}" for i in range(5000)] + ["", "naïve"]
+    np.testing.assert_array_equal(native.murmur3_batch(s, 7),
+                                  native.murmur3_batch_plain(s, 7))
+    rng = np.random.default_rng(14)
+    b = rng.integers(0, 32, (3000, 5)).astype(np.uint8)
+    g, h = rng.normal(size=3000), rng.uniform(size=3000)
+    node = rng.integers(-1, 3, 3000)
+    np.testing.assert_array_equal(native.histogram(b, g, h, node, 3, 32),
+                                  native.histogram_plain(b, g, h, node, 3, 32))
+    x = rng.normal(size=(100, 3))
+    x[5, 1] = np.nan
+    path = str(tmp_path / "x.csv")
+    np.savetxt(path, x, delimiter=",", header="a,b,c", comments="",
+               fmt="%.17g")
+    np.testing.assert_array_equal(read_csv(path)["b"], x[:, 1])

@@ -1,8 +1,8 @@
 """mmlspark_tpu_torch imports nothing of JAX, flax or the JAX package.
 
 Two checks: every module of the port (and chip_smoke.py) imports in a
-fresh interpreter whose `sys.meta_path` refuses `jax`, `flax`, `jaxlib`
-and `mmlspark_tpu` (the exact name and its submodules — note that
+fresh interpreter whose `sys.meta_path` refuses `jax`, `flax`, `jaxlib`,
+`optax` and `mmlspark_tpu` (the exact name and its submodules — note that
 "mmlspark_tpu_torch" starts with "mmlspark_tpu", so a bare prefix test
 would be wrong); and an AST scan of the sources finds no such import.
 """
@@ -15,7 +15,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mmlspark_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "flax", "mmlspark_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
 
 
 def _blocked(name: str) -> bool:
@@ -176,6 +176,32 @@ def test_the_scan_covers_the_gbdt_slice():
               "mmlspark_tpu_torch.online", "mmlspark_tpu_torch.online.hashing",
               "mmlspark_tpu_torch.online.featurizer",
               "mmlspark_tpu_torch.models.statistics"):
+        assert m in mods, m
+
+
+def test_the_scan_covers_the_classic_ml_slice():
+    """... and so are the classic-ML foundation's (the batching engines,
+    the plumbing stages, featurization, the host library, parquet, plot,
+    the utilities) and the linear learners' with TrainClassifier /
+    TrainRegressor."""
+    mods = set(_modules())
+    for m in ("mmlspark_tpu_torch.core.batching",
+              "mmlspark_tpu_torch.stages", "mmlspark_tpu_torch.stages.basic",
+              "mmlspark_tpu_torch.stages.batching",
+              "mmlspark_tpu_torch.stages.text",
+              "mmlspark_tpu_torch.featurize",
+              "mmlspark_tpu_torch.featurize.value_indexer",
+              "mmlspark_tpu_torch.featurize.clean_missing",
+              "mmlspark_tpu_torch.featurize.featurize",
+              "mmlspark_tpu_torch.featurize.text",
+              "mmlspark_tpu_torch.featurize.tokenizer",
+              "mmlspark_tpu_torch.native", "mmlspark_tpu_torch.io.binary",
+              "mmlspark_tpu_torch.io.parquet", "mmlspark_tpu_torch.plot",
+              "mmlspark_tpu_torch.utils.stopwatch",
+              "mmlspark_tpu_torch.utils.async_utils",
+              "mmlspark_tpu_torch.utils.fault_tolerance",
+              "mmlspark_tpu_torch.models.linear",
+              "mmlspark_tpu_torch.models.train_classifier"):
         assert m in mods, m
 
 

@@ -9,6 +9,8 @@ checks: an AST scan of `mmlspark_tpu_torch/` for every module with a
 `get_stage_class` of the deep-vision stages (the ones the list missed).
 """
 import ast
+import functools
+import json
 import os
 import subprocess
 import sys
@@ -95,3 +97,67 @@ def test_the_gbdt_slice_stages_resolve_in_a_fresh_interpreter(name, module):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
         proc.stdout + proc.stderr
+
+
+# the classic-ML slice's 46 stages, by the module that registers each
+CLASSIC_STAGES = {
+    "mmlspark_tpu_torch.stages.basic": [
+        "DropColumns", "SelectColumns", "RenameColumn", "Repartition",
+        "Cacher", "Explode", "UDFTransformer", "MultiColumnAdapter",
+        "EnsembleByKey", "ClassBalancer", "ClassBalancerModel",
+        "SummarizeData", "Timer", "TimerModel", "StratifiedRepartition",
+        "PartitionConsolidator"],
+    "mmlspark_tpu_torch.stages.batching": [
+        "FixedMiniBatchTransformer", "DynamicMiniBatchTransformer",
+        "TimeIntervalMiniBatchTransformer", "FlattenBatch"],
+    "mmlspark_tpu_torch.stages.text": ["TextPreprocessor", "UnicodeNormalize"],
+    "mmlspark_tpu_torch.featurize.value_indexer": [
+        "ValueIndexer", "ValueIndexerModel", "IndexToValue"],
+    "mmlspark_tpu_torch.featurize.clean_missing": [
+        "CleanMissingData", "CleanMissingDataModel"],
+    "mmlspark_tpu_torch.featurize.featurize": [
+        "Featurize", "FeaturizeModel", "DataConversion", "CountSelector",
+        "CountSelectorModel"],
+    "mmlspark_tpu_torch.featurize.text": [
+        "TextFeaturizer", "TextFeaturizerModel", "MultiNGram", "PageSplitter"],
+    "mmlspark_tpu_torch.featurize.tokenizer": ["BPETokenizer",
+                                               "BPETokenizerModel"],
+    "mmlspark_tpu_torch.models.linear": [
+        "LogisticRegression", "LogisticRegressionModel", "LinearRegression",
+        "LinearRegressionModel"],
+    "mmlspark_tpu_torch.models.train_classifier": [
+        "TrainClassifier", "TrainedClassifierModel", "TrainRegressor",
+        "TrainedRegressorModel"],
+}
+CLASSIC = [(n, m) for m, names in CLASSIC_STAGES.items() for n in names]
+
+
+@functools.lru_cache(maxsize=None)
+def _fresh_resolution() -> dict:
+    """name -> module of `get_stage_class(name)` for every classic-ML
+    stage, resolved by name in one fresh interpreter."""
+    names = [n for n, _ in CLASSIC]
+    script = (
+        "import json\n"
+        "from mmlspark_tpu_torch.core import registry\n"
+        f"names = {names!r}\n"
+        "print(json.dumps({n: registry.get_stage_class(n).__module__ "
+        "for n in names}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_the_classic_slice_has_46_stages():
+    assert len(CLASSIC) == len(dict(CLASSIC)) == 46
+    mods = _registering_modules()
+    for module, names in CLASSIC_STAGES.items():
+        assert sorted(mods[module]) == sorted(names), module
+
+
+@pytest.mark.parametrize("name,module", CLASSIC, ids=[n for n, _ in CLASSIC])
+def test_the_classic_slice_stages_resolve_in_a_fresh_interpreter(name,
+                                                                 module):
+    assert _fresh_resolution()[name] == module

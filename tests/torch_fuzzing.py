@@ -190,6 +190,8 @@ def example(name: str):
         return gbdt_example(name)
     if name in ONLINE_STATS_EXAMPLES:
         return online_stats_example(name)
+    if name in CLASSIC_EXAMPLES:
+        return classic_example(name)
     raise KeyError(name)
 
 
@@ -294,6 +296,182 @@ def online_stats_example(name: str):
                "scores": np.array([[0.2, 0.8], [0.7, 0.3]])})
     return S.ComputePerInstanceStatistics(
         evaluation_metric="classification"), t
+
+
+# the classic-ML slice's stages (as the JAX package's
+# tests/test_fuzzing_coverage.py fuzzes them): the plumbing stages, the
+# featurizers, the linear learners and TrainClassifier / TrainRegressor,
+# each estimator's model too
+CLASSIC_EXAMPLES = [
+    "Cacher", "DropColumns", "SelectColumns", "RenameColumn", "Repartition",
+    "Explode", "SummarizeData", "ClassBalancer", "ClassBalancerModel",
+    "Timer", "TimerModel", "UDFTransformer", "MultiColumnAdapter",
+    "EnsembleByKey", "StratifiedRepartition", "PartitionConsolidator",
+    "FixedMiniBatchTransformer", "DynamicMiniBatchTransformer",
+    "TimeIntervalMiniBatchTransformer", "FlattenBatch", "TextPreprocessor",
+    "UnicodeNormalize", "Featurize", "FeaturizeModel", "ValueIndexer",
+    "ValueIndexerModel", "IndexToValue", "CleanMissingData",
+    "CleanMissingDataModel", "DataConversion", "CountSelector",
+    "CountSelectorModel", "TextFeaturizer", "TextFeaturizerModel",
+    "BPETokenizer", "BPETokenizerModel", "MultiNGram", "PageSplitter",
+    "LinearRegression", "LinearRegressionModel", "LogisticRegression",
+    "LogisticRegressionModel", "TrainClassifier", "TrainedClassifierModel",
+    "TrainRegressor", "TrainedRegressorModel"]
+
+
+# module-level functions: they pickle by name
+def square(v):
+    return v * v
+
+
+def plus_one(v):
+    return v + 1
+
+
+def num_table(n=24, seed=49) -> Table:
+    rng = np.random.default_rng(seed)
+    return Table({"value": rng.normal(size=n),
+                  "k": np.asarray(list("ab") * (n // 2)),
+                  "label": (rng.random(n) > 0.5).astype(np.float64)})
+
+
+def text_table() -> Table:
+    return Table({"text": np.asarray(
+        ["the quick brown fox jumps over the lazy dog",
+         "pack my box with five dozen liquor jugs",
+         "how vexingly quick daft zebras jump",
+         "the five boxing wizards jump quickly"] * 4, object)})
+
+
+def mixed_table() -> Table:
+    return Table({
+        "num": np.array([1.0, np.nan, 3.0, 4.0, 2.0, np.nan]),
+        "cat": np.asarray(list("uvuvuv")),
+        "label": np.asarray(["yes", "no", "yes", "no", "yes", "no"]),
+    })
+
+
+def classic_example(name: str):
+    from mmlspark_tpu_torch import featurize as FZ
+    from mmlspark_tpu_torch import stages as ST
+    from mmlspark_tpu_torch.models import linear as L
+    from mmlspark_tpu_torch.models import train_classifier as TC
+
+    cpu = {"device": "cpu"}
+    models = {"ClassBalancerModel": "ClassBalancer", "TimerModel": "Timer",
+              "FeaturizeModel": "Featurize",
+              "ValueIndexerModel": "ValueIndexer",
+              "CleanMissingDataModel": "CleanMissingData",
+              "CountSelectorModel": "CountSelector",
+              "TextFeaturizerModel": "TextFeaturizer",
+              "BPETokenizerModel": "BPETokenizer",
+              "LinearRegressionModel": "LinearRegression",
+              "LogisticRegressionModel": "LogisticRegression",
+              "TrainedClassifierModel": "TrainClassifier",
+              "TrainedRegressorModel": "TrainRegressor"}
+    if name in models:
+        est, table = classic_example(models[name])
+        return est.fit(table), table
+    simple = {
+        "Cacher": lambda: ST.Cacher(),
+        "DropColumns": lambda: ST.DropColumns(cols=["k"]),
+        "SelectColumns": lambda: ST.SelectColumns(cols=["value"]),
+        "RenameColumn": lambda: ST.RenameColumn(input_col="value",
+                                                output_col="v2"),
+        "Repartition": lambda: ST.Repartition(n=3),
+        "SummarizeData": lambda: ST.SummarizeData(),
+        "ClassBalancer": lambda: ST.ClassBalancer(input_col="label"),
+        "Timer": lambda: ST.Timer(stage=ST.UDFTransformer(
+            input_col="value", output_col="sq", udf=square)),
+        "UDFTransformer": lambda: ST.UDFTransformer(
+            input_col="value", output_col="sq", udf=square),
+        "EnsembleByKey": lambda: ST.EnsembleByKey(keys=["k"],
+                                                  cols=["value"]),
+        "StratifiedRepartition": lambda: ST.StratifiedRepartition(
+            n=2, label_col="label"),
+        "PartitionConsolidator": lambda: ST.PartitionConsolidator(
+            grace_period_ms=50),
+        "FixedMiniBatchTransformer": lambda: ST.FixedMiniBatchTransformer(
+            batch_size=5),
+        "DynamicMiniBatchTransformer": lambda:
+            ST.DynamicMiniBatchTransformer(max_batch_size=6),
+        # a flush interval no run reaches: batches by max_batch_size alone
+        "TimeIntervalMiniBatchTransformer": lambda:
+            ST.TimeIntervalMiniBatchTransformer(interval_ms=10 ** 7,
+                                                max_batch_size=8),
+    }
+    if name in simple:
+        return simple[name](), num_table()
+    if name == "Explode":
+        col = np.empty(3, object)
+        for i in range(3):
+            col[i] = list(range(i + 1))
+        return ST.Explode(input_col="xs"), Table({"xs": col,
+                                                  "id": np.arange(3)})
+    if name == "MultiColumnAdapter":
+        return ST.MultiColumnAdapter(
+            base_stage=ST.UDFTransformer(udf=plus_one), input_cols=["a", "b"],
+            output_cols=["a1", "b1"]), Table({"a": np.arange(4.0),
+                                              "b": np.arange(4.0) * 2})
+    if name == "FlattenBatch":
+        return ST.FlattenBatch(), ST.FixedMiniBatchTransformer(
+            batch_size=5).transform(num_table())
+    if name == "TextPreprocessor":
+        return ST.TextPreprocessor(input_col="text", output_col="clean",
+                                   map={"quick": "fast", "lazy": "idle"}), \
+            text_table()
+    if name == "UnicodeNormalize":
+        return ST.UnicodeNormalize(input_col="text", output_col="norm",
+                                   form="NFC", lower=True), text_table()
+    if name == "Featurize":
+        return FZ.Featurize(input_cols=["num", "cat"],
+                            output_col="features"), mixed_table()
+    if name == "ValueIndexer":
+        return FZ.ValueIndexer(input_col="label", output_col="idx"), \
+            mixed_table()
+    if name == "IndexToValue":
+        t = FZ.ValueIndexer(input_col="label", output_col="idx").fit(
+            mixed_table()).transform(mixed_table())
+        return FZ.IndexToValue(input_col="idx", output_col="back"), t
+    if name == "CleanMissingData":
+        return FZ.CleanMissingData(input_cols=["num"]), mixed_table()
+    if name == "DataConversion":
+        return FZ.DataConversion(cols=["value"], convert_to="integer"), \
+            Table({"value": np.array([1.2, 3.9, 2.1])})
+    if name == "CountSelector":
+        x = np.zeros((6, 3), np.float32)
+        x[:, 0] = np.random.default_rng(50).normal(size=6)
+        return FZ.CountSelector(input_col="features", output_col="selected"), \
+            Table({"features": x})
+    if name == "TextFeaturizer":
+        return FZ.TextFeaturizer(input_col="text", num_features=64), \
+            text_table()
+    if name == "BPETokenizer":
+        return FZ.BPETokenizer(input_col="text", vocab_size=64), text_table()
+    if name == "MultiNGram":
+        toks = np.empty(3, object)
+        for i in range(3):
+            toks[i] = ["a", "b", "c", "d"][: i + 2]
+        return FZ.MultiNGram(input_col="tokens", output_col="ngrams",
+                             lengths=[1, 2]), Table({"tokens": toks})
+    if name == "PageSplitter":
+        return FZ.PageSplitter(input_col="text", maximum_page_length=20,
+                               minimum_page_length=10), text_table()
+    if name == "LinearRegression":
+        return L.LinearRegression(**cpu), reg_table()
+    if name == "LogisticRegression":
+        return L.LogisticRegression(max_iter=60, **cpu), cls_table()
+    if name == "TrainClassifier":
+        t = cls_table(50)
+        return TC.TrainClassifier(**cpu), Table({
+            "num": np.asarray(t["features"])[:, 0],
+            "cat": np.asarray(list("xy") * 25), "label": t["label"]})
+    if name == "TrainRegressor":
+        t = reg_table(50)
+        return TC.TrainRegressor(**cpu), Table({
+            "num": np.asarray(t["features"])[:, 0],
+            "num2": np.asarray(t["features"])[:, 1], "label": t["label"]})
+    raise KeyError(name)
 
 
 def serde_example(name: str):
