@@ -297,9 +297,38 @@ exit, no result line) if anything in it fails:
    Printed for each: the fit's wall time split into host featurization
    and device learner, ms an Adam step (CUDA events) or the ridge's ms,
    rows/s and peak device memory.
-9. record: a `{"kernels": [...]}` JSON line (the eight TPU kernels and
-   C2), the nvidia-smi line, and last the `{"ok": true, "device": ...}`
-   line.
+17. the rest of classic ML (after phase 16; each part's seconds on a line
+   of its own): (a) `ImageFeaturizer` over VGG-16 at 224x224 and 1000
+   classes (138M parameters, bf16) on 64 uint8 rows, B1 once a chunk
+   exactly, features within 2e-2 of the plain-preprocess run and 3e-2 of
+   an f32 CPU run; three `DeepVisionClassifier(vgg16)` steps at batch 32
+   and the CIFAR ConvNet on 4,096 CIFAR-shaped rows at SGD 0.005 (the
+   net has no BatchNorm and diverges at the default 0.05), accuracy on
+   the rows above 0.5 (B1 once a step and a scoring chunk); (b) `SequenceTagger` at its defaults on a
+   CoNLL-2003-shaped corpus (14,041 sentences, ~204k tokens, 9 tags),
+   and a card fit against a CPU fit of one epoch from one initial state
+   (every param within 1e-3 of its tensor's largest); (c) example 23's
+   recipe 2: `Word2Vec` at the reference's defaults on phase 16 (c)'s
+   reviews into `LogisticRegression`, held-out accuracy above 0.85, ms a
+   step; (d) example 20's rows at num_bits 18 (hashed with array
+   operations, equal to `VowpalWabbitFeaturizer`'s on the first 20,000)
+   through `VowpalWabbitClassifier`: 1,000,000 rows, K1 once a pass,
+   K1's pass timed, its floor on a chain of one-slot rows; the first
+   20,000 rows against the plain loop on the card (weights within 1e-5
+   of max |w|) and two launches bit for bit; a contextual-bandit log of
+   100,000 events (K1 once); (e) `KNN(k=5)` over 1,000,000 x 128
+   SIFT1M-shaped keys with 10,000 queries, 500 of them against an f64
+   top-k on the CPU (a rank may move only within a 1e-5 near-tie), and
+   `ConditionalKNN` on example 18; (f) `SAR` (jaccard, support 4) on a
+   MovieLens-1M-shaped log, top 10 for every user, against the CPU's fit;
+   (g) `IsolationForest` (100 trees x 256) on a 284,807 x 30 table of the
+   credit-card-fraud set's shape, scores within 1e-6 of the CPU's;
+   (h) example 17's grid (`LogisticRegression`, `GBDTClassifier`, 3-fold
+   CV) on a table of the breast-cancer set's shape.  K1 against its plain
+   loop is also checked here, and its record is in the kernel list.
+9. record: a `{"kernels": [...]}` JSON line (the eight TPU kernels, C2
+   and K1), the nvidia-smi line, and last the `{"ok": true, "device":
+   ...}` line.
 
 Imports nothing of JAX or of the JAX package, and no PIL itself (phase
 11 (b) resizes through the port, which uses PIL as the JAX package
@@ -505,11 +534,49 @@ MURMUR_STRINGS = 1_000_000
 LR_W_RTOL, LR_SCORE_ATOL, LR_FAR, LR_SAME_ATOL = 1e-4, 5e-2, 0.55, 1e-3
 RIDGE_W_RTOL, RIDGE_PRED_RTOL = 1e-4, 1e-8
 
+# the rest of classic ML (phase 17), at published widths on data made from
+# seeds: (a) VGG-16 at ImageNet's 224x224 and 1000 classes (138M
+# parameters), a few DeepVisionClassifier steps at batch 32 (lr 1e-3: the
+# net has no BatchNorm), and the CIFAR ConvNet on CIFAR-shaped rows; (b)
+# SequenceTagger at its defaults on a CoNLL-2003-shaped corpus (14,041
+# training and 3,250 held-out sentences, 23,623 words, 9 tags), its card
+# fit against a CPU fit of one epoch on a prefix from one initial state
+# (params within TAGGER_TOL of each tensor's largest); (c) Word2Vec at the
+# reference's defaults on phase 16 (c)'s reviews (example 23's recipe 2,
+# the example's accuracy limit); (d) example 20's rows at num_bits 18:
+# 1,000,000 for K1's time and a 20,000-row prefix against its plain loop
+# (weights within K1_W_RTOL of max |w|), and a contextual-bandit log of
+# 100,000 events; (e) KNN over SIFT1M's shape, 500 queries against an f64
+# top-k on the CPU (a rank may move only within a KNN_TIE_RTOL near-tie);
+# (f) SAR on MovieLens-1M's shape; (g) IsolationForest on the
+# credit-card-fraud set's shape; (h) example 17's grid on a table of the
+# breast-cancer set's shape
+VGG_ROWS, VGG_BATCH, VGG_CPU_ROWS = 64, 32, 4
+VGG_TRAIN_ROWS, VGG_CLASSES, VGG_LR = 96, 10, 1e-3
+CIFAR_ROWS, CIFAR_CLASSES, CIFAR_BATCH = 4096, 10, 64
+# the ConvNet has no BatchNorm: at the classifier's default SGD 0.05 its
+# loss went to NaN within one epoch of these rows, on the card as in the
+# JAX package on the CPU; at 0.005 it fits them
+CIFAR_LR, CIFAR_ACC = 0.005, 0.5
+CONLL_TRAIN, CONLL_TEST, CONLL_VOCAB = 14_041, 3_250, 23_623
+CONLL_CPU_ROWS, TAGGER_TOL = 2_000, 1e-3
+W2V_ACC = 0.85
+VW_ROWS, VW_PREFIX, VW_BITS, VW_PASSES, CB_EVENTS = (1_000_000, 20_000, 18,
+                                                     2, 100_000)
+K1_W_RTOL = 1e-5
+KNN_KEYS, KNN_DIM, KNN_QUERIES, KNN_K, KNN_CHECK = (1_000_000, 128, 10_000,
+                                                    5, 500)
+KNN_TIE_RTOL = 1e-5
+ML_USERS, ML_ITEMS, ML_EVENTS, SAR_K = 6_040, 3_706, 1_000_209, 10
+IFOREST_ROWS, IFOREST_COLS, IFOREST_FRAUD = 284_807, 30, 492
+IFOREST_CPU_ROWS = 20_000
+BREAST_ROWS, BREAST_COLS = 569, 30
+
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
            "paged_decode_attention_int8", "flash_attention_bwd_dkdv",
            "flash_attention_bwd_dq", "fused_normalize_unroll", "rle_decode",
-           "ycc_to_bgr")
+           "ycc_to_bgr", "online_pass")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -519,12 +586,13 @@ def zero_launches() -> None:
     from mmlspark_tpu_torch import native
     from mmlspark_tpu_torch.ops import attention_kernels as A
     from mmlspark_tpu_torch.ops import image_kernels as K
+    from mmlspark_tpu_torch.ops import online_pass as OP
     from mmlspark_tpu_torch.ops import paged_attention as PA
     from mmlspark_tpu_torch.ops import wire_codec as W
 
     K.LAUNCHES = A.LAUNCHES = PA.LAUNCHES = PA.LAUNCHES_INT8 = 0
     A.LAUNCHES_BWD_DKDV = A.LAUNCHES_BWD_DQ = 0
-    K.LAUNCHES_UNROLL = W.LAUNCHES = 0
+    K.LAUNCHES_UNROLL = W.LAUNCHES = OP.LAUNCHES = 0
     native.reset_ycc_launches()
 
 
@@ -533,13 +601,15 @@ def read_launches() -> dict:
     from mmlspark_tpu_torch import native
     from mmlspark_tpu_torch.ops import attention_kernels as A
     from mmlspark_tpu_torch.ops import image_kernels as K
+    from mmlspark_tpu_torch.ops import online_pass as OP
     from mmlspark_tpu_torch.ops import paged_attention as PA
     from mmlspark_tpu_torch.ops import wire_codec as W
 
     return dict(zip(KERNELS, (K.LAUNCHES, A.LAUNCHES, PA.LAUNCHES,
                               PA.LAUNCHES_INT8, A.LAUNCHES_BWD_DKDV,
                               A.LAUNCHES_BWD_DQ, K.LAUNCHES_UNROLL,
-                              W.LAUNCHES, native.ycc_launches())))
+                              W.LAUNCHES, native.ycc_launches(),
+                              OP.LAUNCHES)))
 
 
 def fail(msg: str) -> None:
@@ -1050,6 +1120,26 @@ def profile_run(fn, label, names, med_wall_s):
         f"{total_ms / (med_wall_s * 1e3):.3f}")
 
 
+def plain_preprocess(K):
+    """The featurizers' preprocess (224x224, ImageNet BGR mean and std)
+    with B1's plain version, on the card."""
+    from mmlspark_tpu_torch.models.torch_model import ImagePreprocess
+
+    class PlainPreprocess(ImagePreprocess):
+        @property
+        def key(self):
+            return ("plain",) + super().key
+
+        def __call__(self, batch):
+            batch = self.fix_channels(batch)
+            mean, std = self.mean_std(batch.shape[-1])
+            plan = K.resize_plan(*batch.shape[1:], self.height, self.width,
+                                 tuple(mean), tuple(std))
+            return K.affine_resample_plain(batch, plan)
+
+    return PlainPreprocess(IMG, IMG, MEAN_BGR, STD_BGR)
+
+
 def resnet_path(K, A, images, table, repo, n_chunks, card):
     """Phase 4; returns {kernel: launches}."""
     import numpy as np
@@ -1058,7 +1148,6 @@ def resnet_path(K, A, images, table, repo, n_chunks, card):
     from mmlspark_tpu_torch.models.bundle import (TorchBundle, get_builder,
                                                   init_state_dict)
     from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
-    from mmlspark_tpu_torch.models.torch_model import ImagePreprocess
     from mmlspark_tpu_torch.models.zoo import get_or_create_resnet
 
     t0 = time.perf_counter()
@@ -1082,22 +1171,8 @@ def resnet_path(K, A, images, table, repo, n_chunks, card):
     if not (out["id"] == np.arange(N_IMAGES)).all():
         fail("row order changed")
 
-    class PlainPreprocess(ImagePreprocess):
-        """The same preprocess with the kernel's plain version, on the card."""
-
-        @property
-        def key(self):
-            return ("plain",) + super().key
-
-        def __call__(self, batch):
-            batch = self.fix_channels(batch)
-            mean, std = self.mean_std(batch.shape[-1])
-            plan = K.resize_plan(*batch.shape[1:], self.height, self.width,
-                                 tuple(mean), tuple(std))
-            return K.affine_resample_plain(batch, plan)
-
     plain_model = featurizer._model_for(bundle, "image")
-    plain_model.set(preprocess=PlainPreprocess(IMG, IMG, MEAN_BGR, STD_BGR))
+    plain_model.set(preprocess=plain_preprocess(K))
     plain_feats = plain_model.transform(table)["features"]
     err_plain = rel_l2(feats, plain_feats)
     log(f"[resnet] features vs plain-preprocess run: rel_l2={err_plain:.3e} "
@@ -5560,6 +5635,874 @@ def host_library_path() -> None:
         fail("murmur3_batch differs from murmurhash3_32")
 
 
+def vgg_path(card) -> dict:
+    """Phase 17 (a): ImageFeaturizer over VGG-16 at 224x224 (1000 classes)
+    on uint8 rows, DeepVisionClassifier(vgg16) steps and a convnet_cifar
+    fit; returns the main path's {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.bundle import TorchBundle
+    from mmlspark_tpu_torch.models.deep_vision import DeepVisionClassifier
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.ops import image_kernels as K
+
+    t_part = time.perf_counter()
+    rng = np.random.default_rng(17)
+    images = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)
+              for _ in range(VGG_ROWS)]
+    table = Table({"image": images})
+    t0 = time.perf_counter()
+    bundle = TorchBundle("vgg16", {"num_classes": 1000},
+                         input_shape=(IMG, IMG, 3), seed=0)
+    n_params = sum(int(v.size) for v in bundle.state_dict.values())
+    init_s = time.perf_counter() - t0
+    featurizer = ImageFeaturizer(bundle=bundle, batch_size=VGG_BATCH)
+    chunks = math.ceil(VGG_ROWS / VGG_BATCH)
+    zero_launches()
+    t0 = time.perf_counter()
+    feats = np.asarray(featurizer.transform(table)["features"])
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    if launches != dict(NO_LAUNCHES, affine_resample=chunks):
+        fail(f"the VGG-16 featurizer launched {launches}, expected B1 once "
+             f"a chunk ({chunks})")
+    if feats.shape != (VGG_ROWS, 4096) or not np.isfinite(feats).all():
+        fail(f"VGG-16 features: shape {feats.shape}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    featurizer.transform(table)
+    warm_s = time.perf_counter() - t0
+
+    plain_model = featurizer._model_for(bundle, "image")
+    plain_model.set(preprocess=plain_preprocess(K))
+    err_plain = rel_l2(feats, np.asarray(
+        plain_model.transform(table)["features"]))
+    cpu_bundle = TorchBundle("vgg16", {"num_classes": 1000},
+                             state_dict=bundle.state_dict,
+                             input_shape=(IMG, IMG, 3), dtype="float32")
+    cpu_feats = np.asarray(ImageFeaturizer(
+        bundle=cpu_bundle, batch_size=VGG_CPU_ROWS, device="cpu").transform(
+            Table({"image": images[:VGG_CPU_ROWS]}))["features"])
+    err_cpu = rel_l2(feats[:VGG_CPU_ROWS], cpu_feats)
+    log(f"[phase 17] (a) ImageFeaturizer(vgg16, {IMG}x{IMG}, 1000 classes, "
+        f"{n_params / 1e6:.1f}M parameters, bf16; random init in "
+        f"{init_s:.2f} s) over {VGG_ROWS} uint8 256x256 rows at batch "
+        f"{VGG_BATCH}: first transform {first_s:.3f} s, warm {warm_s:.3f} s "
+        f"= {VGG_ROWS / warm_s:,.0f} images/s; launches {launches}; pool "
+        f"features vs the plain-preprocess run rel_l2={err_plain:.3e} "
+        f"(limit {PLAIN_FEATURES_RTOL}), vs an f32 CPU run of "
+        f"{VGG_CPU_ROWS} rows rel_l2={err_cpu:.3e} (limit "
+        f"{CPU_FEATURES_RTOL}) on {card}")
+    if err_plain > PLAIN_FEATURES_RTOL or err_cpu > CPU_FEATURES_RTOL:
+        fail("VGG-16 features disagree with the plain-preprocess or the CPU "
+             "run")
+    del featurizer, plain_model, cpu_bundle
+    total = dict(launches)
+    zero_launches()
+
+    # DeepVisionClassifier(vgg16) at ImageNet width: a few SGD steps
+    labels = rng.permutation(np.arange(VGG_TRAIN_ROWS) % VGG_CLASSES)
+    rows = [rng.integers(0, 256, (IMG, IMG, 3), dtype=np.uint8)
+            for _ in range(VGG_TRAIN_ROWS)]
+    train = Table({"image": rows, "label": labels})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = DeepVisionClassifier(backbone="vgg16", height=IMG, width=IMG,
+                                 batch_size=VGG_BATCH, epochs=1,
+                                 learning_rate=VGG_LR, seed=0).fit(train)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    memory = peak_mib(base)
+    fit_launches = read_launches()
+    out = model.transform(Table({"image": rows}))
+    dv_launches = read_launches()
+    steps = math.ceil(VGG_TRAIN_ROWS / VGG_BATCH)
+    score_chunks = math.ceil(VGG_TRAIN_ROWS / 64)
+    hist = np.asarray(model.loss_history)
+    probs = np.asarray(out["probability"])
+    log(f"[phase 17] (a) DeepVisionClassifier(vgg16, {IMG}x{IMG}, batch "
+        f"{VGG_BATCH}, lr {VGG_LR}): {steps} steps in {fit_s:.3f} s (model "
+        f"init and the weights' copy back included); loss_history "
+        f"{np.array2string(hist, precision=4)}; launches fit {fit_launches}, "
+        f"fit + transform {dv_launches}; {memory} on {card}")
+    if fit_launches != dict(NO_LAUNCHES, affine_resample=steps) or \
+            dv_launches != dict(NO_LAUNCHES,
+                                affine_resample=steps + score_chunks):
+        fail(f"DeepVisionClassifier(vgg16): B1 launched {fit_launches} / "
+             f"{dv_launches}, expected once a step ({steps}) and once a "
+             f"scoring chunk ({score_chunks})")
+    if not np.isfinite(hist).all() or probs.shape != (
+            VGG_TRAIN_ROWS, len(np.unique(labels))) or \
+            not np.isfinite(probs).all():
+        fail(f"DeepVisionClassifier(vgg16): loss {hist}, probabilities "
+             f"{probs.shape}")
+    del model, out
+    torch.cuda.empty_cache()
+    total = {k: total[k] + dv_launches[k] for k in KERNELS}
+    zero_launches()
+
+    # convnet_cifar on CIFAR-shaped rows (32x32, 10 classes)
+    palette = rng.integers(0, 256, (CIFAR_CLASSES, 3))
+    clabels = rng.integers(0, CIFAR_CLASSES, CIFAR_ROWS)
+    cimages = np.clip(palette[clabels][:, None, None, :] + rng.normal(
+        0, 20, (CIFAR_ROWS, 32, 32, 3)), 0, 255).astype(np.uint8)
+    ctable = Table({"image": list(cimages), "label": clabels})
+    t0 = time.perf_counter()
+    cmodel = DeepVisionClassifier(backbone="convnet_cifar",
+                                  batch_size=CIFAR_BATCH, epochs=1,
+                                  learning_rate=CIFAR_LR, seed=0).fit(ctable)
+    torch.cuda.synchronize()
+    cfit_s = time.perf_counter() - t0
+    cout = cmodel.transform(ctable)
+    c_launches = read_launches()
+    csteps = math.ceil(CIFAR_ROWS / CIFAR_BATCH)
+    cchunks = math.ceil(CIFAR_ROWS / 64)
+    chist = np.asarray(cmodel.loss_history)
+    cacc = float((np.asarray(cout["prediction"]) == clabels).mean())
+    log(f"[phase 17] (a) DeepVisionClassifier(convnet_cifar, lr {CIFAR_LR}): "
+        f"{CIFAR_ROWS} 32x32 rows, {CIFAR_CLASSES} classes, batch "
+        f"{CIFAR_BATCH}, 1 epoch "
+        f"({csteps} steps) in {cfit_s:.3f} s = "
+        f"{CIFAR_ROWS / cfit_s:,.0f} samples/s; loss "
+        f"{np.array2string(chist, precision=4)}; accuracy on the table "
+        f"{cacc:.4f}; launches {c_launches} on {card}")
+    if c_launches != dict(NO_LAUNCHES, affine_resample=csteps + cchunks):
+        fail(f"DeepVisionClassifier(convnet_cifar): B1 launched "
+             f"{c_launches}, expected {csteps} steps + {cchunks} chunks")
+    cprobs = np.asarray(cout["probability"])
+    if not np.isfinite(chist).all() or cprobs.shape != (
+            CIFAR_ROWS, CIFAR_CLASSES) or not cacc > CIFAR_ACC:
+        fail(f"convnet_cifar: loss {chist}, probabilities {cprobs.shape}, "
+             f"accuracy {cacc} (limit > {CIFAR_ACC})")
+    log(f"[phase 17] (a) {time.perf_counter() - t_part:.1f} s")
+    return {k: total[k] + c_launches[k] for k in KERNELS}
+
+
+CONLL_TAG_NAMES = ("O", "B-PER", "I-PER", "B-ORG", "I-ORG", "B-LOC", "I-LOC",
+                   "B-MISC", "I-MISC")
+
+
+def conll_like(n: int, seed: int):
+    """A CoNLL-2003-shaped corpus: sentences of 14.5 tokens on average
+    (1 to 113) over a Zipf vocabulary of CONLL_VOCAB words, each word
+    with a fixed one of the 9 tags (83% "O", CoNLL's share); the tag
+    table is made from seed 0, so train and test rows agree."""
+    import numpy as np
+
+    table_rng = np.random.default_rng(0)
+    word_tag = table_rng.choice(
+        len(CONLL_TAG_NAMES), CONLL_VOCAB,
+        p=[0.83] + [0.17 / (len(CONLL_TAG_NAMES) - 1)] * 8)
+    freq = 1.0 / np.arange(1, CONLL_VOCAB + 1) ** 1.1
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.poisson(13.5, n) + 1, 1, 113)
+    words = rng.choice(CONLL_VOCAB, int(lengths.sum()), p=freq / freq.sum())
+    toks = np.empty(n, object)
+    tags = np.empty(n, object)
+    start = 0
+    for i, k in enumerate(lengths):
+        w = words[start:start + k]
+        toks[i] = [f"w{j}" for j in w]
+        tags[i] = [CONLL_TAG_NAMES[t] for t in word_tag[w]]
+        start += k
+    return toks, tags
+
+
+def tagger_path(card) -> dict:
+    """Phase 17 (b): SequenceTagger at its defaults (embed 64, hidden 128,
+    10 epochs of Adam 1e-3) on a CoNLL-2003-shaped corpus on the card; a
+    card fit against a CPU fit from one initial state on a prefix."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.bilstm import SequenceTagger, bucket_length
+
+    t_part = time.perf_counter()
+    toks, tags = conll_like(CONLL_TRAIN, seed=3)
+    test_toks, test_tags = conll_like(CONLL_TEST, seed=4)
+    n_tokens = sum(len(t) for t in toks)
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = SequenceTagger().fit(Table({"tokens": toks, "tags": tags}))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    memory = peak_mib(base)
+    t0 = time.perf_counter()
+    pred = model.transform(Table({"tokens": test_toks}))["prediction"]
+    score_s = time.perf_counter() - t0
+    launches = read_launches()
+    right = sum(int(np.sum(np.asarray(p) == np.asarray(t)))
+                for p, t in zip(pred, test_tags))
+    n_test = sum(len(t) for t in test_tags)
+    acc = right / n_test
+    majority = sum(t.count("O") for t in test_tags) / n_test
+    buckets = sorted({bucket_length(len(t), tuple(model.buckets))
+                      for t in toks})
+    steps = 10 * len(buckets)
+    log(f"[phase 17] (b) SequenceTagger(embed 64, hidden 128, 10 epochs) on "
+        f"{CONLL_TRAIN:,} sentences / {n_tokens:,} tokens, "
+        f"{len(model.vocab):,} words, {len(model.tag_vocab)} tags, buckets "
+        f"{buckets} ({steps} Adam steps): fit {fit_s:.3f} s = "
+        f"{n_tokens * 10 / fit_s:,.0f} tokens/s, "
+        f"{fit_s / steps * 1e3:.1f} ms a step (wall); held-out "
+        f"{CONLL_TEST:,} sentences tagged in {score_s:.3f} s, token "
+        f"accuracy {acc:.4f} (the majority tag's share {majority:.4f}); "
+        f"{memory} on {card}")
+    if any(len(p) != len(t) for p, t in zip(pred, test_toks)) or \
+            acc < majority - 0.01:
+        fail(f"SequenceTagger: accuracy {acc} below the majority share "
+             f"{majority}, or ragged predictions")
+    # the card's fit against the CPU's, from one initial state (the seed's
+    # torch.Generator), one epoch on a prefix
+    prefix = Table({"tokens": toks[:CONLL_CPU_ROWS],
+                    "tags": tags[:CONLL_CPU_ROWS]})
+    runs = []
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs.append((SequenceTagger(epochs=1, device=dev).fit(prefix),
+                     time.perf_counter() - t0))
+    (card_fit, card_s), (cpu_fit, cpu_s) = runs
+    worst = 0.0
+    for cell, leaves in cpu_fit.model_params.items():
+        for name, leaf in leaves.items():
+            got = card_fit.model_params[cell][name]
+            pairs = (leaf.items() if isinstance(leaf, dict)
+                     else [(None, leaf)])
+            for k, ref in pairs:
+                g = got if k is None else got[k]
+                worst = max(worst, float(np.abs(g - ref).max())
+                            / max(float(np.abs(ref).max()), 1e-6))
+    log(f"[phase 17] (b) one epoch on {CONLL_CPU_ROWS:,} sentences from one "
+        f"initial state: card {card_s:.3f} s, CPU {cpu_s:.3f} s; every param "
+        f"within {worst:.3e} of its tensor's largest (limit {TAGGER_TOL})")
+    if worst > TAGGER_TOL:
+        fail(f"SequenceTagger: the card's fit is {worst} off the CPU's")
+    log(f"[phase 17] (b) {time.perf_counter() - t_part:.1f} s")
+    return launches
+
+
+def word2vec_path(card) -> dict:
+    """Phase 17 (c): example 23's recipe 2 on phase 16 (c)'s reviews:
+    Word2Vec at the reference's defaults on the card, its doc vectors into
+    LogisticRegression; held-out accuracy and the step's time."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.featurize import Word2Vec
+    from mmlspark_tpu_torch.featurize.text import _tokenize
+    from mmlspark_tpu_torch.featurize.word2vec import sgns_step
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+
+    t_part = time.perf_counter()
+    texts, stars = book_reviews(REVIEW_ROWS, seed=2)
+    labels = (stars > 3).astype(np.float64)
+    cut = REVIEW_TRAIN
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w2v = Word2Vec(input_col="text", output_col="features").fit(
+        Table({"text": texts[:cut]}))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    train_x = np.asarray(w2v.transform(Table({"text": texts[:cut]}))[
+        "features"])
+    test_x = np.asarray(w2v.transform(Table({"text": texts[cut:]}))[
+        "features"])
+    clf = LogisticRegression(max_iter=REVIEW_STEPS).fit(
+        Table({"features": train_x, "label": labels[:cut]}))
+    pred = np.asarray(clf.transform(Table({"features": test_x}))[
+        "prediction"])
+    launches = read_launches()
+    acc = float(np.mean(pred == labels[cut:]))
+    vocab = set(w2v.vocabulary)
+    pairs = 0  # (center, context) pairs at window 3, as the fit counts them
+    for doc in texts[:cut]:
+        n = len([t for t in _tokenize(doc) if t in vocab])
+        pairs += sum(min(n, i + 4) - max(0, i - 3) - 1 for i in range(n))
+    steps = 3 * max(1, pairs // 1024)
+    v, d = np.asarray(w2v.vectors).shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    w_in = torch.tensor(np.asarray(w2v.vectors), device="cuda")
+    w_out = torch.zeros_like(w_in)
+    g_in, g_out = torch.zeros_like(w_in), torch.zeros_like(w_in)
+    c = torch.randint(0, v, (1024,), device="cuda", generator=gen)
+    o = torch.randint(0, v, (1024,), device="cuda", generator=gen)
+    neg = torch.randint(0, v, (1024, 4), device="cuda", generator=gen)
+    step_ms = cuda_ms(lambda: sgns_step(w_in, w_out, g_in, g_out, c, o, neg,
+                                        0.25), 50)
+    syn = [s for s, _ in w2v.find_synonyms("superb", 4)]
+    log(f"[phase 17] (c) Word2Vec at the reference's defaults (vector 32, "
+        f"window 3, min_count 2, 4 negatives, 3 epochs, batch 1024) on "
+        f"{cut:,} reviews: {len(w2v.vocabulary)} words, {pairs:,} pairs, "
+        f"{steps} steps in {fit_s:.3f} s ({fit_s / steps * 1e3:.3f} ms a step "
+        f"on the wall clock, {step_ms:.4f} ms a step on CUDA events); "
+        f"losses {np.round(w2v.training_losses, 4).tolist()}; doc vectors "
+        f"into LogisticRegression(max_iter={REVIEW_STEPS}): held-out "
+        f"accuracy {acc:.6f} (limit > {W2V_ACC}); synonyms of 'superb' "
+        f"{syn}; launches {launches} on {card}")
+    if not acc > W2V_ACC or not np.isfinite(w2v.vectors).all():
+        fail(f"Word2Vec recipe: held-out accuracy {acc} <= {W2V_ACC}")
+    log(f"[phase 17] (c) {time.perf_counter() - t_part:.1f} s")
+    return launches
+
+
+def vw_columns(rng, n: int) -> dict:
+    """examples/20_vowpal_wabbit_overview.py's census-ish rows."""
+    import numpy as np
+
+    jobs = ["clerk", "eng", "sales", "exec"]
+    edus = ["hs", "college", "masters"]
+    age = (rng.integers(18, 65, size=n) - 40.0) / 10.0
+    hours = (rng.integers(20, 60, size=n) - 40.0) / 10.0
+    job = rng.choice(jobs, size=n)
+    edu = rng.choice(edus, size=n)
+    score = (age + hours + (job == "exec") * 1.5 + (edu == "masters") * 1.0
+             + rng.normal(size=n) * 0.3)
+    return {"age": age, "hours": hours, "job": job, "edu": edu,
+            "const": np.ones(n), "label": (score > 0).astype(np.float64)}
+
+
+VW_COLS = ("age", "hours", "job", "edu", "const")
+
+
+def vw_hashed_rows(cols: dict):
+    """The rows VowpalWabbitFeaturizer(input_cols=VW_COLS, num_bits=
+    VW_BITS) makes, built with array operations: (idx [n, 5] uint32,
+    val [n, 5] f32, nnz [n]) with each row's nonzero slots first, sorted
+    by index (zero numerics dropped, as the featurizer drops them)."""
+    import numpy as np
+    from mmlspark_tpu_torch.online.hashing import FeatureHasher
+
+    h = FeatureHasher(VW_BITS, 0)
+    n = len(cols["age"])
+    idx = np.zeros((n, len(VW_COLS)), np.int64)
+    val = np.zeros((n, len(VW_COLS)), np.float32)
+    seen = set()
+    for j, c in enumerate(VW_COLS):
+        v = np.asarray(cols[c])
+        if v.dtype.kind in "fiu":
+            idx[:, j] = h(c, c)
+            val[:, j] = v
+            seen.add(h(c, c))
+        else:
+            levels = sorted(set(v.tolist()))
+            table = {lv: h(c, lv) for lv in levels}
+            seen |= set(table.values())
+            idx[:, j] = np.vectorize(table.get)(v)
+            val[:, j] = 1.0
+    if len(seen) != 3 + 4 + 3:
+        fail("example 20's hashed slots collide: the array build would need "
+             "the featurizer's collision sums")
+    key = np.where(val != 0, idx, np.int64(1) << 40)
+    order = np.argsort(key, axis=1, kind="stable")
+    idx = np.take_along_axis(idx, order, 1).astype(np.uint32)
+    val = np.take_along_axis(val, order, 1)
+    return idx, val, (val != 0).sum(axis=1)
+
+
+def object_rows(idx, val, nnz):
+    import numpy as np
+
+    col = np.empty(len(idx), object)
+    for i in range(len(idx)):
+        k = nnz[i]
+        col[i] = (idx[i, :k], val[i, :k])
+    return col
+
+
+def k1_bound_ms(plan_nnz, n: int) -> float:
+    """K1's byte bound: each nonzero slot's index and value read once,
+    its w and g2 entries read and written once (24 bytes a slot), each
+    row's label read and its loss and valid flag written (12 bytes)."""
+    return (24.0 * float(plan_nnz) + 12.0 * n) / HBM_BYTES_PER_S * 1e3
+
+
+def vw_path(card):
+    """Phase 17 (d): example 20's rows at num_bits 18 through
+    VowpalWabbitClassifier on the card (1,000,000 rows: K1's time), a
+    20,000-row prefix against the plain loop, and a contextual-bandit log
+    of 100,000 events.  Returns (main-path launches, K1's record)."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.online import (VowpalWabbitClassifier,
+                                           VowpalWabbitContextualBandit,
+                                           VowpalWabbitFeaturizer)
+    from mmlspark_tpu_torch.online.hashing import FeatureHasher
+    from mmlspark_tpu_torch.ops import online_pass as OP
+
+    t_part = time.perf_counter()
+    rng = np.random.default_rng(20)
+    cols = vw_columns(rng, VW_ROWS)
+    t0 = time.perf_counter()
+    idx, val, nnz = vw_hashed_rows(cols)
+    prefix = {c: cols[c][:VW_PREFIX] for c in cols}
+    featurized = VowpalWabbitFeaturizer(
+        input_cols=list(VW_COLS), num_bits=VW_BITS).transform(
+            Table(dict(prefix)))["features"]
+    for i, (fi, fv) in enumerate(featurized):
+        k = nnz[i]
+        if not (np.array_equal(fi, idx[i, :k]) and fi.dtype == np.uint32
+                and np.array_equal(fv, val[i, :k])):
+            fail(f"example 20's row {i}: the array build {idx[i, :k]} "
+                 f"{val[i, :k]} differs from the featurizer's {fi} {fv}")
+    features = object_rows(idx, val, nnz)
+    host_s = time.perf_counter() - t0
+    table = Table({"features": features, "label": cols["label"]})
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clf = VowpalWabbitClassifier(num_passes=VW_PASSES, learning_rate=0.5,
+                                 num_bits=VW_BITS).fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    stats = clf.performance_statistics
+    t0 = time.perf_counter()
+    pred = np.asarray(clf.transform(table)["prediction"])
+    score_s = time.perf_counter() - t0
+    launches = read_launches()
+    acc = float(np.mean(pred == cols["label"]))
+    losses = np.asarray(stats["average_loss"])
+    log(f"[phase 17] (d) VowpalWabbitClassifier(num_bits {VW_BITS}, "
+        f"{VW_PASSES} passes) on example 20's rows, {VW_ROWS:,} (hashed "
+        f"rows built with array operations in {host_s:.2f} s, equal to "
+        f"VowpalWabbitFeaturizer's on the first {VW_PREFIX:,}): fit "
+        f"{fit_s:.3f} s (ingest {stats['ingest_time_ns'][0] / 1e9:.3f} s, "
+        f"learn {stats['learn_time_ns'][0] / 1e9:.3f} s) = "
+        f"{VW_ROWS * VW_PASSES / fit_s:,.0f} examples/s; per-pass loss "
+        f"{np.round(losses, 5).tolist()}; transform {score_s:.3f} s; "
+        f"accuracy {acc:.4f}; launches {launches} on {card}")
+    if launches != dict(NO_LAUNCHES, online_pass=VW_PASSES):
+        fail(f"VowpalWabbitClassifier launched {launches}, expected K1 once "
+             f"a pass ({VW_PASSES})")
+    if not acc > 0.8 or not losses[-1] < losses[0]:
+        fail(f"VowpalWabbitClassifier: accuracy {acc}, losses {losses}")
+
+    # K1 alone: one pass over the million rows, and its per-example floor
+    # on a chain of one-slot rows of one index (CUDA events, warm)
+    dev = torch.device("cuda")
+    y = torch.as_tensor(np.where(cols["label"] > 0, 1.0, -1.0).astype(
+        np.float32), device=dev)
+    plan = OP.plan_rows(torch.as_tensor(idx.astype(np.int64), device=dev),
+                        torch.as_tensor(val, device=dev))
+    dim = 1 << VW_BITS
+
+    def one_pass(p, yy):
+        w = torch.zeros(dim, device=dev)
+        g2 = torch.zeros(dim, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = OP.online_pass(w, g2, p, yy, 0.5, loss="logistic")
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), w, g2, out
+
+    one_pass(plan, y)
+    full_ms = one_pass(plan, y)[0]
+    chain = OP.plan_rows(torch.zeros(VW_ROWS, 1, dtype=torch.int64,
+                                     device=dev),
+                         torch.ones(VW_ROWS, 1, device=dev))
+    chain_ms = one_pass(chain, y)[0]
+    full_nnz = int(plan.nnz.sum())
+    full_bound = k1_bound_ms(full_nnz, VW_ROWS)
+
+    # the prefix: K1 against its plain loop on the card, two launches
+    # compared bit for bit
+    pplan = OP.plan_rows(plan.idx[:VW_PREFIX].long(), plan.val[:VW_PREFIX])
+    py = y[:VW_PREFIX].contiguous()
+    ms_a, w_a, g_a, (l_a, v_a) = one_pass(pplan, py)
+    ms_b, w_b, g_b, (l_b, v_b) = one_pass(pplan, py)
+    same = (torch.equal(w_a, w_b) and torch.equal(g_a, g_b)
+            and torch.equal(l_a, l_b) and torch.equal(v_a, v_b))
+    k1_ms = min(ms_a, ms_b)
+    w_p = torch.zeros(dim, device=dev)
+    g_p = torch.zeros(dim, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_p, v_p = OP.online_pass_plain(w_p, g_p, pplan, py, 0.5,
+                                    loss="logistic")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((w_a - w_p).abs().max())
+    scale = float(w_p.abs().max())
+    loss_err = float((l_a - l_p).abs().max())
+    prefix_nnz = int(pplan.nnz.sum())
+    bound = k1_bound_ms(prefix_nnz, VW_PREFIX)
+    log(f"[phase 17] (d) K1 one pass over {VW_ROWS:,} rows ({full_nnz:,} "
+        f"nonzero slots): {full_ms:.3f} ms = "
+        f"{full_ms / VW_ROWS * 1e6:.1f} ns an example; byte bound "
+        f"{full_bound:.4f} ms; over {VW_ROWS:,} one-slot rows of one index "
+        f"(the chain of dependent examples alone) {chain_ms:.3f} ms = "
+        f"{chain_ms / VW_ROWS * 1e6:.1f} ns an example (CUDA events) on "
+        f"{card}")
+    log(f"[phase 17] (d) K1 on the first {VW_PREFIX:,} rows: {k1_ms:.4f} ms "
+        f"against the plain loop's {plain_ms:.1f} ms on the card (host "
+        f"clock); byte bound {bound:.5f} ms; weights max |diff| {err:.3e} "
+        f"({err / scale:.3e} of max |w|, limit {K1_W_RTOL}), per-example "
+        f"losses max |diff| {loss_err:.3e}; two launches bit for bit: "
+        f"{same}")
+    if not same:
+        fail("K1: two launches from one state differ")
+    if err > K1_W_RTOL * scale or not torch.equal(v_a, v_p) or \
+            loss_err > K1_W_RTOL * max(1.0, float(l_p.abs().max())):
+        fail(f"K1 disagrees with its plain loop: weights {err}, losses "
+             f"{loss_err}")
+    record = {"err": err, "ms": k1_ms, "plain_ms": plain_ms,
+              "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+    del plan, chain, pplan
+    torch.cuda.empty_cache()
+
+    # a contextual-bandit log: shared context, 4 actions each, a uniform
+    # logging policy
+    n, acts, d = CB_EVENTS, 4, 6
+    h = FeatureHasher(VW_BITS, 0)
+    ctx = rng.normal(size=(n, d)).astype(np.float32)
+    true_w = rng.normal(size=(acts, d)).astype(np.float32)
+    shared_idx = np.array([h("shared", f"s{j}") for j in range(d)],
+                          np.uint32)
+    act_idx = [np.array([h(f"act{a}", f"x{j}") for j in range(d)],
+                        np.uint32) for a in range(acts)]
+    chosen = rng.integers(0, acts, n)
+    cost = (np.einsum("nd,nd->n", true_w[chosen], ctx)
+            + 0.1 * rng.normal(size=n)).astype(np.float32)
+    shared = np.empty(n, object)
+    actions = np.empty(n, object)
+    for i in range(n):
+        shared[i] = (shared_idx, ctx[i])
+        actions[i] = [(act_idx[a], ctx[i]) for a in range(acts)]
+    log_table = Table({"shared": shared, "features": actions,
+                       "chosen_action": chosen + 1, "cost": cost,
+                       "probability": np.full(n, 1.0 / acts, np.float32)})
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cb = VowpalWabbitContextualBandit(num_bits=VW_BITS, num_passes=1,
+                                      learning_rate=0.5).fit(log_table)
+    torch.cuda.synchronize()
+    cb_s = time.perf_counter() - t0
+    cb_launches = read_launches()
+    m = cb.train_metrics
+    greedy = np.array([int(np.argmin(s)) for s in
+                       cb.transform(log_table)["prediction"]])
+    greedy_cost = float(np.mean(np.einsum("nd,nd->n", true_w[greedy], ctx)))
+    uniform_cost = float(np.mean(ctx @ true_w.T))
+    log(f"[phase 17] (d) VowpalWabbitContextualBandit on a log of {n:,} "
+        f"events ({acts} actions, shared context): fit {cb_s:.3f} s "
+        f"(the IPS / SNIPS pass over the log included); average loss "
+        f"{m['average_loss']:.5f}, IPS {m['ips_estimate']:.5f}, SNIPS "
+        f"{m['snips_estimate']:.5f}; the greedy policy's true cost "
+        f"{greedy_cost:.4f} against the logging policy's {uniform_cost:.4f}; "
+        f"launches {cb_launches} on {card}")
+    if cb_launches != dict(NO_LAUNCHES, online_pass=1):
+        fail(f"the contextual bandit launched {cb_launches}, expected K1 "
+             f"once")
+    if not greedy_cost < uniform_cost - 0.1 or not np.isfinite(
+            [m["ips_estimate"], m["snips_estimate"]]).all():
+        fail(f"contextual bandit: greedy cost {greedy_cost} against "
+             f"{uniform_cost}")
+    log(f"[phase 17] (d) {time.perf_counter() - t_part:.1f} s")
+    return {k: launches[k] + cb_launches[k] for k in KERNELS}, record
+
+
+def knn_path(card) -> dict:
+    """Phase 17 (e): KNN over SIFT1M-shaped keys (1,000,000 x 128,
+    non-negative integer descriptors) with 10,000 queries, k = 5; 500
+    queries against an f64 top-k on the CPU; ConditionalKNN on example
+    18."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.nn import KNN, ConditionalKNN
+
+    t_part = time.perf_counter()
+    rng = np.random.default_rng(18)
+    keys = np.maximum(rng.integers(-40, 64, (KNN_KEYS, KNN_DIM),
+                                   dtype=np.int16), 0).astype(np.float32)
+    queries = np.maximum(rng.integers(-40, 64, (KNN_QUERIES, KNN_DIM),
+                                      dtype=np.int16), 0).astype(np.float32)
+    zero_launches()
+    t0 = time.perf_counter()
+    model = KNN(k=KNN_K).fit(Table({"features": keys,
+                                    "values": np.arange(KNN_KEYS)}))
+    fit_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = model.transform(Table({"features": queries}))["output"]
+    torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0
+    memory = peak_mib(base)
+    knn_launches = read_launches()
+    got = np.array([[m["value"] for m in row] for row in out[:KNN_CHECK]])
+    dist = np.array([[m["distance"] for m in row] for row in out[:KNN_CHECK]])
+    k64 = keys.astype(np.float64)
+    moved, worst = 0, 0.0
+    for lo in range(0, KNN_CHECK, 50):
+        s = queries[lo:lo + 50].astype(np.float64) @ k64.T
+        for r in range(s.shape[0]):
+            row = s[r]
+            kth = np.partition(row, -KNN_K)[-KNN_K]
+            above = np.flatnonzero(row > kth)
+            eq = np.flatnonzero(row == kth)[:KNN_K - len(above)]
+            cand = np.concatenate([above, eq])
+            want = cand[np.lexsort((cand, -row[cand]))]
+            q = lo + r
+            worst = max(worst, float(np.max(np.abs(dist[q] - row[got[q]])
+                                            / np.maximum(np.abs(row[got[q]]),
+                                                         1.0))))
+            if not np.array_equal(got[q], want):
+                moved += 1
+                a, b = row[got[q]], row[want]
+                if np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)) > \
+                        KNN_TIE_RTOL:
+                    fail(f"KNN query {q}: {got[q]} against the f64 top-k "
+                         f"{want} (scores {a} / {b})")
+    log(f"[phase 17] (e) KNN(k={KNN_K}) over {KNN_KEYS:,} x {KNN_DIM} keys "
+        f"(SIFT1M's shape): fit (the host ball tree) {fit_s:.3f} s; "
+        f"{KNN_QUERIES:,} queries in {query_s:.3f} s = "
+        f"{KNN_QUERIES / query_s:,.0f} queries/s; {KNN_CHECK} queries "
+        f"against an f64 top-k on the CPU: {moved} with a rank moved "
+        f"within a {KNN_TIE_RTOL} near-tie, distances within {worst:.2e} "
+        f"relative; launches {knn_launches}; {memory} on {card}")
+    if worst > KNN_TIE_RTOL:
+        fail(f"KNN distances {worst} off the f64 scores")
+    # ConditionalKNN on example 18: four culture clusters of 60
+    cultures = ["greek", "egyptian", "japanese", "maya"]
+    centers = rng.normal(size=(4, 16)) * 3.0
+    x = np.concatenate([centers[c] + rng.normal(size=(60, 16))
+                        for c in range(4)]).astype(np.float32)
+    culture = [c for c in cultures for _ in range(60)]
+    index = Table({"features": x, "values": [f"{c}-{i}" for i, c in
+                                             enumerate(culture)],
+                   "labels": culture, "conditioner": [{c} for c in culture]})
+    cknn = ConditionalKNN(k=4, label_col="labels").fit(index)
+    q = (centers[0] + rng.normal(size=16) * 0.5).astype(np.float32)
+    for cond in ({"greek"}, {"egyptian"}, {"greek", "japanese"}):
+        res = cknn.transform(Table({"features": q[None, :],
+                                    "conditioner": [cond]}))["output"][0]
+        mask = np.asarray([c in cond for c in culture])
+        brute = np.sort(x[mask] @ q)[-4:][::-1]
+        if not all(m["label"] in cond for m in res) or not np.allclose(
+                [m["distance"] for m in res], brute, rtol=1e-5):
+            fail(f"ConditionalKNN on example 18 ({sorted(cond)}): {res}")
+    launches = read_launches()
+    log(f"[phase 17] (e) ConditionalKNN on example 18: conditioners "
+        f"respected, scores within 1e-5 of the brute force; KNN and "
+        f"ConditionalKNN launches {launches}")
+    log(f"[phase 17] (e) {time.perf_counter() - t_part:.1f} s")
+    return launches
+
+
+def movielens_like(seed: int):
+    """A MovieLens-1M-shaped log: 6,040 users x 3,706 movies, 1,000,209
+    distinct (user, movie) ratings, every user with at least 20 (a
+    log-normal activity), movies by a Zipf popularity, ratings 1-5 and
+    timestamps over ML-1M's span (April 2000 to February 2003)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    raw = rng.lognormal(4.3, 0.95, ML_USERS)
+    counts = np.clip(np.round(raw * ML_EVENTS / raw.sum()), 20,
+                     ML_ITEMS).astype(np.int64)
+    while counts.sum() != ML_EVENTS:
+        diff = int(ML_EVENTS - counts.sum())
+        step = 1 if diff > 0 else -1
+        ok = np.flatnonzero((counts + step >= 20) & (counts + step <= ML_ITEMS))
+        pick = rng.choice(ok, min(abs(diff), len(ok)), replace=False)
+        counts[pick] += step
+    pop = np.log(1.0 / np.arange(1, ML_ITEMS + 1) ** 0.9)[
+        rng.permutation(ML_ITEMS)]
+    keys = pop[None, :] + rng.gumbel(size=(ML_USERS, ML_ITEMS))
+    order = np.argsort(-keys, axis=1)
+    take = np.arange(ML_ITEMS)[None, :] < counts[:, None]
+    items = order[take]
+    users = np.repeat(np.arange(ML_USERS), counts)
+    return {"user": users, "item": items,
+            "rating": rng.integers(1, 6, ML_EVENTS).astype(np.float32),
+            "ts": rng.uniform(956703932, 1046454590, ML_EVENTS)}
+
+
+def sar_path(card) -> dict:
+    """Phase 17 (f): SAR (jaccard, support 4, time decay) on a
+    MovieLens-1M-shaped log on the card, top 10 for every user, against
+    the CPU's fit."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.recommendation import SAR
+
+    t_part = time.perf_counter()
+    cols = movielens_like(seed=6)
+    table = Table(cols)
+    kw = dict(similarity_function="jaccard", support_threshold=4,
+              timestamp_col="ts")
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = SAR(**kw).fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs = model.recommend_for_all_users(SAR_K)
+    rec_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    cpu = SAR(**kw, device="cpu").fit(table)
+    cpu_recs = cpu.recommend_for_all_users(SAR_K)
+    cpu_s = time.perf_counter() - t0
+    s_err = float(np.abs(np.asarray(model.item_similarity)
+                         - np.asarray(cpu.item_similarity)).max())
+    zeros_same = bool(np.array_equal(np.asarray(model.item_similarity) == 0,
+                                     np.asarray(cpu.item_similarity) == 0))
+    moved = 0
+    unseen = ML_ITEMS - np.bincount(cols["user"], minlength=ML_USERS)
+    for u, (a, b, sa, sb) in enumerate(zip(
+            recs["recommendations"], cpu_recs["recommendations"],
+            recs["scores"], cpu_recs["scores"])):
+        if len(a) != min(SAR_K, unseen[u]):
+            fail(f"SAR: user {u} got {len(a)} recommendations")
+        if not np.array_equal(a, b):
+            moved += 1
+            if np.max(np.abs(np.asarray(sa) - np.asarray(sb))
+                      / np.maximum(np.abs(np.asarray(sb)), 1e-6)) > 1e-5:
+                fail(f"SAR: the card's top {SAR_K} {a} against the CPU's "
+                     f"{b} (scores {sa} / {sb})")
+    log(f"[phase 17] (f) SAR(jaccard, support 4, 30-day half-life) on a "
+        f"MovieLens-1M-shaped log ({ML_USERS:,} users x {ML_ITEMS:,} items, "
+        f"{ML_EVENTS:,} events): fit {fit_s:.3f} s, top {SAR_K} for every "
+        f"user {rec_s:.3f} s = {ML_USERS / rec_s:,.0f} users/s (the CPU's "
+        f"fit and top {SAR_K}: {cpu_s:.3f} s); similarities within "
+        f"{s_err:.2e} of the CPU's (limit 1e-6), support zeros equal "
+        f"{zeros_same}; {moved} users' lists moved within a 1e-5 near-tie; "
+        f"launches {launches} on {card}")
+    if s_err > 1e-6 or not zeros_same or moved > 0.01 * ML_USERS:
+        fail(f"SAR on the card: similarities {s_err} off, zeros "
+             f"{zeros_same}, {moved} lists moved")
+    log(f"[phase 17] (f) {time.perf_counter() - t_part:.1f} s")
+    return launches
+
+
+def iforest_path(card) -> dict:
+    """Phase 17 (g): IsolationForest (100 trees x 256) on a table of the
+    credit-card-fraud set's shape (284,807 x 30: Time, 28 PCA columns,
+    Amount; 492 planted outliers) on the card, against the CPU's scores."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.isolationforest import (IsolationForest,
+                                                    IsolationForestModel)
+
+    t_part = time.perf_counter()
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(IFOREST_ROWS, IFOREST_COLS)).astype(np.float32)
+    x[:, 0] = np.sort(rng.uniform(0, 172_792, IFOREST_ROWS))
+    x[:, -1] = rng.lognormal(3.0, 1.4, IFOREST_ROWS)
+    fraud = rng.choice(IFOREST_ROWS, IFOREST_FRAUD, replace=False)
+    x[fraud, 1:-1] += rng.normal(0, 4, (IFOREST_FRAUD, IFOREST_COLS - 2))
+    table = Table({"features": x})
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = IsolationForest(num_estimators=100, max_samples=256,
+                            contamination=IFOREST_FRAUD / IFOREST_ROWS,
+                            seed=0).fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.transform(table)
+    score_s = time.perf_counter() - t0
+    launches = read_launches()
+    scores = np.asarray(out["outlier_score"])
+    flagged = np.asarray(out["predicted_label"]).astype(bool)
+    cpu = IsolationForestModel(trees=model.trees, max_depth=model.max_depth,
+                               subsample_size=model.subsample_size,
+                               threshold=model.threshold, device="cpu")
+    err = float(np.abs(scores[:IFOREST_CPU_ROWS]
+                       - cpu._scores(x[:IFOREST_CPU_ROWS])).max())
+    recall = float(flagged[fraud].mean())
+    log(f"[phase 17] (g) IsolationForest(100 trees x 256) on "
+        f"{IFOREST_ROWS:,} x {IFOREST_COLS} (the credit-card-fraud set's "
+        f"shape, {IFOREST_FRAUD} planted outliers): fit {fit_s:.3f} s (the "
+        f"threshold's scoring pass included), transform {score_s:.3f} s = "
+        f"{IFOREST_ROWS / score_s:,.0f} rows/s; scores within {err:.2e} of "
+        f"the CPU's on {IFOREST_CPU_ROWS:,} rows (limit 1e-6); "
+        f"{int(flagged.sum())} rows flagged, {recall:.3f} of the planted "
+        f"outliers; launches {launches} on {card}")
+    if err > 1e-6 or not recall > 0.5:
+        fail(f"IsolationForest: scores {err} off the CPU's, recall {recall}")
+    log(f"[phase 17] (g) {time.perf_counter() - t_part:.1f} s")
+    return launches
+
+
+def breast_cancer_like(seed: int):
+    """The shape of example 17's table (scikit-learn's breast-cancer set:
+    569 rows, 30 features, 212 / 357 classes), standardized."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y = np.zeros(BREAST_ROWS)
+    y[rng.choice(BREAST_ROWS, 357, replace=False)] = 1.0
+    mix = rng.normal(size=(BREAST_COLS, BREAST_COLS)) / BREAST_COLS ** 0.5
+    x = rng.normal(size=(BREAST_ROWS, BREAST_COLS)) @ mix
+    x += np.outer(y - 0.5, rng.normal(0.35, 0.3, BREAST_COLS))
+    x = (x - x.mean(0)) / (x.std(0) + 1e-9)
+    return x.astype(np.float32), y
+
+
+def automl_path(card) -> dict:
+    """Phase 17 (h): example 17's grid on the card: LogisticRegression and
+    GBDTClassifier over a two-point learning-rate grid, 3-fold CV, two
+    trials at a time."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.automl import (DiscreteHyperParam, GridSpace,
+                                           HyperparamBuilder,
+                                           TuneHyperparameters)
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+
+    t_part = time.perf_counter()
+    x, y = breast_cancer_like(seed=17)
+    table = Table({"features": x, "label": y})
+    space = (HyperparamBuilder()
+             .add_hyperparam("learning_rate", DiscreteHyperParam([0.02, 0.2]))
+             .build())
+    zero_launches()
+    t0 = time.perf_counter()
+    tuned = TuneHyperparameters(
+        models=[LogisticRegression(max_iter=100),
+                GBDTClassifier(num_iterations=30, num_leaves=7,
+                               min_data_in_leaf=10, seed=0)],
+        param_space=GridSpace(space), evaluation_metric="accuracy",
+        num_folds=3, parallelism=2, seed=1).fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    acc = float(np.mean(np.asarray(tuned.transform(table)["prediction"])
+                        == y))
+    launches = read_launches()
+    trials = ", ".join(f"{m['estimator']} {m['params']} {m['metric']:.4f}"
+                       for m in tuned.all_metrics)
+    log(f"[phase 17] (h) example 17's grid on the card ({BREAST_ROWS} x "
+        f"{BREAST_COLS}): {len(tuned.all_metrics)} trials x 3 folds + the "
+        f"winner's refit in {fit_s:.3f} s, two trials at a time; {trials}; "
+        f"winner CV accuracy {tuned.best_metric:.4f}, train-set accuracy "
+        f"{acc:.4f}; launches {launches} on {card}")
+    if len(tuned.all_metrics) != 4 or not tuned.best_metric > 0.9 or \
+            not acc > 0.9:
+        fail(f"example 17's grid: {tuned.all_metrics}, train accuracy {acc}")
+    log(f"[phase 17] (h) {time.perf_counter() - t_part:.1f} s")
+    return launches
+
+
 def int8_gemm_timing(card) -> None:
     """`torch._int_mm` at the ViT-B/16 qkv shape of one chunk against a
     bf16 `torch.matmul` at the same shape, each from calls queued behind
@@ -5874,10 +6817,18 @@ def main() -> None:
     flights_path(card)
     reviews_path(card)
     classic = read_launches()
-    log(f"[phase 16] kernel launches (none of the nine is on this path): "
+    log(f"[phase 16] kernel launches (no kernel is on this path): "
         f"{classic}")
     paths.append(classic)
     log(f"[phase 16] {time.perf_counter() - t16:.1f} s")
+
+    # ---- 17. the rest of classic ML --------------------------------------
+    t17 = time.perf_counter()
+    paths += [vgg_path(card), tagger_path(card), word2vec_path(card)]
+    vw_launches, k1 = vw_path(card)
+    paths += [vw_launches, knn_path(card), sar_path(card),
+              iforest_path(card), automl_path(card)]
+    log(f"[phase 17] {time.perf_counter() - t17:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------
@@ -5990,6 +6941,23 @@ def main() -> None:
         "bound_ms": ycc["bound_ms"],
         "bound_by": ycc["bound_by"],
         "library_ms": ycc["library_ms"],
+    }, {
+        "name": "online_pass",
+        "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/online_pass.cu",
+        # no pallas_call: the JAX package's lax.scan of per-example
+        # AdaGrad updates (and contextual_bandit.py:44's, which it serves
+        # too)
+        "replaces": "mmlspark_tpu/online/learners.py:36",
+        "launches": launches["online_pass"],
+        "max_abs_err": k1["err"],
+        # one pass over example 20's first 20,000 rows; the plain loop on
+        # the card by the host clock; no PyTorch call computes the pass
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

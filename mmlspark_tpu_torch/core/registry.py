@@ -37,6 +37,18 @@ STAGE_MODULES = [
     "mmlspark_tpu_torch.featurize.tokenizer",
     "mmlspark_tpu_torch.models.linear",
     "mmlspark_tpu_torch.models.train_classifier",
+    "mmlspark_tpu_torch.featurize.word2vec",
+    "mmlspark_tpu_torch.online.learners",
+    "mmlspark_tpu_torch.online.contextual_bandit",
+    "mmlspark_tpu_torch.models.bilstm",
+    "mmlspark_tpu_torch.nn.knn",
+    "mmlspark_tpu_torch.automl.tune",
+    "mmlspark_tpu_torch.automl.find_best",
+    "mmlspark_tpu_torch.isolationforest.iforest",
+    "mmlspark_tpu_torch.recommendation.indexer",
+    "mmlspark_tpu_torch.recommendation.ranking",
+    "mmlspark_tpu_torch.recommendation.sar",
+    "mmlspark_tpu_torch.recommendation.tvs",
 ]
 
 

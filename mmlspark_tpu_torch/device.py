@@ -12,7 +12,10 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "DEVICE_DOC"]
+
+#: the doc of an entry point's `device` Param
+DEVICE_DOC = "'cuda' (default) or 'cpu'; without CUDA only an explicit 'cpu' runs"
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

@@ -2,7 +2,8 @@
 the same name, imported by module (nothing is imported here):
 
 - `bundle`, `zoo`: weights, the flax bridge and the model repository;
-- `resnet`, `vit`, `transformer`: the backbones and the TransformerLM;
+- `resnet`, `vit`, `transformer`, `convnets`: the backbones (AlexNet,
+  VGG-11/16 and the CIFAR ConvNet among them) and the TransformerLM;
 - `torch_model`, `image_featurizer`: batch inference;
 - `generation`: `generate`, `beam_search` and `speculative_generate`;
 - `training`: the train state, SGD and Adam, the step and epoch
@@ -16,8 +17,8 @@ the same name, imported by module (nothing is imported here):
   `roc_auc` and `confusion_matrix` (host);
 - `linear`: `LogisticRegression` and `LinearRegression` on the card;
 - `train_classifier`: `TrainClassifier` / `TrainRegressor` over
-  auto-featurized tables.
+  auto-featurized tables;
+- `bilstm`: the BiLSTM tagger and `SequenceTagger` / `SequenceTaggerModel`.
 
-Not ported yet (ROADMAP): the `models/convnets.py` and `bilstm.py` models
-(A17), the 3D trainer and elastic resume (A19).
+Not ported yet (ROADMAP): the 3D trainer and elastic resume (A19).
 """

@@ -8,12 +8,14 @@ CNTK-style node addressing (CNTKModel.scala:229-371).  `dtype` is the
 compute dtype the module runs in (the flax modules' `dtype` field).
 
 `from_flax_variables` turns a flax ResNet's ``{'params', 'batch_stats'}``
-or a flax ViT's / TransformerLM's ``{'params'}`` numpy tree into a
+or a flax ViT's / TransformerLM's / convnet's ``{'params'}`` numpy tree into a
 TorchBundle: conv kernels HWIO -> OIHW, Dense kernels [in, out] ->
 Linear weights [out, in], BatchNorm scale/bias from `params` and
 mean/var from `batch_stats`, LayerNorm scale/bias -> weight/bias, Embed
 `embedding` -> Embedding weight, the ViT's `pos_embed` param as it is,
-ResNet block `<Block>_i` and transformer `block{i}` -> `blocks.i`; an
+ResNet block `<Block>_i` and transformer `block{i}` -> `blocks.i`, the
+convnets' layers (`conv1`, `conv2_1`, `conv1a`, `fc1`, `head`) by their
+own names, `fc1` as it is (models/convnets.py flattens in flax's order); an
 MoE block's `moe/router` Dense as any Dense and its `moe/w_in` /
 `moe/w_out` expert kernels as they are.  Every leaf on either side must
 be used exactly once.
@@ -59,6 +61,7 @@ from ..ops.quant import QuantLinear
 from . import resnet as R
 from . import transformer as T
 from . import vit as V
+from . import convnets as C
 
 __all__ = ["TorchBundle", "FunctionBundle", "register_builder",
            "get_builder", "from_flax_variables", "init_state_dict",
@@ -85,6 +88,8 @@ for _name in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152"):
 register_builder("transformer_lm", T.transformer_lm)
 for _name in ("vit_tiny", "vit_small", "vit_base"):
     register_builder(_name, getattr(V, _name))
+for _name in ("alexnet", "vgg11", "vgg16", "convnet_cifar"):
+    register_builder(_name, getattr(C, _name))
 
 
 def _builder_kwargs(builder: str, kwargs: Optional[dict],
@@ -287,6 +292,8 @@ _TBLOCK = re.compile(r"^block(\d+)$")
 _TLAYERS = ("ln1", "ln2", "qkv", "q", "kv", "proj", "mlp_in", "mlp_out")
 _TOP = ("conv_init", "bn_init", "head", "patch_embed", "tok_embed",
         "pos_embed", "ln_f")
+# the convnets' layers (models/convnets.py): conv1, conv2_1, conv1a, fc1
+_CONVNET = re.compile(r"^(conv\d+(_\d+|[ab])?|fc\d+)$")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
@@ -301,7 +308,7 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
 
 def _torch_prefix(path: Sequence[str]) -> str:
     """flax module path -> torch module path (one module, no leaf)."""
-    if len(path) == 1 and path[0] in _TOP:
+    if len(path) == 1 and (path[0] in _TOP or _CONVNET.match(path[0])):
         return path[0]
     if len(path) == 2:
         mb, ml = _BLOCK.match(path[0]), _LAYER.match(path[1])

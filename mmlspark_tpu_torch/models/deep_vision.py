@@ -27,9 +27,9 @@ skips the epochs it covers and replays their shuffle draws, so a fit
 resumed after an interruption ends where an uninterrupted fit ends.
 `DeepVisionModel` scores through the port's `TorchModel` (B1 and the
 bf16 forward); ragged sizes at scoring time are resized on the device.
-
-Not ported yet: the backbones of `models/convnets.py` (alexnet, vgg*,
-convnet_cifar), which raise `NotImplementedError` naming ROADMAP A17.
+The backbones are the registered vision builders: the ResNets, the ViTs
+and the convnets of `models/convnets.py` (alexnet, vgg11, vgg16,
+convnet_cifar; their dropout runs in the fit's train mode).
 """
 from __future__ import annotations
 
@@ -49,10 +49,6 @@ from .image_featurizer import IMAGENET_MEAN_BGR, IMAGENET_STD_BGR
 from .torch_model import ImagePreprocess, TorchModel
 
 __all__ = ["DeepVisionClassifier", "DeepVisionModel"]
-
-# the JAX package's backbones that live in models/convnets.py (not ported)
-_CONVNETS = ("alexnet", "vgg11", "vgg16", "convnet_cifar")
-
 
 def _decode_column(col) -> List[Optional[np.ndarray]]:
     """Image rows / encoded bytes / arrays -> HWC uint8 arrays (None for
@@ -92,10 +88,12 @@ def _preprocess(height: int, width: int, normalize: bool) -> ImagePreprocess:
 @register_stage
 class DeepVisionClassifier(Estimator):
     """Fine-tune a registered vision backbone (resnet18/34/50/101/152,
-    vit_tiny/small/base) on (image, label) rows on one card."""
+    alexnet, vgg11/16, convnet_cifar, vit_tiny/small/base) on (image,
+    label) rows on one card."""
 
     backbone = Param("any registered vision builder (resnet18/34/50/101/152, "
-                     "vit_tiny/small/base)", default="resnet18")
+                     "alexnet, vgg11/16, convnet_cifar, vit_tiny/small/base)",
+                     default="resnet18")
     input_col = Param("image column (image rows / encoded bytes / arrays)",
                       default="image")
     label_col = Param("label column", default="label")
@@ -129,11 +127,6 @@ class DeepVisionClassifier(Estimator):
         from .training import (TrainState, _per_example_ce, scan_slice_steps,
                                sgd)
 
-        if self.backbone in _CONVNETS:
-            raise NotImplementedError(
-                f"DeepVisionClassifier: the {self.backbone} backbone "
-                "(models/convnets.py) is not ported to mmlspark_tpu_torch "
-                "yet (ROADMAP A17)")
         device = resolve_device(self.device)
         labels_raw = np.asarray(table[self.label_col])
         classes = sorted({v for v in labels_raw.tolist()})

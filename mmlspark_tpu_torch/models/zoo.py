@@ -6,7 +6,8 @@ ModelDownloader.scala:26-263 — a repository abstraction with a JSON
 MANIFEST and sha-verified transfer with retry; `ModelSchema` carries
 layerNames/inputNode for ImageFeaturizer.  Models are pickled bundles;
 offline, the zoo seeds random-initialised models of any registered
-builder (the ResNets, the ViTs, `transformer_lm`) from a seed.
+builder (the ResNets, the convnets, the ViTs, `transformer_lm`) from a
+seed.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import hashlib
 import json
 import os
 import pickle
+import shutil
 from typing import Dict, List, Optional
 
 from ..utils.fault_tolerance import retry_with_backoff
@@ -113,6 +115,25 @@ class ModelRepo:
                 return pickle.load(f)
 
         return retry_with_backoff(attempt, retries=retries, initial_delay_sec=0.05)
+
+    def download_from(self, other: "ModelRepo", name: str) -> ModelSchema:
+        """Repo-to-repo sha-verified transfer (remote->local in the
+        reference; here any source repo)."""
+        schema = other.get_schema(name)
+        src = schema.uri
+        dst = os.path.join(self.root, f"{name}.pkl")
+
+        def attempt():
+            shutil.copyfile(src, dst)
+            if schema.sha256 and _sha256(dst) != schema.sha256:
+                raise IOError(f"sha256 mismatch downloading {name!r}")
+
+        retry_with_backoff(attempt, retries=3, initial_delay_sec=0.05)
+        local = dataclasses.replace(schema, uri=dst)
+        entries = self.manifest()
+        entries[name] = local
+        self._write_manifest(entries)
+        return local
 
 
 _DEFAULT_REPO: Optional[ModelRepo] = None

@@ -1,11 +1,17 @@
-"""Online learning's hashed sparse featurization (host).
+"""Online learning: hashed sparse featurization + adaptive SGD learners.
 
-The counterpart of the featurizer half of the JAX package's `online/`
-(reference vw module, vw/VowpalWabbitBase.scala family): murmur-hashed
-namespaces on the host, whose `(indices, values)` rows feed the GBDT's
-CSR path.  The adaptive SGD learners and the contextual bandit are not
-ported yet (ROADMAP A17).
+The port of the JAX package's `online/` (reference vw module, ~2.5k LoC,
+vw/VowpalWabbitBase.scala family): murmur-hashed namespaces on the host,
+and the learners' and the contextual bandit's AdaGrad passes on the card,
+one launch of kernel K1 a pass (`ops/online_pass.py`).  The reference's
+spanning-tree AllReduce (`use_all_reduce`) waits for the distributed layer
+(ROADMAP A19).
 """
+from .contextual_bandit import (
+    ContextualBanditMetrics,
+    VowpalWabbitContextualBandit,
+    VowpalWabbitContextualBanditModel,
+)
 from .featurizer import (
     VectorZipper,
     VowpalWabbitFeaturizer,
@@ -13,6 +19,12 @@ from .featurizer import (
     sparse_to_padded,
 )
 from .hashing import FeatureHasher, murmurhash3_32
+from .learners import (
+    VowpalWabbitClassificationModel,
+    VowpalWabbitClassifier,
+    VowpalWabbitRegressionModel,
+    VowpalWabbitRegressor,
+)
 
 __all__ = [
     "murmurhash3_32",
@@ -21,4 +33,11 @@ __all__ = [
     "VowpalWabbitInteractions",
     "VectorZipper",
     "sparse_to_padded",
+    "VowpalWabbitClassifier",
+    "VowpalWabbitClassificationModel",
+    "VowpalWabbitRegressor",
+    "VowpalWabbitRegressionModel",
+    "VowpalWabbitContextualBandit",
+    "VowpalWabbitContextualBanditModel",
+    "ContextualBanditMetrics",
 ]

@@ -62,6 +62,20 @@ within 1e-5; the f64 ridge within 1e-9), the same fit under a process's
 TF32 setting on and off (within 1e-6), `TrainClassifier` /
 `TrainRegressor` on the card by default, and the host library built by
 that machine's g++, equal to its plain versions.
+
+The rest of classic ML: K1 (the online learners' pass) against its
+plain loop with duplicated indices, explicit zeros and all-zero rows at
+1, 2, 4 and 8 slots a lane, for the logistic, squared and bandit losses
+(weights within 1e-5 of max |w|: only the order of each prediction's sum
+differs), and two launches from one state equal bit for bit; its
+wrapper's refusals; the classifier's card fit against its CPU fit
+(1e-5); Word2Vec's card fit against its CPU fit on one set of negatives
+(1e-4 of max |v|); KNN's top-k on integer keys equal on both devices,
+ties included; SAR's similarities (exact co-occurrence, 1e-6) and
+recommendations (a list may differ only at a 1e-5 near-tie); the
+isolation forest's scores (1e-6); the tagger's card fit against its CPU
+fit (1e-3 of each tensor's largest, cuDNN's LSTM in full f32); a convnet
+featurizer through B1 against its CPU run (1e-3).
 """
 import base64
 import functools
@@ -1882,3 +1896,267 @@ def test_the_host_library_builds_on_the_cards_machine(cuda_device, tmp_path):
     np.savetxt(path, x, delimiter=",", header="a,b,c", comments="",
                fmt="%.17g")
     np.testing.assert_array_equal(read_csv(path)["b"], x[:, 1])
+
+
+# --- the rest of classic ML: K1 (the online learners' pass), Word2Vec,
+# KNN, SAR, the isolation forest, the tagger and a convnet featurizer
+
+def _k1_rows(n, a, dim, seed):
+    """Rows with duplicated indices, explicit zeros, all-zero rows."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, dim, size=(n, a))
+    idx[::3, 1] = idx[::3, 0]
+    idx[::5, 2 % a] = idx[::5, 0]
+    val = rng.normal(size=(n, a)).astype(np.float32)
+    val[:, a // 2:] *= rng.random((n, a - a // 2)) < 0.5
+    val[::11] = 0.0
+    return idx, val
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss,a", [("logistic", 12), ("squared", 12),
+                                    ("bandit", 7), ("logistic", 100),
+                                    ("squared", 256)])
+def test_k1_matches_its_plain_loop_and_repeats_bit_for_bit(cuda_device, loss,
+                                                           a):
+    """K1 against its plain loop (weights within 1e-5 of max |w|, per-row
+    losses within 1e-5 of their largest: only the order of each
+    prediction's sum differs), and two launches from one state equal bit
+    for bit."""
+    from mmlspark_tpu_torch.ops import online_pass as K1
+
+    n, dim = 1500, 1 << 10
+    idx, val = _k1_rows(n, a, dim, seed=a)
+    rng = np.random.default_rng(1)
+    y = (np.where(rng.random(n) > 0.5, 1.0, -1.0) if loss == "logistic"
+         else rng.normal(size=n)).astype(np.float32)
+    wt = (rng.uniform(1, 5, n).astype(np.float32) if loss == "bandit"
+          else None)
+    kw = dict(lr=0.5, l1=0.0 if loss == "bandit" else 1e-4,
+              l2=0.0 if loss == "bandit" else 1e-3, loss=loss)
+    w0 = rng.normal(size=dim).astype(np.float32) * 0.1
+
+    def run(device, fn):
+        plan = K1.plan_rows(torch.as_tensor(idx, device=device),
+                            torch.as_tensor(val, device=device))
+        w = torch.tensor(w0, device=device)
+        g2 = torch.zeros(dim, device=device)
+        out = []
+        for _ in range(2):  # two passes
+            out.append(fn(w, g2, plan, torch.as_tensor(y, device=device),
+                          wt=None if wt is None else torch.as_tensor(
+                              wt, device=device), **kw))
+        return w.cpu().numpy(), g2.cpu().numpy(), \
+            [(ls.cpu().numpy(), v.cpu().numpy()) for ls, v in out]
+
+    before = K1.LAUNCHES
+    w1, g1, o1 = run(cuda_device, K1.online_pass)
+    torch.cuda.synchronize()
+    assert K1.LAUNCHES == before + 2
+    w2, g2, o2 = run(cuda_device, K1.online_pass)
+    assert np.array_equal(w1, w2) and np.array_equal(g1, g2)
+    for (la, va), (lb, vb) in zip(o1, o2):
+        assert np.array_equal(la, lb) and np.array_equal(va, vb)
+    wp, gp, op = run(torch.device("cpu"), K1.online_pass_plain)
+    scale = float(np.abs(wp).max())
+    np.testing.assert_allclose(w1, wp, atol=1e-5 * scale, rtol=0)
+    np.testing.assert_allclose(g1, gp, rtol=1e-4, atol=1e-6 * gp.max())
+    for (la, va), (lp, vp) in zip(o1, op):
+        np.testing.assert_array_equal(va, vp)
+        np.testing.assert_allclose(la, lp, atol=1e-5 * max(1.0, lp.max()))
+
+
+@pytest.mark.cuda
+def test_k1_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    from mmlspark_tpu_torch.ops import online_pass as K1
+
+    w = torch.zeros(64, device=cuda_device)
+    g2 = torch.zeros(64, device=cuda_device)
+    y = torch.zeros(2, device=cuda_device)
+    wide = K1.plan_rows(torch.zeros(2, 300, dtype=torch.int64,
+                                    device=cuda_device),
+                        torch.ones(2, 300, device=cuda_device))
+    with pytest.raises(ValueError, match="at most"):
+        K1.online_pass(w, g2, wide, y, 0.1)
+    far = K1.plan_rows(torch.full((2, 3), 64, device=cuda_device),
+                       torch.ones(2, 3, device=cuda_device))
+    with pytest.raises(ValueError, match="outside the weight table"):
+        K1.online_pass(w, g2, far, y, 0.1)
+    ok = K1.plan_rows(torch.ones(2, 3, dtype=torch.int64, device=cuda_device),
+                      torch.ones(2, 3, device=cuda_device))
+    with pytest.raises(ValueError, match="on cpu"):
+        K1.online_pass(w, g2, ok, y.cpu(), 0.1)
+
+
+@pytest.mark.cuda
+def test_online_learners_on_card_match_the_cpu(cuda_device):
+    """The classifier and the bandit on the card (the default device)
+    against their CPU fits: weights within 1e-5 of max |w|."""
+    from mmlspark_tpu_torch.online import (VowpalWabbitClassifier,
+                                           VowpalWabbitFeaturizer)
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3000, 6)).astype(np.float32)
+    rows = np.empty(3000, object)
+    for i in range(3000):
+        rows[i] = x[i]
+    t = VowpalWabbitFeaturizer(input_cols=["vec"], num_bits=14).transform(
+        Table({"vec": rows, "label": (x[:, 0] > x[:, 1]).astype(np.int64)}))
+    card = VowpalWabbitClassifier(num_passes=3).fit(t)
+    cpu = VowpalWabbitClassifier(num_passes=3, device="cpu").fit(t)
+    scale = float(np.abs(cpu.weights).max())
+    np.testing.assert_allclose(card.weights, cpu.weights, atol=1e-5 * scale)
+    np.testing.assert_allclose(card.performance_statistics["average_loss"],
+                               cpu.performance_statistics["average_loss"],
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_word2vec_on_card_matches_the_cpu_with_the_same_draws(cuda_device,
+                                                               monkeypatch):
+    """One set of negatives (drawn on the CPU) and one initial table for
+    both fits: vectors within 1e-4 of max |v| (full-f32 products; the
+    batch sums and duplicate scatters add in another order)."""
+    from mmlspark_tpu_torch.featurize import Word2Vec
+    from mmlspark_tpu_torch.featurize import word2vec as W
+
+    rng = np.random.default_rng(2)
+    words = [f"w{i}" for i in range(40)]
+    docs = [" ".join(rng.choice(words, 10)) for _ in range(300)]
+    fits = []
+    for device in ("cuda", "cpu"):
+        gen = torch.Generator().manual_seed(0)
+
+        def sampler(probs, seed, dev, gen=gen):
+            p = torch.as_tensor(probs)
+            return lambda b, k: torch.multinomial(
+                p, b * k, True, generator=gen).view(b, k).to(dev)
+
+        monkeypatch.setattr(W, "_negative_sampler", sampler)
+        fits.append(Word2Vec(vector_size=16, epochs=2, batch_size=256,
+                             device=device).fit(Table({"text": docs})))
+    card, cpu = fits
+    assert card.vocabulary == cpu.vocabulary
+    scale = float(np.abs(cpu.vectors).max())
+    np.testing.assert_allclose(card.vectors, cpu.vectors, atol=1e-4 * scale)
+    np.testing.assert_allclose(card.training_losses, cpu.training_losses,
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_knn_on_card_matches_the_cpu_ties_included(cuda_device):
+    """Integer keys and queries: exact products, so ties are exact on both
+    devices; indices equal, distances equal."""
+    from mmlspark_tpu_torch.nn import knn as K
+
+    rng = np.random.default_rng(3)
+    keys = rng.integers(-3, 4, size=(5000, 16)).astype(np.float32)
+    keys[100:200] = keys[7]
+    queries = rng.integers(-3, 4, size=(700, 16)).astype(np.float32)
+    queries[0] = 0.0
+    mask = rng.random((700, 5000)) < 0.7
+    for m in (None, mask):
+        vc, ic = K._batched_topk(keys, queries, 9, m)
+        vp, ip = K._batched_topk(keys, queries, 9, m, device="cpu")
+        np.testing.assert_array_equal(ic, ip)
+        np.testing.assert_array_equal(vc, vp)
+
+
+@pytest.mark.cuda
+def test_sar_on_card_matches_the_cpu(cuda_device):
+    from mmlspark_tpu_torch.recommendation import SAR
+
+    rng = np.random.default_rng(4)
+    n = 20000
+    t = Table({"user": rng.integers(0, 600, n), "item": rng.integers(0, 300, n),
+               "rating": rng.integers(1, 6, n).astype(np.float32),
+               "ts": rng.uniform(0, 1e7, n)})
+    for fn in ("cooccurrence", "jaccard", "lift"):
+        kw = dict(similarity_function=fn, support_threshold=4,
+                  timestamp_col="ts")
+        card, cpu = SAR(**kw).fit(t), SAR(**kw, device="cpu").fit(t)
+        if fn == "cooccurrence":
+            np.testing.assert_array_equal(card.item_similarity,
+                                          cpu.item_similarity)
+        else:
+            np.testing.assert_allclose(card.item_similarity,
+                                       cpu.item_similarity, atol=1e-6)
+        rc, rp = card.recommend_for_all_users(10), \
+            cpu.recommend_for_all_users(10)
+        same = sum(np.array_equal(a, b) for a, b in
+                   zip(rc["recommendations"], rp["recommendations"]))
+        # scores are products summed in another order: a rank may move
+        # only where two scores lie within 1e-5 relative of each other
+        for a, b, s in zip(rc["recommendations"], rp["recommendations"],
+                           rp["scores"]):
+            if not np.array_equal(a, b):
+                s = np.sort(np.asarray(s))
+                assert np.min(np.diff(s)) <= 1e-5 * max(1.0, s.max())
+        assert same >= 0.99 * len(rc)
+
+
+@pytest.mark.cuda
+def test_isolation_forest_on_card_matches_the_cpu(cuda_device):
+    from mmlspark_tpu_torch.isolationforest import IsolationForest
+
+    x = np.random.default_rng(5).normal(size=(20000, 8)).astype(np.float32)
+    card = IsolationForest(num_estimators=50, contamination=0.01).fit(
+        Table({"features": x}))
+    cpu = IsolationForest(num_estimators=50, contamination=0.01,
+                          device="cpu").fit(Table({"features": x}))
+    for a, b in zip(card.trees, cpu.trees):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(card._scores(x), cpu._scores(x), atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sequence_tagger_on_card_matches_the_cpu_fit(cuda_device):
+    """One initial state for both fits (3 epochs of Adam, cuDNN's LSTM in
+    full f32 under this file's TF32 setting): every param within 1e-3 of
+    its tensor's largest magnitude."""
+    from mmlspark_tpu_torch.models.bilstm import SequenceTagger
+
+    rng = np.random.default_rng(6)
+    words = [f"w{i}" for i in range(200)]
+    toks, tags = np.empty(500, object), np.empty(500, object)
+    for i in range(500):
+        t = [str(w) for w in rng.choice(words, int(rng.integers(1, 40)))]
+        toks[i], tags[i] = t, [str(int(w[1:]) % 5) for w in t]
+    tab = Table({"tokens": toks, "tags": tags})
+    card = SequenceTagger(epochs=3, learning_rate=1e-2).fit(tab)
+    cpu = SequenceTagger(epochs=3, learning_rate=1e-2, device="cpu").fit(tab)
+    for cell in card.model_params:
+        for name, leaves in card.model_params[cell].items():
+            ref = cpu.model_params[cell][name]
+            if isinstance(leaves, dict):
+                for k in leaves:
+                    s = max(float(np.abs(ref[k]).max()), 1e-6)
+                    np.testing.assert_allclose(leaves[k], ref[k],
+                                               atol=1e-3 * s)
+            else:
+                s = max(float(np.abs(ref).max()), 1e-6)
+                np.testing.assert_allclose(leaves, ref, atol=1e-3 * s)
+
+
+@pytest.mark.cuda
+def test_a_convnet_featurizer_on_card_matches_the_cpu(cuda_device):
+    """convnet_cifar in f32 through B1 on the card against the CPU run: the
+    featurizer test's f32 limit (1e-3 of the largest feature)."""
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.ops import image_kernels
+
+    bundle = TorchBundle("convnet_cifar", {"num_classes": 10},
+                         input_shape=(32, 32, 3), dtype="float32", seed=3)
+    imgs = np.random.default_rng(7).integers(0, 256, (20, 40, 48, 3),
+                                             dtype=np.uint8)
+    col = np.empty(20, object)
+    for i in range(20):
+        col[i] = imgs[i]
+    before = image_kernels.LAUNCHES
+    card = np.asarray(ImageFeaturizer(bundle=bundle, batch_size=8).transform(
+        Table({"image": col}))["features"])
+    assert image_kernels.LAUNCHES - before == 3
+    cpu = np.asarray(ImageFeaturizer(bundle=bundle, batch_size=8,
+                                     device="cpu").transform(
+        Table({"image": col}))["features"])
+    np.testing.assert_allclose(card, cpu, atol=1e-3 * np.abs(cpu).max())

@@ -27,7 +27,7 @@ from mmlspark_tpu_torch.core import registry
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
 
 from torch_fuzzing import (CLASSIC_EXAMPLES, GBDT_EXAMPLES,
-                           ONLINE_STATS_EXAMPLES,
+                           ONLINE_STATS_EXAMPLES, SLICE16_EXAMPLES,
                            check_params_equal, example, fuzz, roundtrip,
                            serde_example)
 
@@ -38,7 +38,7 @@ FULL = ["ImageTransformer", "ResizeImageTransformer", "UnrollImage",
         "ImageFeaturizer", "DeepVisionClassifier", "DeepVisionModel",
         "JSONInputParser", "CustomInputParser", "JSONOutputParser",
         "StringOutputParser", "CustomOutputParser"] + GBDT_EXAMPLES + \
-    ONLINE_STATS_EXAMPLES + CLASSIC_EXAMPLES
+    ONLINE_STATS_EXAMPLES + CLASSIC_EXAMPLES + SLICE16_EXAMPLES
 
 _NETWORK = ("sends requests over the network; echo-server transform tests "
             "live in test_torch_http.py")
@@ -58,7 +58,7 @@ def test_every_registered_stage_is_covered():
         f"SERDE in test_torch_fuzzing.py): {uncovered}")
     stale = sorted(n for n in covered if n not in stages)
     assert not stale, f"bucket entries not in the registry: {stale}"
-    assert len(stages) == 76, sorted(stages)
+    assert len(stages) == 104, sorted(stages)
 
 
 @pytest.mark.parametrize("name", FULL)

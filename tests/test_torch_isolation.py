@@ -205,6 +205,33 @@ def test_the_scan_covers_the_classic_ml_slice():
         assert m in mods, m
 
 
+def test_the_scan_covers_the_rest_of_classic_ml():
+    """... and so are Word2Vec's, the online learners' and K1's, the
+    convnets' and the tagger's, KNN's, automl's, the isolation forest's
+    and recommendation's."""
+    mods = set(_modules())
+    for m in ("mmlspark_tpu_torch.featurize.word2vec",
+              "mmlspark_tpu_torch.online.learners",
+              "mmlspark_tpu_torch.online.contextual_bandit",
+              "mmlspark_tpu_torch.ops.online_pass",
+              "mmlspark_tpu_torch.ops.topk",
+              "mmlspark_tpu_torch.models.convnets",
+              "mmlspark_tpu_torch.models.bilstm",
+              "mmlspark_tpu_torch.nn", "mmlspark_tpu_torch.nn.ball_tree",
+              "mmlspark_tpu_torch.nn.knn", "mmlspark_tpu_torch.automl",
+              "mmlspark_tpu_torch.automl.param_space",
+              "mmlspark_tpu_torch.automl.find_best",
+              "mmlspark_tpu_torch.automl.tune",
+              "mmlspark_tpu_torch.isolationforest",
+              "mmlspark_tpu_torch.isolationforest.iforest",
+              "mmlspark_tpu_torch.recommendation",
+              "mmlspark_tpu_torch.recommendation.indexer",
+              "mmlspark_tpu_torch.recommendation.ranking",
+              "mmlspark_tpu_torch.recommendation.sar",
+              "mmlspark_tpu_torch.recommendation.tvs"):
+        assert m in mods, m
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_source_imports_the_repo_tools(path):
     """`tools/` is the JAX package's tooling (the bench gate the JAX

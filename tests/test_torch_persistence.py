@@ -58,7 +58,9 @@ STAGES = ["ImageTransformer", "ResizeImageTransformer", "UnrollImage",
           "UnrollBinaryImage", "ImageSetAugmenter", "TorchModel",
           "ImageFeaturizer", "DeepVisionClassifier", "DeepVisionModel",
           "GBDTClassifier", "GBDTRegressionModel", "VowpalWabbitFeaturizer",
-          "ComputeModelStatistics"]
+          "ComputeModelStatistics", "Word2Vec", "VowpalWabbitClassifier",
+          "VowpalWabbitContextualBandit", "SequenceTagger", "KNN", "SAR",
+          "IsolationForest"]
 BLOCKER = """
 import importlib.abc, sys
 BLOCKED = ("jax", "jaxlib", "flax", "mmlspark_tpu")

@@ -161,3 +161,61 @@ def test_the_classic_slice_has_46_stages():
 def test_the_classic_slice_stages_resolve_in_a_fresh_interpreter(name,
                                                                  module):
     assert _fresh_resolution()[name] == module
+
+
+# the rest of classic ML's 28 stages (Word2Vec, the online learners, the
+# tagger, KNN, automl, the isolation forest, recommendation)
+REST_STAGES = {
+    "mmlspark_tpu_torch.featurize.word2vec": ["Word2Vec", "Word2VecModel"],
+    "mmlspark_tpu_torch.online.learners": [
+        "VowpalWabbitClassifier", "VowpalWabbitClassificationModel",
+        "VowpalWabbitRegressor", "VowpalWabbitRegressionModel"],
+    "mmlspark_tpu_torch.online.contextual_bandit": [
+        "VowpalWabbitContextualBandit", "VowpalWabbitContextualBanditModel"],
+    "mmlspark_tpu_torch.models.bilstm": ["SequenceTagger",
+                                         "SequenceTaggerModel"],
+    "mmlspark_tpu_torch.nn.knn": ["KNN", "KNNModel", "ConditionalKNN",
+                                  "ConditionalKNNModel"],
+    "mmlspark_tpu_torch.automl.tune": ["TuneHyperparameters",
+                                       "TuneHyperparametersModel"],
+    "mmlspark_tpu_torch.automl.find_best": ["FindBestModel", "BestModel"],
+    "mmlspark_tpu_torch.isolationforest.iforest": ["IsolationForest",
+                                                   "IsolationForestModel"],
+    "mmlspark_tpu_torch.recommendation.indexer": [
+        "RecommendationIndexer", "RecommendationIndexerModel"],
+    "mmlspark_tpu_torch.recommendation.ranking": ["RankingAdapter",
+                                                  "RankingAdapterModel"],
+    "mmlspark_tpu_torch.recommendation.sar": ["SAR", "SARModel"],
+    "mmlspark_tpu_torch.recommendation.tvs": [
+        "RankingTrainValidationSplit", "RankingTrainValidationSplitModel"],
+}
+REST = [(n, m) for m, names in REST_STAGES.items() for n in names]
+
+
+@functools.lru_cache(maxsize=None)
+def _fresh_rest_resolution() -> dict:
+    names = [n for n, _ in REST]
+    script = (
+        "import json\n"
+        "from mmlspark_tpu_torch.core import registry\n"
+        f"names = {names!r}\n"
+        "print(json.dumps({n: registry.get_stage_class(n).__module__ "
+        "for n in names}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_the_rest_of_classic_ml_registers_its_stages():
+    mods = _registering_modules()
+    for module, names in REST_STAGES.items():
+        assert sorted(mods[module]) == sorted(names), module
+    assert len(REST) == len(dict(REST)) == 28
+
+
+@pytest.mark.parametrize("name,module", REST, ids=[n for n, _ in REST])
+def test_the_rest_of_classic_ml_resolves_in_a_fresh_interpreter(name,
+                                                                 module):
+    assert _fresh_rest_resolution()[name] == module

@@ -345,17 +345,25 @@ def test_deep_vision_tail_batch_is_padded_with_zero_weight():
 
 
 def test_deep_vision_what_waits_raises_not_implemented(tmp_path):
-    """The backbones of the JAX package's models/convnets.py wait for
-    ROADMAP A17.  (Ragged rows, encoded bytes and `checkpoint_dir` are
-    ported: tests/test_torch_resumable.py.)"""
+    """The backbones of the JAX package's models/convnets.py waited for
+    ROADMAP A17 and are ported (tests/test_torch_convnets.py): none of
+    them raises NotImplementedError now.  AlexNet refuses the default
+    32x32 inputs with the reference's ValueError before any checkpoint is
+    written, and a convnet fit writes its checkpoint.  (Ragged rows,
+    encoded bytes and `checkpoint_dir` are ported:
+    tests/test_torch_resumable.py.)"""
     rows, labels = _color_rows(4, seed=10)
     t = Table({"image": rows, "label": labels})
-    for backbone in ("alexnet", "vgg11", "vgg16", "convnet_cifar"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-            DV.DeepVisionClassifier(epochs=1, batch_size=4, device="cpu",
-                                    backbone=backbone,
-                                    checkpoint_dir=str(tmp_path)).fit(t)
+    with pytest.raises(ValueError, match="at least 63x63"):
+        DV.DeepVisionClassifier(epochs=1, batch_size=4, device="cpu",
+                                backbone="alexnet",
+                                checkpoint_dir=str(tmp_path)).fit(t)
     assert not os.listdir(tmp_path)
+    model = DV.DeepVisionClassifier(epochs=1, batch_size=4, device="cpu",
+                                    backbone="convnet_cifar",
+                                    checkpoint_dir=str(tmp_path)).fit(t)
+    assert np.all(np.isfinite(model.loss_history))
+    assert os.listdir(tmp_path)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

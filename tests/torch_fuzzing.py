@@ -192,6 +192,8 @@ def example(name: str):
         return online_stats_example(name)
     if name in CLASSIC_EXAMPLES:
         return classic_example(name)
+    if name in SLICE16_EXAMPLES:
+        return slice16_example(name)
     raise KeyError(name)
 
 
@@ -471,6 +473,164 @@ def classic_example(name: str):
         return TC.TrainRegressor(**cpu), Table({
             "num": np.asarray(t["features"])[:, 0],
             "num2": np.asarray(t["features"])[:, 1], "label": t["label"]})
+    raise KeyError(name)
+
+
+# Word2Vec, the online learners, the tagger, KNN, automl, the isolation
+# forest and recommendation (the fuzz examples of the JAX package's
+# tests/test_fuzzing_coverage.py, on the CPU)
+SLICE16_EXAMPLES = [
+    "Word2Vec", "Word2VecModel", "VowpalWabbitClassifier",
+    "VowpalWabbitClassificationModel", "VowpalWabbitRegressor",
+    "VowpalWabbitRegressionModel", "VowpalWabbitContextualBandit",
+    "VowpalWabbitContextualBanditModel", "SequenceTagger",
+    "SequenceTaggerModel", "KNN", "KNNModel", "ConditionalKNN",
+    "ConditionalKNNModel", "TuneHyperparameters", "TuneHyperparametersModel",
+    "FindBestModel", "BestModel", "IsolationForest", "IsolationForestModel",
+    "SAR", "SARModel", "RecommendationIndexer", "RecommendationIndexerModel",
+    "RankingAdapter", "RankingAdapterModel", "RankingTrainValidationSplit",
+    "RankingTrainValidationSplitModel"]
+
+
+def ratings_table() -> Table:
+    rng = np.random.default_rng(3)
+    n_users, n_items, n = 12, 10, 120
+    return Table({
+        "user": rng.integers(0, n_users, n).astype(np.int64),
+        "item": rng.integers(0, n_items, n).astype(np.int64),
+        "rating": rng.integers(1, 6, n).astype(np.float64),
+    })
+
+
+def cb_table() -> Table:
+    from mmlspark_tpu_torch.online.hashing import FeatureHasher
+
+    rng = np.random.default_rng(5)
+    h = FeatureHasher(12, 0)
+    n, d, num_actions = 30, 3, 3
+    shared_rows = np.empty(n, object)
+    action_rows = np.empty(n, object)
+    chosen = np.zeros(n, np.int64)
+    cost = np.zeros(n)
+    prob = np.full(n, 1.0 / num_actions)
+    for i in range(n):
+        idx = np.array([h("s", f"f{j}") for j in range(d)], np.uint32)
+        vals = rng.normal(size=d).astype(np.float32)
+        shared_rows[i] = (idx, vals)
+        acts = []
+        for a in range(num_actions):
+            aidx = np.array([h(f"act{a}", f"x{j}") for j in range(d)],
+                            np.uint32)
+            acts.append((aidx, vals))
+        action_rows[i] = acts
+        chosen[i] = int(rng.integers(num_actions)) + 1
+        cost[i] = float(rng.normal())
+    return Table({"shared": shared_rows, "features": action_rows,
+                  "chosen_action": chosen, "cost": cost,
+                  "probability": prob})
+
+
+def slice16_example(name: str):
+    from mmlspark_tpu_torch import automl as AM
+    from mmlspark_tpu_torch.featurize import Word2Vec
+    from mmlspark_tpu_torch.isolationforest import IsolationForest
+    from mmlspark_tpu_torch.models import linear as L
+    from mmlspark_tpu_torch.models.bilstm import SequenceTagger
+    from mmlspark_tpu_torch.nn import KNN, ConditionalKNN
+    from mmlspark_tpu_torch.online import (VowpalWabbitClassifier,
+                                           VowpalWabbitContextualBandit,
+                                           VowpalWabbitRegressor)
+    from mmlspark_tpu_torch import recommendation as R
+
+    cpu = {"device": "cpu"}
+    models = {"Word2VecModel": "Word2Vec",
+              "VowpalWabbitClassificationModel": "VowpalWabbitClassifier",
+              "VowpalWabbitRegressionModel": "VowpalWabbitRegressor",
+              "VowpalWabbitContextualBanditModel":
+                  "VowpalWabbitContextualBandit",
+              "SequenceTaggerModel": "SequenceTagger", "KNNModel": "KNN",
+              "ConditionalKNNModel": "ConditionalKNN",
+              "TuneHyperparametersModel": "TuneHyperparameters",
+              "BestModel": "FindBestModel",
+              "IsolationForestModel": "IsolationForest", "SARModel": "SAR",
+              "RecommendationIndexerModel": "RecommendationIndexer",
+              "RankingAdapterModel": "RankingAdapter",
+              "RankingTrainValidationSplitModel":
+                  "RankingTrainValidationSplit"}
+    if name in models:
+        est, table = slice16_example(models[name])
+        return est.fit(table), table
+    rng = np.random.default_rng(51)
+    if name == "Word2Vec":
+        docs = ["bread cheese apple soup", "hammer wrench drill saw",
+                "bread soup cheese", "drill hammer saw wrench"] * 3
+        return Word2Vec(vector_size=8, min_count=2, epochs=1, batch_size=32,
+                        **cpu), Table({"text": np.asarray(docs, object)})
+    if name == "VowpalWabbitClassifier":
+        return VowpalWabbitClassifier(num_passes=2, **cpu), hashed_table()
+    if name == "VowpalWabbitRegressor":
+        t = hashed_table()
+        return VowpalWabbitRegressor(num_passes=2, **cpu), t
+    if name == "VowpalWabbitContextualBandit":
+        return VowpalWabbitContextualBandit(num_passes=2, num_bits=12,
+                                            **cpu), cb_table()
+    if name == "SequenceTagger":
+        toks = np.empty(6, object)
+        tags = np.empty(6, object)
+        for i in range(6):
+            toks[i] = ["w%d" % (j % 4) for j in range(3 + i % 2)]
+            tags[i] = ["T%d" % (j % 2) for j in range(3 + i % 2)]
+        return SequenceTagger(epochs=1, hidden=8, embed_dim=8, **cpu), \
+            Table({"tokens": toks, "tags": tags})
+    if name == "KNN":
+        return KNN(k=2, **cpu), Table({
+            "features": rng.normal(size=(20, 3)).astype(np.float32),
+            "values": np.arange(20.0)})
+    if name == "ConditionalKNN":
+        conds = np.empty(20, object)
+        for i in range(20):
+            conds[i] = {0, 1}
+        return ConditionalKNN(k=2, label_col="labels", **cpu), Table({
+            "features": rng.normal(size=(20, 3)).astype(np.float32),
+            "values": np.arange(20.0),
+            "labels": np.asarray([i % 2 for i in range(20)]),
+            "conditioner": conds})
+    if name == "TuneHyperparameters":
+        space = (AM.HyperparamBuilder()
+                 .add_hyperparam("reg_param", AM.DiscreteHyperParam([1e-4, 1.0]))
+                 .build())
+        return AM.TuneHyperparameters(
+            models=[L.LogisticRegression(max_iter=20, **cpu)],
+            param_space=AM.GridSpace(space), evaluation_metric="accuracy",
+            num_folds=2, parallelism=1, seed=2), cls_table(40)
+    if name == "FindBestModel":
+        t = cls_table(40)
+        m1 = L.LogisticRegression(max_iter=40, **cpu).fit(t)
+        m2 = L.LogisticRegression(max_iter=1, learning_rate=1e-6,
+                                  **cpu).fit(t)
+        return AM.FindBestModel(models=[m2, m1],
+                                evaluation_metric="accuracy"), t
+    if name == "IsolationForest":
+        return IsolationForest(num_estimators=10, max_samples=32, **cpu), \
+            Table({"features": rng.normal(size=(60, 3)).astype(np.float32)})
+    if name == "SAR":
+        return R.SAR(support_threshold=1, **cpu), ratings_table()
+    if name == "RecommendationIndexer":
+        return R.RecommendationIndexer(
+            user_input_col="user", item_input_col="item",
+            user_output_col="user_idx", item_output_col="item_idx"), Table({
+                "user": np.asarray(["u1", "u2", "u1", "u3"]),
+                "item": np.asarray(["a", "b", "c", "a"]),
+                "rating": np.array([1.0, 2.0, 3.0, 4.0])})
+    if name == "RankingAdapter":
+        return R.RankingAdapter(recommender=R.SAR(support_threshold=1, **cpu),
+                                k=3), ratings_table()
+    if name == "RankingTrainValidationSplit":
+        return R.RankingTrainValidationSplit(
+            estimator=R.SAR(support_threshold=1, **cpu),
+            param_grid=[{"similarity_function": "jaccard"}],
+            evaluator=R.RankingEvaluator(metric_name="ndcgAt", k=3),
+            train_ratio=0.75, seed=2), ratings_table()
     raise KeyError(name)
 
 
