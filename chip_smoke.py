@@ -326,6 +326,42 @@ exit, no result line) if anything in it fails:
    (h) example 17's grid (`LogisticRegression`, `GBDTClassifier`, 3-fold
    CV) on a table of the breast-cancer set's shape.  K1 against its plain
    loop is also checked here, and its record is in the kernel list.
+18. the explainers, CyberML and the service layer (after phase 17; each
+   part's seconds on a line of its own; B1 the only kernel on the path,
+   the WLS, lasso and ALS arithmetic stock PyTorch in full f32):
+   (a) `ImageLIME` and `ImageSHAP` over `ImageFeaturizer(ResNet-50,
+   cut_output_layers=0)` (224x224, 1000 classes, bf16) in a
+   `PipelineModel` with a `LambdaTransformer` scoring each image's
+   top-class probability, on 4 uint8 images at the defaults (cell size
+   16: 196 superpixels from `SuperpixelTransformer`, modifier 130,
+   sampling fraction 0.7) and 512 samples an image: 2,048 masked images an
+   explainer, B1 once a chunk exactly; the logits and scores within 2e-2
+   relative L2 of the same samples through the plain preprocess; LIME's
+   f32 WLS on the card against the f64 host solve of the same design and
+   targets (coefficients in units of each column's spread and fitted
+   values within 1e-3); SHAP's additivity within the bound its 1e6 anchor
+   weight gives; SLIC, masking, the model's images/s and the solve's ms.
+   (b) example 14's `TabularSHAP` over `GBDTClassifier` (60 iterations, 15
+   leaves) on the breast-cancer set's shape, 64 rows x 256 samples,
+   additivity against f(background mean) within the anchor bound; then
+   `TabularLIME` over phase 16 (a)'s Adult model on its six numeric
+   columns, 64 rows x 512 samples, the card's solve against the host's.
+   (c) `TextLIME` / `TextSHAP` over phase 16 (c)'s `TextFeaturizer(4096)`
+   -> `LogisticRegression` on 32 held-out reviews x 256 samples: the
+   solve against the host, additivity, the top token a sentiment word.
+   (d) `AccessAnomaly` at its defaults on 4 tenants of 20,000 users x
+   8,000 resources x 400,000 distinct accesses (95% within example 12's
+   three departments, made with array operations): cross-department
+   probes above the most accessed in-department pairs; tenant 0's card fit
+   against its CPU fit from the same initial factors (1e-3) and two card
+   fits (1e-6 of max |score|, whether bit for bit printed); ms a sweep and
+   `ComplementAccessTransformer` on one tenant, timed.
+   (e) example 11's pipeline (OCR -> Lambda -> `TextSentiment` ->
+   `SimpleHTTPTransformer`) against a mock of the wire protocol on
+   127.0.0.1, `write_to_power_bi` to a local server, and
+   `generate_wrappers` + `generate_tests` over the 161 stages, the
+   generated smoke tests run by pytest in a subprocess that cannot import
+   JAX or the JAX package.
 9. record: a `{"kernels": [...]}` JSON line (the eight TPU kernels, C2
    and K1), the nvidia-smi line, and last the `{"ok": true, "device":
    ...}` line.
@@ -571,6 +607,33 @@ ML_USERS, ML_ITEMS, ML_EVENTS, SAR_K = 6_040, 3_706, 1_000_209, 10
 IFOREST_ROWS, IFOREST_COLS, IFOREST_FRAUD = 284_807, 30, 492
 IFOREST_CPU_ROWS = 20_000
 BREAST_ROWS, BREAST_COLS = 569, 30
+
+# the explainers, CyberML and the service layer (phase 18): (a) ImageLIME
+# and ImageSHAP over ResNet-50 at 224x224 and 1000 classes on 4 uint8
+# images at the defaults (cell size 16: 196 superpixels; modifier 130;
+# sampling fraction 0.7) with 512 samples an image, so that the design is
+# over-determined (s ~ 2.6 d), at the featurizer's batch of 64; (b)
+# example 14's TabularSHAP over GBDTClassifier on the breast-cancer set's
+# shape (64 rows, 256 samples) and TabularLIME over phase 16 (a)'s Adult
+# model on its six numeric columns (64 rows, 512 samples); (c) TextLIME /
+# TextSHAP over phase 16 (c)'s review model (32 reviews, 256 samples); (d)
+# AccessAnomaly at its defaults on 4 tenants of 20,000 users x 8,000
+# resources x 400,000 distinct accesses, 95% within the user's department
+# (example 12's three)
+EXPLAIN_IMAGES, EXPLAIN_SAMPLES, EXPLAIN_BATCH = 4, 512, 64
+EXPLAIN_ROWS, TAB_SHAP_SAMPLES, TAB_LIME_SAMPLES = 64, 256, 512
+TEXT_ROWS, TEXT_SAMPLES = 32, 256
+# a LIME solve on the card (f32) against the host's f64 solve of the same
+# design and targets: coefficients in units of each design column's
+# spread within this of the largest, fitted values within this of the
+# targets' range
+SOLVE_RTOL = 1e-3
+SHAP_ANCHOR = 1e6  # explainers/base.shapley_kernel_weights' anchor weight
+AA_TENANTS, AA_USERS, AA_RES, AA_PAIRS, AA_DEPTS = (4, 20_000, 8_000,
+                                                    400_000, 3)
+# a tenant's card fit against its CPU fit from the same initial factors
+# (scores, absolute), and two card fits (of max |score|)
+AA_CPU_ATOL, AA_REPEAT_RTOL = 1e-3, 1e-6
 
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
@@ -5273,27 +5336,32 @@ def book_reviews(n: int, seed: int):
 
 
 @contextlib.contextmanager
-def timed_fits(cls):
-    """Wall seconds of each `cls._fit` call (the learner: the features'
-    upload, the fit on the device, the weights' download), the device
-    synchronized on both sides."""
+def timing(obj, name: str):
+    """Every obj.name(...) call inside the block: its wall seconds (the card
+    synchronized on both sides), arguments and result.  A module's function
+    or a class's own method is swapped and put back; on an instance, an
+    instance attribute shadows the method while the block runs."""
     import torch
 
-    spans, orig = [], cls._fit
+    calls, orig = [], getattr(obj, name)
+    own = name in vars(obj)
 
-    def wrapped(self, table):
+    def wrapped(*args, **kwargs):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = orig(self, table)
+        out = orig(*args, **kwargs)
         torch.cuda.synchronize()
-        spans.append(time.perf_counter() - t)
+        calls.append((time.perf_counter() - t, args, out))
         return out
 
-    cls._fit = wrapped
+    setattr(obj, name, wrapped)
     try:
-        yield spans
+        yield calls
     finally:
-        cls._fit = orig
+        if own:
+            setattr(obj, name, orig)
+        else:
+            delattr(obj, name)
 
 
 def adam_step_ms(x, y, n_classes: int, steps: int) -> float:
@@ -5351,10 +5419,11 @@ def peak_mib(base: int) -> str:
             f"start ({peak / 2**20:.1f} MiB in all)")
 
 
-def adult_path(card) -> None:
+def adult_path(card):
     """Phase 16 (a): TrainClassifier at its defaults on the Adult-shaped
     table on the card, held against the CPU fit; scored with
-    ComputeModelStatistics; saved, loaded and scored again."""
+    ComputeModelStatistics; saved, loaded and scored again.  Returns the
+    card's model and the held-out table (phase 18 (b) explains them)."""
     import tempfile
 
     import numpy as np
@@ -5372,10 +5441,11 @@ def adult_path(card) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with timed_fits(LogisticRegression) as learner:
+    with timing(LogisticRegression, "_fit") as learner:
         t0 = time.perf_counter()
         model = TrainClassifier(label_col="income").fit(train)
         fit_s = time.perf_counter() - t0
+    learner_s = sum(c[0] for c in learner)
     t0 = time.perf_counter()
     scored = model.transform(test)
     score_s = time.perf_counter() - t0
@@ -5422,8 +5492,8 @@ def adult_path(card) -> None:
         f"{n_feat} features, label '>50K' for "
         f"{np.mean(cols['income'] == '>50K'):.4f}: TrainClassifier() on "
         f"the card (LogisticRegression, 200 Adam steps, lr 0.1) fit "
-        f"{fit_s:.3f} s = host featurization {fit_s - sum(learner):.3f} s "
-        f"+ device learner {sum(learner):.3f} s; {step_ms:.4f} ms an Adam "
+        f"{fit_s:.3f} s = host featurization {fit_s - learner_s:.3f} s "
+        f"+ device learner {learner_s:.3f} s; {step_ms:.4f} ms an Adam "
         f"step (CUDA events, 200 steps); {ADULT_TRAIN / fit_s:,.0f} training"
         f" rows/s; scoring {ADULT_TEST / score_s:,.0f} rows/s; {memory} "
         f"({card})")
@@ -5463,6 +5533,7 @@ def adult_path(card) -> None:
     log(f"[phase 16] (a) TrainedClassifierModel saved and loaded in "
         f"{io_s:.3f} s; the loaded model's output equals the unsaved "
         f"model's bit for bit")
+    return model, test
 
 
 def flights_path(card) -> None:
@@ -5512,10 +5583,11 @@ def flights_path(card) -> None:
     cleaned = CleanMissingData(input_cols=numeric[:3]).fit(table).transform(
         table)
     clean_s = time.perf_counter() - t0
-    with timed_fits(L.LinearRegression) as learner:
+    with timing(L.LinearRegression, "_fit") as learner:
         t0 = time.perf_counter()
         model = TrainRegressor(label_col="delay").fit(cleaned)
         fit_s = time.perf_counter() - t0
+    learner_s = sum(c[0] for c in learner)
     memory = peak_mib(base)
     t0 = time.perf_counter()
     cpu = TrainRegressor(label_col="delay", device="cpu").fit(cleaned)
@@ -5539,8 +5611,8 @@ def flights_path(card) -> None:
         f"equal); CleanMissingData {clean_s:.3f} s; TrainRegressor() on "
         f"the card (X~ {FLIGHT_ROWS} x {d} f64, "
         f"{FLIGHT_ROWS * d * 8 / 2**20:.0f} MiB) fit {fit_s:.3f} s = host "
-        f"featurization {fit_s - sum(learner):.3f} s + device learner "
-        f"{sum(learner):.3f} s; the f64 ridge {solve_ms:.3f} ms (CUDA "
+        f"featurization {fit_s - learner_s:.3f} s + device learner "
+        f"{learner_s:.3f} s; the f64 ridge {solve_ms:.3f} ms (CUDA "
         f"events, 3 back to back: Gram, X~'y, solve); "
         f"{FLIGHT_ROWS / fit_s:,.0f} rows/s; {memory} ({card})")
     log(f"[phase 16] (b) training r2 {r2:.6f}; card vs CPU fit ({cpu_s:.2f}"
@@ -5552,9 +5624,11 @@ def flights_path(card) -> None:
              f"predictions {pred_err}")
 
 
-def reviews_path(card) -> None:
+def reviews_path(card):
     """Phase 16 (c): example 23's hashed TF-IDF reviews into
-    LogisticRegression on the card; held-out accuracy above 0.85."""
+    LogisticRegression on the card; held-out accuracy above 0.85.  Returns
+    the fitted featurizer and learner and the held-out texts (phase 18 (c)
+    explains them)."""
     import numpy as np
     import torch
 
@@ -5575,11 +5649,12 @@ def reviews_path(card) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with timed_fits(LogisticRegression) as learner:
+    with timing(LogisticRegression, "_fit") as learner:
         t0 = time.perf_counter()
         clf = LogisticRegression(max_iter=REVIEW_STEPS).fit(
             Table({"features": train_x, "label": labels[:cut]}))
         fit_s = time.perf_counter() - t0
+    learner_s = sum(c[0] for c in learner)
     t0 = time.perf_counter()
     pred = np.asarray(clf.transform(
         Table({"features": test_x}))["prediction"])
@@ -5595,13 +5670,14 @@ def reviews_path(card) -> None:
         f"TextFeaturizer(num_features={REVIEW_FEATURES}) fit + transform "
         f"on the host {feat_s:.3f} s; LogisticRegression(max_iter="
         f"{REVIEW_STEPS}) on the card fit {fit_s:.3f} s (device learner "
-        f"{sum(learner):.3f} s); {step_ms:.4f} ms an Adam step (CUDA "
+        f"{learner_s:.3f} s); {step_ms:.4f} ms an Adam step (CUDA "
         f"events); {cut / (feat_s * cut / REVIEW_ROWS + fit_s):,.0f} "
         f"training rows/s (featurization included); scoring "
         f"{(REVIEW_ROWS - cut) / score_s:,.0f} rows/s; held-out accuracy "
         f"{acc:.6f} (limit > {REVIEW_ACC}); {memory} ({card})")
     if not acc > REVIEW_ACC:
         fail(f"book reviews: held-out accuracy {acc} <= {REVIEW_ACC}")
+    return tf, clf, texts[cut:]
 
 
 def host_library_path() -> None:
@@ -6503,6 +6579,576 @@ def automl_path(card) -> dict:
     return launches
 
 
+def solve_gap(states, weights, targets, coefs, intercepts):
+    """A LIME solve on the card against the host's f64 solve of the same
+    design and targets (both with the 1e-6 ridge): the coefficients' gap in
+    units of each design column's spread over its largest, the fitted
+    values' gap over the targets' range, and the card solve's ms (CUDA
+    events, 10 calls)."""
+    import numpy as np
+    import torch
+
+    from mmlspark_tpu_torch.explainers.regression import (
+        batch_weighted_least_squares, np_batch_weighted_least_squares)
+
+    ref_c, ref_i = np_batch_weighted_least_squares(states, targets, weights,
+                                                   l2=1e-6)
+    sd = np.asarray(states, np.float64).std(axis=1)[:, None, :]
+    coef_gap = float(np.abs((coefs - ref_c) * sd).max()
+                     / max(np.abs(ref_c * sd).max(), 1e-300))
+
+    def fitted(c, i):
+        return np.einsum("nsd,ntd->nst", np.asarray(states, np.float64),
+                         np.asarray(c, np.float64)) + \
+            np.asarray(i, np.float64)[:, None, :]
+
+    span = float(np.ptp(targets))
+    fit_gap = float(np.abs(fitted(coefs, intercepts) - fitted(ref_c, ref_i)
+                           ).max() / max(span, 1e-300))
+    x, y, w = (torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+               for a in (states, targets, weights))
+    ms = cuda_ms(lambda: batch_weighted_least_squares(x, y, w), 10)
+    return coef_gap, fit_gap, ms
+
+
+def shap_additivity(states, targets, coefs, intercepts, dims):
+    """KernelSHAP's additivity, Σφ = f(x) − f(∅), per row and target.  The
+    full (sample 0) and null (sample 1) coalitions weigh SHAP_ANCHOR against
+    1 for each of the s − 2 others, and the weighted normal equations of the
+    intercept and of the fraction-on direction give |Σφ − (f(x) − f(∅))| ≤
+    (s − 2) / SHAP_ANCHOR · max |interior residual| for the exact fit; the
+    limit adds 1e-6 of Σ|φ| + |f(x)| + |f(∅)| for the f32 rounding of the
+    output.  Returns (max error, max error / limit)."""
+    import numpy as np
+
+    states = np.asarray(states, np.float64)
+    targets = np.asarray(targets, np.float64)
+    coefs = np.asarray(coefs, np.float64)
+    s = states.shape[1]
+    worst_err = worst_ratio = 0.0
+    for i, k in enumerate(dims):
+        phi = coefs[i][:, :k].sum(axis=1)  # (t,)
+        f = targets[i]  # (s, t)
+        err = np.abs(phi - (f[0] - f[1]))
+        pred = states[i] @ coefs[i].T + np.asarray(intercepts[i], np.float64)
+        resid = np.abs(f[2:] - pred[2:]).max(axis=0)
+        limit = (s - 2) / SHAP_ANCHOR * resid + 1e-6 * (
+            np.abs(coefs[i][:, :k]).sum(axis=1) + np.abs(f[0]) + np.abs(f[1]))
+        worst_err = max(worst_err, float(err.max()))
+        worst_ratio = max(worst_ratio, float((err / limit).max()))
+    return worst_err, worst_ratio
+
+
+def image_explainer_path(card) -> dict:
+    """Phase 18 (a): ImageLIME and ImageSHAP over a ResNet-50
+    ImageFeaturizer (224x224, 1000 classes, the logits tap) whose scores
+    are each image's top-class probability; returns {kernel: launches}."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import LambdaTransformer, PipelineModel, Table
+    from mmlspark_tpu_torch.explainers import (ImageLIME, ImageSHAP,
+                                               SuperpixelTransformer)
+    from mmlspark_tpu_torch.models.bundle import TorchBundle
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.ops import image_kernels as K
+
+    t_part = time.perf_counter()
+    rng = np.random.default_rng(18)
+    images = [rng.integers(0, 256, (IMG, IMG, 3), dtype=np.uint8)
+              for _ in range(EXPLAIN_IMAGES)]
+    bundle = TorchBundle("resnet50", {"num_classes": 1000},
+                         input_shape=(IMG, IMG, 3), seed=0)
+    featurizer = ImageFeaturizer(bundle=bundle, cut_output_layers=0,
+                                 output_col="logits",
+                                 batch_size=EXPLAIN_BATCH)
+    table = Table({"image": images})
+    top = np.asarray(featurizer.transform(table)["logits"]).argmax(axis=1)
+    table = table.with_column("top", top.astype(np.int64))
+    t0 = time.perf_counter()
+    table = SuperpixelTransformer(input_col="image",
+                                  output_col="superpixels").transform(table)
+    slic_s = time.perf_counter() - t0
+    n_seg = [int(v.max()) + 1 for v in table["superpixels"]]
+    scored = []
+
+    def top_class_probability(t):
+        logits = np.asarray(t["logits"], np.float64)
+        p = np.exp(logits - logits.max(axis=1, keepdims=True))
+        p /= p.sum(axis=1, keepdims=True)
+        out = p[np.arange(len(t)), np.asarray(t["top"])].astype(np.float32)
+        scored.append((np.asarray(t["logits"]), out))
+        return t.with_column("scores", out)
+
+    stack = PipelineModel([featurizer,
+                           LambdaTransformer(top_class_probability)])
+    n = EXPLAIN_IMAGES * EXPLAIN_SAMPLES
+    chunks = math.ceil(n / EXPLAIN_BATCH)
+    total = dict(NO_LAUNCHES)
+    for cls in (ImageLIME, ImageSHAP):
+        name = cls.__name__
+        exp = cls(model=stack, superpixel_col="superpixels",
+                  num_samples=EXPLAIN_SAMPLES, seed=18)
+        scored.clear()
+        zero_launches()
+        with timing(exp, "_build_samples") as builds, \
+                timing(stack, "transform") as forwards, \
+                timing(exp, "_solve") as solves:
+            t0 = time.perf_counter()
+            out = exp.transform(table)
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        if launches != dict(NO_LAUNCHES, affine_resample=chunks):
+            fail(f"{name} over ResNet-50 launched {launches}, expected B1 "
+                 f"once a chunk ({chunks})")
+        total = {k: total[k] + launches[k] for k in KERNELS}
+        expl = np.stack([np.asarray(v) for v in out["explanation"]])
+        if expl.shape != (EXPLAIN_IMAGES, 1, max(n_seg)) or \
+                not np.isfinite(expl).all():
+            fail(f"{name}: explanations {expl.shape}, finite "
+                 f"{np.isfinite(expl).all()}")
+        solve_s, (states, weights, targets), (coefs, inter) = solves[0]
+        logits, probs = scored[0]
+        if name == "ImageLIME":
+            # the same samples (seeded) through the plain preprocess
+            samples, _ = exp._build_samples(table)
+            plain_model = featurizer._model_for(bundle, "image")
+            plain_model.set(preprocess=plain_preprocess(K))
+            plain = np.asarray(plain_model.transform(samples)["logits"])
+            err_logits = rel_l2(logits, plain)
+            p = np.exp(plain - plain.max(axis=1, keepdims=True))
+            p = (p / p.sum(axis=1, keepdims=True))[
+                np.arange(n), np.repeat(top, EXPLAIN_SAMPLES)]
+            err_scores = rel_l2(probs, p)
+            del samples, plain_model
+            coef_gap, fit_gap, solve_ms = solve_gap(states, weights, targets,
+                                                    coefs, inter)
+            check = (f"logits vs the plain-preprocess run rel_l2="
+                     f"{err_logits:.3e}, scores {err_scores:.3e} (limit "
+                     f"{PLAIN_FEATURES_RTOL}); the card's f32 WLS against "
+                     f"the f64 host solve: coefficients {coef_gap:.3e} of the "
+                     f"largest, fitted values {fit_gap:.3e} of the targets' "
+                     f"range (limit {SOLVE_RTOL}); the solve "
+                     f"{solve_ms:.4f} ms (CUDA events; {solve_s * 1e3:.2f} "
+                     f"ms wall with the copies)")
+            if max(err_logits, err_scores) > PLAIN_FEATURES_RTOL or \
+                    max(coef_gap, fit_gap) > SOLVE_RTOL:
+                fail(f"ImageLIME: {check}")
+        else:
+            err, ratio = shap_additivity(states, targets, coefs, inter,
+                                         n_seg)
+            check = (f"additivity |Σφ − (f(x) − f(∅))| at most {err:.3e}, "
+                     f"{ratio:.3e} of its limit (the anchor bound); the host "
+                     f"f64 solve {solve_s * 1e3:.2f} ms")
+            if not ratio <= 1.0:
+                fail(f"ImageSHAP: {check}")
+        log(f"[phase 18] (a) {name}(ResNet-50, {IMG}x{IMG}, 1000 classes, "
+            f"bf16) on {EXPLAIN_IMAGES} images x {EXPLAIN_SAMPLES} samples, "
+            f"{n_seg} superpixels: {wall:.3f} s = masking "
+            f"{sum(b[0] for b in builds):.3f} s + the model "
+            f"{forwards[0][0]:.3f} s ({n / forwards[0][0]:,.0f} images/s) + "
+            f"the rest; launches {launches}; {check} on {card}")
+        del out, states, targets, logits
+    log(f"[phase 18] (a) SLIC (SuperpixelTransformer) {slic_s:.3f} s for "
+        f"{EXPLAIN_IMAGES} images")
+    log(f"[phase 18] (a) {time.perf_counter() - t_part:.1f} s")
+    del featurizer, stack, bundle
+    torch.cuda.empty_cache()
+    return total
+
+
+def tabular_explainer_path(adult_model, adult_test, card) -> None:
+    """Phase 18 (b): example 14's TabularSHAP over GBDTClassifier on the
+    breast-cancer set's shape, then TabularLIME over phase 16 (a)'s Adult
+    model on its six numeric columns."""
+    import numpy as np
+    from mmlspark_tpu_torch import LambdaTransformer, Table
+    from mmlspark_tpu_torch.explainers import TabularLIME, TabularSHAP
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+
+    t_part = time.perf_counter()
+    x, y = breast_cancer_like(seed=14)
+    table = Table({"features": x, "label": y})
+    gbdt = GBDTClassifier(num_iterations=60, num_leaves=15,
+                          min_data_in_leaf=10, seed=0).fit(table)
+
+    def malignant(t):
+        return t.with_column("scores", np.asarray(
+            gbdt.transform(t)["probability"])[:, 1])
+
+    shap = TabularSHAP(model=LambdaTransformer(malignant),
+                       num_samples=TAB_SHAP_SAMPLES, seed=7,
+                       background_data=table)
+    rows = Table({"features": x[:EXPLAIN_ROWS]})
+    with timing(shap, "_solve") as solves:
+        t0 = time.perf_counter()
+        out = shap.transform(rows)
+        wall = time.perf_counter() - t0
+    _, (states, weights, targets), (coefs, inter) = solves[0]
+    base = float(malignant(Table({"features": x.mean(
+        axis=0, keepdims=True)}))["scores"][0])
+    base_gap = float(np.abs(targets[:, 1, 0] - base).max())
+    err, ratio = shap_additivity(states, targets, coefs, inter,
+                                 [x.shape[1]] * EXPLAIN_ROWS)
+    phi = np.stack([np.asarray(v)[0] for v in out["explanation"]])
+    log(f"[phase 18] (b) TabularSHAP over GBDTClassifier (60 iterations, 15 "
+        f"leaves) on the breast-cancer set's shape ({BREAST_ROWS} x "
+        f"{BREAST_COLS}): {EXPLAIN_ROWS} rows x {TAB_SHAP_SAMPLES} samples "
+        f"in {wall:.3f} s; f(∅) against f(background mean) {base_gap:.3e}; "
+        f"additivity |Σφ − (f(x) − f(mean))| at most {err:.3e} "
+        f"({ratio:.3e} of the anchor bound; example 14's ceiling 0.25); "
+        f"mean |φ| {np.abs(phi).mean():.4f} on {card}")
+    if not (ratio <= 1.0 and base_gap <= 1e-6 and err < 0.25
+            and np.isfinite(phi).all()):
+        fail(f"TabularSHAP over the GBDT: additivity {err} ({ratio} of its "
+             f"limit), f(∅) off f(mean) by {base_gap}")
+
+    numeric = ["age", "fnlwgt", "education-num", "capital-gain",
+               "capital-loss", "hours-per-week"]
+    lime = TabularLIME(model=adult_model, input_cols=numeric,
+                       target_classes=[1], num_samples=TAB_LIME_SAMPLES,
+                       seed=16)
+    with timing(lime, "_solve") as solves:
+        t0 = time.perf_counter()
+        out = lime.transform(adult_test.slice(0, EXPLAIN_ROWS))
+        wall = time.perf_counter() - t0
+    solve_s, (states, weights, targets), (coefs, inter) = solves[0]
+    coef_gap, fit_gap, solve_ms = solve_gap(states, weights, targets, coefs,
+                                            inter)
+    r2 = np.asarray(out["explanation_r2"], np.float64)
+    log(f"[phase 18] (b) TabularLIME over the Adult TrainClassifier model "
+        f"(its {len(numeric)} numeric columns): {EXPLAIN_ROWS} rows x "
+        f"{TAB_LIME_SAMPLES} samples in {wall:.3f} s; the card's f32 WLS "
+        f"against the f64 host solve: coefficients {coef_gap:.3e} of the "
+        f"largest (in units of each column's spread), fitted values "
+        f"{fit_gap:.3e} of the targets' range (limit {SOLVE_RTOL}); the "
+        f"solve {solve_ms:.4f} ms (CUDA events; {solve_s * 1e3:.2f} ms "
+        f"wall); surrogate R² median {np.median(r2):.4f} on {card}")
+    if max(coef_gap, fit_gap) > SOLVE_RTOL:
+        fail(f"TabularLIME over Adult: the card's solve off the host's by "
+             f"{coef_gap} / {fit_gap}")
+    log(f"[phase 18] (b) {time.perf_counter() - t_part:.1f} s")
+
+
+def text_explainer_path(review_model, card) -> None:
+    """Phase 18 (c): TextLIME and TextSHAP over phase 16 (c)'s
+    TextFeaturizer(4096) -> LogisticRegression, on held-out reviews."""
+    import numpy as np
+    from mmlspark_tpu_torch import PipelineModel, Table
+    from mmlspark_tpu_torch.explainers import TextLIME, TextSHAP
+
+    t_part = time.perf_counter()
+    tf, clf, texts = review_model
+    model = PipelineModel([tf, clf])
+    rows = Table({"text": texts[:TEXT_ROWS]})
+    for cls in (TextLIME, TextSHAP):
+        exp = cls(model=model, num_samples=TEXT_SAMPLES, seed=23,
+                  target_classes=[1])
+        with timing(exp, "_solve") as solves:
+            t0 = time.perf_counter()
+            out = exp.transform(rows)
+            wall = time.perf_counter() - t0
+        solve_s, (states, weights, targets), (coefs, inter) = solves[0]
+        # the explanation's top token of each review: a sentiment word
+        lex = set(REVIEW_POS) | set(REVIEW_NEG)
+        hits = np.mean([toks[int(np.argmax(np.abs(np.asarray(e)[0][
+            :len(toks)])))] in lex for toks, e in zip(out["tokens"],
+                                                       out["explanation"])])
+        if cls is TextLIME:
+            coef_gap, fit_gap, solve_ms = solve_gap(states, weights, targets,
+                                                    coefs, inter)
+            check = (f"the card's f32 WLS against the f64 host solve: "
+                     f"coefficients {coef_gap:.3e}, fitted values "
+                     f"{fit_gap:.3e} (limit {SOLVE_RTOL}); the solve "
+                     f"{solve_ms:.4f} ms (CUDA events)")
+            bad = max(coef_gap, fit_gap) > SOLVE_RTOL
+        else:
+            err, ratio = shap_additivity(states, targets, coefs, inter,
+                                         exp._true_dims)
+            check = (f"additivity at most {err:.3e} ({ratio:.3e} of the "
+                     f"anchor bound)")
+            bad = not ratio <= 1.0
+        log(f"[phase 18] (c) {cls.__name__} over TextFeaturizer("
+            f"{REVIEW_FEATURES}) -> LogisticRegression: {TEXT_ROWS} reviews x "
+            f"{TEXT_SAMPLES} samples in {wall:.3f} s; the top token a "
+            f"sentiment word in {hits:.3f} of the reviews; {check} on {card}")
+        if bad or hits < 0.9:
+            fail(f"{cls.__name__} over the review model: {check}; top "
+                 f"tokens {hits}")
+    log(f"[phase 18] (c) {time.perf_counter() - t_part:.1f} s")
+
+
+def access_log(seed: int) -> dict:
+    """One tenant's access log, made from a seed with array operations:
+    AA_USERS users and AA_RES resources, each in one of example 12's
+    AA_DEPTS departments; AA_PAIRS distinct (user, resource) pairs, 95% of
+    them within the user's department, each with a likelihood (an access
+    count, 1..99)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    user_dept = rng.integers(0, AA_DEPTS, AA_USERS)
+    res_dept = rng.integers(0, AA_DEPTS, AA_RES)
+    n = int(AA_PAIRS * 1.1)
+    u = rng.integers(0, AA_USERS, n)
+    dept = np.where(rng.random(n) < 0.95, user_dept[u],
+                    rng.integers(0, AA_DEPTS, n))
+    r = np.empty(n, np.int64)
+    for d in range(AA_DEPTS):
+        pool = np.flatnonzero(res_dept == d)
+        m = dept == d
+        r[m] = pool[rng.integers(0, len(pool), int(m.sum()))]
+    _, first = np.unique(u * AA_RES + r, return_index=True)
+    if len(first) < AA_PAIRS:
+        fail(f"access log: {len(first)} distinct pairs < {AA_PAIRS}")
+    pick = np.sort(rng.choice(first, AA_PAIRS, replace=False))
+    return {"user": u[pick].astype(np.int64), "res": r[pick],
+            "likelihood": rng.integers(1, 100, AA_PAIRS).astype(np.float64),
+            "user_dept": user_dept, "res_dept": res_dept}
+
+
+def access_anomaly_path(card) -> None:
+    """Phase 18 (d): AccessAnomaly at its defaults on AA_TENANTS tenants;
+    cross-department probes against in-department accesses; a tenant's card
+    fit against its CPU fit; two card fits."""
+    import numpy as np
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.cyber import (AccessAnomaly,
+                                          ComplementAccessTransformer)
+    from mmlspark_tpu_torch.cyber import access_anomaly as AA
+
+    t_part = time.perf_counter()
+    t0 = time.perf_counter()
+    logs = [access_log(seed=180 + t) for t in range(AA_TENANTS)]
+    table = Table({
+        "tenant": np.repeat(np.arange(AA_TENANTS), AA_PAIRS),
+        **{k: np.concatenate([lg[k] for lg in logs])
+           for k in ("user", "res", "likelihood")}})
+    data_s = time.perf_counter() - t0
+    est = AccessAnomaly(tenant_col="tenant", likelihood_col="likelihood")
+    with timing(AA, "_als_step_sparse") as halves:
+        t0 = time.perf_counter()
+        model = est.fit(table)
+        fit_s = time.perf_counter() - t0
+    sweep_ms = [1e3 * (halves[i][0] + halves[i + 1][0])
+                for i in range(0, len(halves), 2)]
+    t0 = time.perf_counter()
+    scores = np.asarray(model.transform(table)["anomaly_score"])
+    score_s = time.perf_counter() - t0
+    again = np.asarray(est.fit(table).transform(table)["anomaly_score"])
+    repeat_gap = float(np.abs(again - scores).max())
+    same = bool(np.array_equal(again, scores))
+
+    # tenant 0: its most accessed in-department pairs against the same
+    # users reaching into another department's resources
+    lg = logs[0]
+    inside = lg["user_dept"][lg["user"]] == lg["res_dept"][lg["res"]]
+    normal = np.flatnonzero(inside)[np.argsort(
+        -lg["likelihood"][inside], kind="stable")[:1000]]
+    rng = np.random.default_rng(181)
+    users = lg["user"][normal]
+    other = (lg["user_dept"][users] + rng.integers(1, AA_DEPTS, len(users))
+             ) % AA_DEPTS
+    probe_res = np.array([rng.choice(np.flatnonzero(lg["res_dept"] == d))
+                          for d in other])
+    seen = set((lg["user"] * AA_RES + lg["res"]).tolist())
+    fresh = np.array([u * AA_RES + r not in seen
+                      for u, r in zip(users, probe_res)])
+
+    def score(u, r):
+        return np.asarray(model.transform(Table({
+            "tenant": np.zeros(len(u), np.int64), "user": u, "res": r}))[
+                "anomaly_score"])
+
+    s_norm = score(users, lg["res"][normal])
+    s_probe = score(users[fresh], probe_res[fresh])
+
+    # tenant 0 on the CPU from the same initial factors
+    one = Table({"tenant": np.zeros(AA_PAIRS, np.int64),
+                 **{k: lg[k] for k in ("user", "res", "likelihood")}})
+    t0 = time.perf_counter()
+    cpu = AccessAnomaly(tenant_col="tenant", likelihood_col="likelihood",
+                        device="cpu").fit(one)
+    cpu_s = time.perf_counter() - t0
+    cpu_gap = float(np.abs(np.asarray(cpu.transform(one)["anomaly_score"])
+                           - scores[:AA_PAIRS]).max())
+    t0 = time.perf_counter()
+    comp = ComplementAccessTransformer(tenant_col="tenant", seed=0
+                                       ).transform(one)
+    comp_s = time.perf_counter() - t0
+    overlap = len(set((np.asarray(comp["user"]) * AA_RES
+                       + np.asarray(comp["res"])).tolist()) & seen)
+    log(f"[phase 18] (d) AccessAnomaly at its defaults (rank 8, 10 sweeps, "
+        f"reg 0.1, complement ratio 1.0) on {AA_TENANTS} tenants x "
+        f"{AA_USERS:,} users x {AA_RES:,} resources x {AA_PAIRS:,} accesses "
+        f"({np.mean(inside):.4f} in-department; made in {data_s:.2f} s): fit "
+        f"{fit_s:.3f} s, a sweep {np.median(sweep_ms):.3f} ms median "
+        f"({min(sweep_ms):.3f}..{max(sweep_ms):.3f}, {len(sweep_ms)} sweeps, "
+        f"the card synchronized); scoring {len(scores):,} rows "
+        f"{score_s:.3f} s; in-department pairs {s_norm.mean():+.4f} against "
+        f"{len(s_probe)} cross-department probes {s_probe.mean():+.4f}; "
+        f"tenant 0's card fit against its CPU fit ({cpu_s:.2f} s) "
+        f"{cpu_gap:.3e} (limit {AA_CPU_ATOL}); two card fits bit for bit: "
+        f"{same} (max |diff| {repeat_gap:.3e}, limit {AA_REPEAT_RTOL} of "
+        f"max |score|); ComplementAccessTransformer on tenant 0 {comp_s:.3f} "
+        f"s for {len(comp):,} pairs ({overlap} seen) on {card}")
+    if not (s_probe.mean() > s_norm.mean() + 0.5 and len(s_probe) > 900):
+        fail(f"AccessAnomaly: probes {s_probe.mean()} against in-department "
+             f"{s_norm.mean()}")
+    if cpu_gap > AA_CPU_ATOL or \
+            repeat_gap > AA_REPEAT_RTOL * float(np.abs(scores).max()):
+        fail(f"AccessAnomaly: card vs CPU {cpu_gap}, two card fits "
+             f"{repeat_gap}")
+    if overlap or len(comp) != AA_PAIRS or not np.isfinite(scores).all():
+        fail(f"ComplementAccessTransformer: {len(comp)} pairs, {overlap} "
+             f"seen; scores finite {np.isfinite(scores).all()}")
+    log(f"[phase 18] (d) {time.perf_counter() - t_part:.1f} s")
+
+
+def service_layer_path() -> None:
+    """Phase 18 (e): example 11's cognitive pipeline against a mock of the
+    wire protocol on 127.0.0.1, the PowerBI writer against a local server,
+    and the binding generator over the registry, its smoke tests run by
+    pytest in a subprocess that cannot import JAX or the JAX package."""
+    import tempfile
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    import numpy as np
+    from mmlspark_tpu_torch import LambdaTransformer, PipelineModel, Table
+    from mmlspark_tpu_torch.codegen import generate_tests, generate_wrappers
+    from mmlspark_tpu_torch.cognitive import OCR, TextSentiment
+    from mmlspark_tpu_torch.core.registry import all_stages
+    from mmlspark_tpu_torch.io.http.transformers import SimpleHTTPTransformer
+    from mmlspark_tpu_torch.io.powerbi import write_to_power_bi
+
+    t_part = time.perf_counter()
+    docs = {b"IMG-0": "the service was excellent and fast",
+            b"IMG-1": "terrible delays ruined the whole trip",
+            b"IMG-2": "an average experience nothing special"}
+    negative = {"terrible", "ruined", "delays"}
+    pushed = []
+
+    class Mock(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            if self.path.startswith("/vision/v2.0/ocr"):
+                words = docs.get(bytes(body), "").split()
+                out = {"language": "en", "regions": [{"lines": [
+                    {"words": [{"text": w} for w in words]}]}]}
+            elif "/sentiment" in self.path:
+                out = {"documents": [
+                    {"id": d["id"], "sentiment": (
+                        "negative" if negative & set(d["text"].split())
+                        else "positive")}
+                    for d in json.loads(body)["documents"]]}
+            elif self.path.startswith("/powerbi"):
+                pushed.append(json.loads(body))
+                out = {}
+            else:
+                payload = json.loads(body)
+                out = {"upper": payload["text"].upper(),
+                       "words": len(payload["text"].split())}
+            blob = json.dumps(out).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(blob)))
+            self.end_headers()
+            self.wfile.write(blob)
+
+        def log_message(self, *a):
+            pass
+
+    def ocr_text(t):
+        return t.with_column("text", np.asarray([
+            None if r is None else " ".join(
+                w["text"] for region in r.get("regions", [])
+                for line in region.get("lines", [])
+                for w in line.get("words", []))
+            for r in t["ocr"]], dtype=object))
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Mock)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        imgs = np.empty(len(docs), dtype=object)
+        for i, blob in enumerate(docs):
+            imgs[i] = blob
+        t0 = time.perf_counter()
+        out = PipelineModel([
+            OCR(url=f"{base}/vision/v2.0/ocr", subscription_key="demo-key",
+                image_bytes_col="image", output_col="ocr"),
+            LambdaTransformer(ocr_text),
+            TextSentiment(url=f"{base}/text/analytics/v3.0/sentiment",
+                          subscription_key="demo-key", text_col="text",
+                          output_col="sentiment"),
+            SimpleHTTPTransformer(url=f"{base}/custom/enrich",
+                                  input_cols=["text"], output_col="enriched"),
+        ]).transform(Table({"image": imgs}))
+        pipe_s = time.perf_counter() - t0
+        sentiments = [r["sentiment"] for r in out["sentiment"]]
+        upper = all(out["enriched"][i]["upper"] == out["text"][i].upper()
+                    for i in range(len(out)))
+        rows = Table({"x": np.arange(1000), "name": np.asarray(
+            [f"r{i}" for i in range(1000)], object),
+            "v": np.where(np.arange(1000) % 7 == 0, np.nan, 0.5)})
+        t0 = time.perf_counter()
+        written = write_to_power_bi(rows, f"{base}/powerbi", batch_size=100)
+        pbi_s = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    flat = [r for batch in pushed for r in batch]
+    pbi_ok = (written == 1000 and len(pushed) == 10
+              and [r["x"] for r in flat] == list(range(1000))
+              and all((r["v"] is None) == (r["x"] % 7 == 0) for r in flat))
+    log(f"[phase 18] (e) example 11 (OCR -> Lambda -> TextSentiment -> "
+        f"SimpleHTTPTransformer) against the mock: {sentiments}, enriched "
+        f"{upper}, {pipe_s:.3f} s; write_to_power_bi 1,000 rows in "
+        f"{len(pushed)} batches {pbi_s:.3f} s, rows and nulls as sent: "
+        f"{pbi_ok}")
+    if sentiments != ["positive", "negative", "positive"] or not upper or \
+            not pbi_ok:
+        fail("the cognitive pipeline or the PowerBI writer")
+
+    stages = all_stages()
+    blocker = (
+        "import importlib.abc, sys\n"
+        "BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'mmlspark_tpu')\n"
+        "def _blocked(n):\n"
+        "    return any(n == b or n.startswith(b + '.') for b in BLOCKED)\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if _blocked(name):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        t0 = time.perf_counter()
+        generate_wrappers(d)
+        test_file = generate_tests(d)
+        gen_s = time.perf_counter() - t0
+        script = blocker + (
+            "import pytest\n"
+            f"rc = pytest.main([{test_file!r}, '-q', '-p', "
+            "'no:cacheprovider'])\n"
+            "assert not [m for m in sys.modules if _blocked(m)]\n"
+            "sys.exit(rc)\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", script], cwd=d, capture_output=True,
+            text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join([d, ROOT])))
+        run_s = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    log(f"[phase 18] (e) the binding generator over {len(stages)} stages: "
+        f"wrappers and tests written in {gen_s:.3f} s; their smoke tests "
+        f"(JAX and the JAX package blocked) in {run_s:.2f} s: {tail[0]}")
+    if len(stages) != 161 or proc.returncode != 0 or \
+            f"{len(stages)} passed" not in proc.stdout:
+        fail(f"the generated smoke tests: rc {proc.returncode}\n"
+             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    log(f"[phase 18] (e) {time.perf_counter() - t_part:.1f} s")
+
+
 def int8_gemm_timing(card) -> None:
     """`torch._int_mm` at the ViT-B/16 qkv shape of one chunk against a
     bf16 `torch.matmul` at the same shape, each from calls queued behind
@@ -6813,9 +7459,9 @@ def main() -> None:
     t16 = time.perf_counter()
     zero_launches()
     host_library_path()
-    adult_path(card)
+    adult_model, adult_test = adult_path(card)
     flights_path(card)
-    reviews_path(card)
+    review_model = reviews_path(card)
     classic = read_launches()
     log(f"[phase 16] kernel launches (no kernel is on this path): "
         f"{classic}")
@@ -6829,6 +7475,21 @@ def main() -> None:
     paths += [vw_launches, knn_path(card), sar_path(card),
               iforest_path(card), automl_path(card)]
     log(f"[phase 17] {time.perf_counter() - t17:.1f} s")
+
+    # ---- 18. the explainers, CyberML and the service layer ---------------
+    t18 = time.perf_counter()
+    paths.append(image_explainer_path(card))
+    zero_launches()
+    tabular_explainer_path(adult_model, adult_test, card)
+    text_explainer_path(review_model, card)
+    access_anomaly_path(card)
+    service_layer_path()
+    rest = read_launches()
+    if rest != NO_LAUNCHES:
+        fail(f"phase 18 (b)-(e) launched {rest}: no kernel is on their path")
+    paths.append(rest)
+    del adult_model, adult_test, review_model
+    log(f"[phase 18] {time.perf_counter() - t18:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------

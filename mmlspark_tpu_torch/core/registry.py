@@ -49,6 +49,16 @@ STAGE_MODULES = [
     "mmlspark_tpu_torch.recommendation.ranking",
     "mmlspark_tpu_torch.recommendation.sar",
     "mmlspark_tpu_torch.recommendation.tvs",
+    "mmlspark_tpu_torch.explainers.superpixel",
+    "mmlspark_tpu_torch.explainers.tabular",
+    "mmlspark_tpu_torch.explainers.image",
+    "mmlspark_tpu_torch.explainers.text",
+    "mmlspark_tpu_torch.cyber.access_anomaly",
+    "mmlspark_tpu_torch.cyber.feature",
+    "mmlspark_tpu_torch.cognitive.vision",
+    "mmlspark_tpu_torch.cognitive.text_analytics",
+    "mmlspark_tpu_torch.cognitive.services",
+    "mmlspark_tpu_torch.cognitive.speech",
 ]
 
 

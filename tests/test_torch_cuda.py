@@ -76,6 +76,16 @@ recommendations (a list may differ only at a 1e-5 near-tie); the
 isolation forest's scores (1e-6); the tagger's card fit against its CPU
 fit (1e-3 of each tensor's largest, cuDNN's LSTM in full f32); a convnet
 featurizer through B1 against its CPU run (1e-3).
+
+The explainers and CyberML (no kernel of their own): the batched f32 WLS
+on the card against the f64 host solve and the lasso against its CPU run
+(coefficients and intercepts within 1e-4 of max |coef| and max |y|:
+cuBLAS and cuSOLVER round in another order); `TabularLIME` on the card by default against its
+CPU run (1e-4); the ALS sweep on the card against the CPU (1e-5 of the
+largest factor: its observed sums accumulate in f64, the card's atomics
+in another order); two `AccessAnomaly` card fits at the defaults (scores
+within 1e-6 of the largest, whether bit for bit printed) and one against
+its CPU fit from the same initial factors (1e-4).
 """
 import base64
 import functools
@@ -2160,3 +2170,102 @@ def test_a_convnet_featurizer_on_card_matches_the_cpu(cuda_device):
                                      device="cpu").transform(
         Table({"image": col}))["features"])
     np.testing.assert_allclose(card, cpu, atol=1e-3 * np.abs(cpu).max())
+
+
+def _wls_problem(n, s, d, t, seed):
+    rng = np.random.default_rng(seed)
+    X = (rng.random((n, s, d)) < 0.7).astype(np.float32)
+    Y = (X[:, :, :t] * 2.0 - X[:, :, -t:] +
+         0.3 * rng.normal(size=(n, s, t))).astype(np.float32)
+    W = np.exp(-rng.random((n, s))).astype(np.float32)
+    return X, Y, W
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["wls", "lasso"])
+def test_explainer_solvers_on_card_match_the_host(cuda_device, solver):
+    """At ImageLIME's shape (196 superpixels, 512 samples).  The WLS is
+    held against the f64 numpy solve of the same problem: on the card's
+    machine a batched f32 `torch.linalg.solve` of this size on the CPU
+    stopped in oneMKL (SLASWP, parameter 6) and never returned.  The lasso
+    (products only) against its CPU run."""
+    from mmlspark_tpu_torch.explainers import regression as R
+
+    X, Y, W = _wls_problem(8, 512, 196, 1, seed=3)
+    if solver == "wls":
+        card = [a.cpu().numpy() for a in R.batch_weighted_least_squares(
+            X, Y, W)]
+        host = R.np_batch_weighted_least_squares(X, Y, W, l2=1e-6)
+    else:
+        card = [a.cpu().numpy() for a in R.batch_lasso(X, Y, W, 1e-3)]
+        host = [a.numpy() for a in R.batch_lasso(X, Y, W, 1e-3,
+                                                 device="cpu")]
+    np.testing.assert_allclose(card[0], host[0], rtol=0,
+                               atol=1e-4 * np.abs(host[0]).max())
+    np.testing.assert_allclose(card[1], host[1], rtol=0,
+                               atol=1e-4 * np.abs(Y).max())
+
+
+@pytest.mark.cuda
+def test_tabular_lime_on_card_matches_the_cpu(cuda_device):
+    from mmlspark_tpu_torch import LambdaTransformer
+    from mmlspark_tpu_torch.explainers import TabularLIME
+
+    rng = np.random.default_rng(4)
+    w = rng.normal(size=6).astype(np.float32)
+
+    def score(t):
+        return t.with_column("scores", np.asarray(t["features"]) @ w)
+
+    tab = Table({"features": rng.normal(size=(16, 6)).astype(np.float32)})
+    kw = dict(model=LambdaTransformer(score), num_samples=256, seed=1)
+    card = np.stack(list(TabularLIME(**kw).transform(tab)["explanation"]))
+    cpu = np.stack(list(TabularLIME(**kw, device="cpu").transform(
+        tab)["explanation"]))
+    np.testing.assert_allclose(card, cpu, rtol=0,
+                               atol=1e-4 * np.abs(cpu).max())
+
+
+def _access_log(n_users, n_res, n_pairs, seed):
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(0, n_users * n_res, n_pairs))
+    return Table({"user": (keys // n_res).astype(np.int64),
+                  "res": (keys % n_res).astype(np.int64),
+                  "likelihood": rng.integers(1, 60, len(keys)).astype(
+                      np.float64)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c0", [1.0, 0.5])
+def test_als_sweep_on_card_matches_the_cpu(cuda_device, c0):
+    from mmlspark_tpu_torch.cyber.access_anomaly import _als_step_sparse
+
+    rng = np.random.default_rng(int(c0 * 10))
+    n_rows, n_cols, rank = 2000, 800, 8
+    keys = np.unique(rng.integers(0, n_rows * n_cols, 40000))
+    rows = torch.as_tensor((keys // n_cols).astype(np.int64))
+    cols = torch.as_tensor((keys % n_cols).astype(np.int64))
+    vals = torch.as_tensor(np.log1p(rng.integers(1, 50, len(keys))).astype(
+        np.float32))
+    Y = torch.as_tensor((rng.normal(size=(n_cols, rank)) * 0.3).astype(
+        np.float32))
+    cpu = _als_step_sparse(Y, rows, cols, vals, c0, 0.1, rank, n_rows)
+    card = _als_step_sparse(Y.cuda(), rows.cuda(), cols.cuda(), vals.cuda(),
+                            c0, 0.1, rank, n_rows).cpu()
+    np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=0,
+                               atol=1e-5 * float(cpu.abs().max()))
+
+
+@pytest.mark.cuda
+def test_access_anomaly_card_fits_agree(cuda_device):
+    from mmlspark_tpu_torch.cyber import AccessAnomaly
+
+    tab = _access_log(3000, 1200, 60000, seed=5)
+    kw = dict(likelihood_col="likelihood", complement_ratio=0.8)
+    a, b = (AccessAnomaly(**kw).fit(tab) for _ in range(2))
+    sa, sb = (m.transform(tab)["anomaly_score"] for m in (a, b))
+    print("two card fits bit for bit:", np.array_equal(sa, sb),
+          "max |diff|", float(np.abs(sa - sb).max()))
+    np.testing.assert_allclose(sa, sb, rtol=0, atol=1e-6 * np.abs(sa).max())
+    cpu = AccessAnomaly(**kw, device="cpu").fit(tab).transform(tab)
+    np.testing.assert_allclose(sa, cpu["anomaly_score"], rtol=0, atol=1e-4)

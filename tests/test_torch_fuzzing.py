@@ -12,9 +12,10 @@ class sits in one bucket:
               bit for bit, with the executor caches cleared between.  An
               estimator's fitted model goes through the round trip too.
   - SERDE     save/load + param equality only, with a recorded reason:
-              the two HTTP stages, whose transform needs a live endpoint
-              (tests/test_torch_http.py runs them against an echo
-              server), as in the JAX package's sweep.
+              the two HTTP stages and the 40 cognitive services, whose
+              transform needs a live endpoint (tests/test_torch_http.py
+              and test_torch_cognitive.py run them against local
+              servers), as in the JAX package's sweep.
 
 An uncovered registry class or a stale bucket entry fails the sweep.
 Imports nothing of the JAX package.
@@ -26,8 +27,9 @@ import torch
 from mmlspark_tpu_torch.core import registry
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
 
-from torch_fuzzing import (CLASSIC_EXAMPLES, GBDT_EXAMPLES,
-                           ONLINE_STATS_EXAMPLES, SLICE16_EXAMPLES,
+from torch_fuzzing import (CLASSIC_EXAMPLES, COGNITIVE_STAGES,
+                           GBDT_EXAMPLES, ONLINE_STATS_EXAMPLES,
+                           SLICE16_EXAMPLES, SLICE17_EXAMPLES,
                            check_params_equal, example, fuzz, roundtrip,
                            serde_example)
 
@@ -38,7 +40,8 @@ FULL = ["ImageTransformer", "ResizeImageTransformer", "UnrollImage",
         "ImageFeaturizer", "DeepVisionClassifier", "DeepVisionModel",
         "JSONInputParser", "CustomInputParser", "JSONOutputParser",
         "StringOutputParser", "CustomOutputParser"] + GBDT_EXAMPLES + \
-    ONLINE_STATS_EXAMPLES + CLASSIC_EXAMPLES + SLICE16_EXAMPLES
+    ONLINE_STATS_EXAMPLES + CLASSIC_EXAMPLES + SLICE16_EXAMPLES + \
+    SLICE17_EXAMPLES
 
 _NETWORK = ("sends requests over the network; echo-server transform tests "
             "live in test_torch_http.py")
@@ -47,6 +50,10 @@ SERDE = {  # name -> (factory, reason)
     "SimpleHTTPTransformer": (lambda: serde_example("SimpleHTTPTransformer"),
                               _NETWORK),
 }
+_SERVICE = ("transform needs a live HTTP endpoint; mock-server transform "
+            "tests live in test_torch_cognitive.py")
+SERDE.update({name: (lambda name=name: serde_example(name), _SERVICE)
+              for name in COGNITIVE_STAGES})
 
 
 def test_every_registered_stage_is_covered():
@@ -58,7 +65,7 @@ def test_every_registered_stage_is_covered():
         f"SERDE in test_torch_fuzzing.py): {uncovered}")
     stale = sorted(n for n in covered if n not in stages)
     assert not stale, f"bucket entries not in the registry: {stale}"
-    assert len(stages) == 104, sorted(stages)
+    assert len(stages) == 161, sorted(stages)
 
 
 @pytest.mark.parametrize("name", FULL)

@@ -249,3 +249,30 @@ def test_no_source_imports_the_repo_tools(path):
                                 or node.module.startswith("tools.")):
                 bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_the_scan_covers_the_explainers_cyber_and_the_service_layer():
+    """... and so are the explainers', CyberML's, the cognitive services',
+    the PowerBI writer's and the binding generator's."""
+    mods = set(_modules())
+    for m in ("mmlspark_tpu_torch.explainers",
+              "mmlspark_tpu_torch.explainers.regression",
+              "mmlspark_tpu_torch.explainers.base",
+              "mmlspark_tpu_torch.explainers.superpixel",
+              "mmlspark_tpu_torch.explainers.tabular",
+              "mmlspark_tpu_torch.explainers.image",
+              "mmlspark_tpu_torch.explainers.text",
+              "mmlspark_tpu_torch.cyber", "mmlspark_tpu_torch.cyber.feature",
+              "mmlspark_tpu_torch.cyber.dataset",
+              "mmlspark_tpu_torch.cyber.access_anomaly",
+              "mmlspark_tpu_torch.cognitive",
+              "mmlspark_tpu_torch.cognitive.base",
+              "mmlspark_tpu_torch.cognitive.vision",
+              "mmlspark_tpu_torch.cognitive.text_analytics",
+              "mmlspark_tpu_torch.cognitive.services",
+              "mmlspark_tpu_torch.cognitive.speech",
+              "mmlspark_tpu_torch.cognitive.search",
+              "mmlspark_tpu_torch.io.powerbi",
+              "mmlspark_tpu_torch.codegen",
+              "mmlspark_tpu_torch.codegen.generate"):
+        assert m in mods, m

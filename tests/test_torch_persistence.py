@@ -60,7 +60,7 @@ STAGES = ["ImageTransformer", "ResizeImageTransformer", "UnrollImage",
           "GBDTClassifier", "GBDTRegressionModel", "VowpalWabbitFeaturizer",
           "ComputeModelStatistics", "Word2Vec", "VowpalWabbitClassifier",
           "VowpalWabbitContextualBandit", "SequenceTagger", "KNN", "SAR",
-          "IsolationForest"]
+          "IsolationForest", "AccessAnomaly", "TabularLIME", "ImageLIME"]
 BLOCKER = """
 import importlib.abc, sys
 BLOCKED = ("jax", "jaxlib", "flax", "mmlspark_tpu")
@@ -358,3 +358,38 @@ def test_a_fitted_gbdt_model_round_trips_bit_for_bit(tmp_path):
         PipelineStage.load(str(tmp_path / "jax_gbdt"))
     bridged = Booster.from_model_string(jmodel.model_string)
     np.testing.assert_array_equal(bridged.score(x), jmodel.booster.score(x))
+
+
+def test_a_fitted_access_anomaly_model_and_a_lime_stage_round_trip(tmp_path):
+    from mmlspark_tpu.cyber import AccessAnomaly as JAccessAnomaly
+
+    from mmlspark_tpu_torch.cyber import AccessAnomalyModel
+
+    est, table = example("AccessAnomaly")
+    model = est.fit(table)
+    want = model.transform(table)
+    model.save(str(tmp_path / "aa"))
+    loaded = PipelineStage.load(str(tmp_path / "aa"))
+    check_params_equal(model, loaded)
+    for t in model.factors:
+        for a, b in zip(model.factors[t], loaded.factors[t]):
+            np.testing.assert_array_equal(a, b)
+    assert loaded.transform(table).approx_equals(want, rtol=0.0, atol=0.0)
+    # a JAX-saved model is refused by name; its numpy factors carry over
+    jt = __import__("mmlspark_tpu").Table(
+        {k: table[k] for k in table.column_names})
+    jmodel = JAccessAnomaly(rank=3, max_iter=2).fit(jt)
+    jmodel.save(str(tmp_path / "jax_aa"))
+    with pytest.raises(ValueError):
+        PipelineStage.load(str(tmp_path / "jax_aa"))
+    bridged = AccessAnomalyModel(factors=jmodel.factors, stats=jmodel.stats)
+    np.testing.assert_array_equal(bridged.transform(table)["anomaly_score"],
+                                  jmodel.transform(jt)["anomaly_score"])
+    for name in ("TabularLIME", "TextLIME", "ImageSHAP"):
+        stage, table = example(name)
+        want = stage.transform(table)
+        stage.save(str(tmp_path / name))
+        loaded = PipelineStage.load(str(tmp_path / name))
+        check_params_equal(stage, loaded)
+        assert loaded.transform(table).approx_equals(want, rtol=0.0,
+                                                     atol=0.0), name

@@ -219,3 +219,65 @@ def test_the_rest_of_classic_ml_registers_its_stages():
 def test_the_rest_of_classic_ml_resolves_in_a_fresh_interpreter(name,
                                                                  module):
     assert _fresh_rest_resolution()[name] == module
+
+
+# the explainers', CyberML's and the cognitive services' 57 stages
+SLICE17_STAGES = {
+    "mmlspark_tpu_torch.explainers.superpixel": ["SuperpixelTransformer"],
+    "mmlspark_tpu_torch.explainers.tabular": [
+        "TabularLIME", "VectorLIME", "TabularSHAP", "VectorSHAP"],
+    "mmlspark_tpu_torch.explainers.image": ["ImageLIME", "ImageSHAP"],
+    "mmlspark_tpu_torch.explainers.text": ["TextLIME", "TextSHAP"],
+    "mmlspark_tpu_torch.cyber.access_anomaly": [
+        "ComplementAccessTransformer", "AccessAnomaly", "AccessAnomalyModel"],
+    "mmlspark_tpu_torch.cyber.feature": [
+        "IdIndexer", "IdIndexerModel", "PartitionedStandardScaler",
+        "PartitionedMinMaxScaler", "PartitionedScalerModel"],
+    "mmlspark_tpu_torch.cognitive.vision": [
+        "OCR", "AnalyzeImage", "ReadImage", "GenerateThumbnails", "TagImage",
+        "DescribeImage", "RecognizeDomainSpecificContent", "DetectFace",
+        "FindSimilarFace", "GroupFaces", "IdentifyFaces", "VerifyFaces"],
+    "mmlspark_tpu_torch.cognitive.text_analytics": [
+        "TextSentiment", "LanguageDetector", "EntityDetector",
+        "KeyPhraseExtractor", "NER", "PII"],
+    "mmlspark_tpu_torch.cognitive.services": [
+        "SpeechToText", "DetectLastAnomaly", "DetectAnomalies",
+        "SimpleDetectAnomalies", "Translate", "Detect", "BreakSentence",
+        "Transliterate", "DictionaryLookup", "DictionaryExamples",
+        "DocumentTranslator", "AnalyzeLayout", "AnalyzeInvoices",
+        "AnalyzeReceipts", "AnalyzeBusinessCards", "AnalyzeIDDocuments",
+        "AnalyzeCustomModel", "GetCustomModel", "ListCustomModels",
+        "BingImageSearch"],
+    "mmlspark_tpu_torch.cognitive.speech": ["SpeechToTextSDK",
+                                            "ConversationTranscription"],
+}
+SLICE17 = [(n, m) for m, names in SLICE17_STAGES.items() for n in names]
+
+
+@functools.lru_cache(maxsize=None)
+def _fresh_slice17_resolution() -> dict:
+    names = [n for n, _ in SLICE17]
+    script = (
+        "import json\n"
+        "from mmlspark_tpu_torch.core import registry\n"
+        f"names = {names!r}\n"
+        "print(json.dumps({n: registry.get_stage_class(n).__module__ "
+        "for n in names}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_the_explainers_cyber_and_cognitive_register_57_stages():
+    mods = _registering_modules()
+    for module, names in SLICE17_STAGES.items():
+        assert sorted(mods[module]) == sorted(names), module
+    assert len(SLICE17) == len(dict(SLICE17)) == 57
+    assert len(registry.all_stages()) == 161
+
+
+@pytest.mark.parametrize("name,module", SLICE17, ids=[n for n, _ in SLICE17])
+def test_the_slice17_stages_resolve_in_a_fresh_interpreter(name, module):
+    assert _fresh_slice17_resolution()[name] == module

@@ -194,6 +194,8 @@ def example(name: str):
         return classic_example(name)
     if name in SLICE16_EXAMPLES:
         return slice16_example(name)
+    if name in SLICE17_EXAMPLES:
+        return slice17_example(name)
     raise KeyError(name)
 
 
@@ -634,6 +636,127 @@ def slice16_example(name: str):
     raise KeyError(name)
 
 
+# the explainers and CyberML (the fuzz examples of the JAX package's
+# tests/test_fuzzing_coverage.py, on the CPU)
+SLICE17_EXAMPLES = [
+    "TabularLIME", "TabularSHAP", "VectorLIME", "VectorSHAP", "ImageLIME",
+    "ImageSHAP", "TextLIME", "TextSHAP", "SuperpixelTransformer",
+    "AccessAnomaly", "AccessAnomalyModel", "ComplementAccessTransformer",
+    "IdIndexer", "IdIndexerModel", "PartitionedStandardScaler",
+    "PartitionedMinMaxScaler", "PartitionedScalerModel"]
+
+# the cognitive services' stages: save/load + param equality only (their
+# transform needs a live endpoint; test_torch_cognitive.py runs them
+# against a mock service)
+COGNITIVE_STAGES = [
+    "AnalyzeInvoices", "AnalyzeLayout", "BreakSentence", "Detect",
+    "DetectAnomalies", "DetectLastAnomaly", "DocumentTranslator",
+    "SpeechToText", "Translate", "Transliterate", "EntityDetector",
+    "KeyPhraseExtractor", "LanguageDetector", "NER", "PII", "TextSentiment",
+    "AnalyzeImage", "DescribeImage", "DetectFace", "FindSimilarFace",
+    "GenerateThumbnails", "GroupFaces", "IdentifyFaces", "OCR", "ReadImage",
+    "RecognizeDomainSpecificContent", "TagImage", "VerifyFaces",
+    "AnalyzeReceipts", "AnalyzeBusinessCards", "AnalyzeIDDocuments",
+    "AnalyzeCustomModel", "GetCustomModel", "ListCustomModels",
+    "DictionaryLookup", "DictionaryExamples", "SimpleDetectAnomalies",
+    "SpeechToTextSDK", "ConversationTranscription", "BingImageSearch"]
+
+
+# module-level scoring functions of the explained models (pickle by name)
+def linear_score_fn(t):
+    from mmlspark_tpu_torch.core.schema import features_matrix
+
+    x = features_matrix(t["features"])
+    w = np.array([2.0, -3.0, 0.5], np.float32)[: x.shape[1]]
+    return t.with_column("scores", x @ w)
+
+
+def brightness_fn(t):
+    vals = np.array([np.asarray(r).mean() for r in t["image"]])
+    return t.with_column("scores", vals)
+
+
+def keyword_fn(t):
+    vals = np.array([float("fox" in s) for s in t["text"]])
+    return t.with_column("scores", vals)
+
+
+def float_img_table(n=2, seed=52) -> Table:
+    rng = np.random.default_rng(seed)
+    imgs = np.empty(n, object)
+    for i in range(n):
+        imgs[i] = rng.random((24, 24, 3)).astype(np.float32)
+    return Table({"image": imgs})
+
+
+def slice17_example(name: str):
+    from mmlspark_tpu_torch import cyber as C
+    from mmlspark_tpu_torch import explainers as E
+    from mmlspark_tpu_torch.core.pipeline import LambdaTransformer
+
+    cpu = {"device": "cpu"}
+    models = {"AccessAnomalyModel": "AccessAnomaly",
+              "IdIndexerModel": "IdIndexer",
+              "PartitionedScalerModel": "PartitionedMinMaxScaler"}
+    if name in models:
+        est, table = slice17_example(models[name])
+        return est.fit(table), table
+    rng = np.random.default_rng(53)
+    vec = Table({"features": rng.normal(size=(3, 3)).astype(np.float32)})
+    texts = Table({"text": np.asarray(["the quick fox", "a lazy dog"],
+                                      object)})
+    linear, image, text = (LambdaTransformer(fn) for fn in (
+        linear_score_fn, brightness_fn, keyword_fn))
+    if name == "TabularLIME":
+        return E.TabularLIME(model=linear, num_samples=32, seed=1, **cpu), \
+            Table({"features": rng.normal(size=(4, 3)).astype(np.float32)})
+    if name == "TabularSHAP":
+        return E.TabularSHAP(model=linear, num_samples=32, seed=2), vec
+    if name == "VectorLIME":
+        return E.VectorLIME(model=linear, num_samples=32, seed=3, **cpu), vec
+    if name == "VectorSHAP":
+        return E.VectorSHAP(model=linear, num_samples=32, seed=4), vec
+    if name == "ImageLIME":
+        return E.ImageLIME(model=image, num_samples=16, seed=5,
+                           cell_size=8.0, **cpu), float_img_table()
+    if name == "ImageSHAP":
+        return E.ImageSHAP(model=image, num_samples=16, seed=6,
+                           cell_size=8.0), float_img_table()
+    if name == "TextLIME":
+        return E.TextLIME(model=text, num_samples=16, seed=7, **cpu), texts
+    if name == "TextSHAP":
+        return E.TextSHAP(model=text, num_samples=16, seed=8), texts
+    if name == "SuperpixelTransformer":
+        return E.SuperpixelTransformer(input_col="image", cell_size=8.0), \
+            float_img_table()
+    if name == "AccessAnomaly":
+        n = 80
+        return C.AccessAnomaly(rank=3, max_iter=3, **cpu), Table({
+            "tenant": np.zeros(n, np.int64),
+            "user": rng.integers(0, 10, n).astype(np.int64),
+            "res": rng.integers(0, 8, n).astype(np.int64)})
+    if name == "ComplementAccessTransformer":
+        n = 20
+        return C.ComplementAccessTransformer(complement_ratio=1.0,
+                                             seed=5), Table({
+            "tenant": np.zeros(n, np.int64),
+            "user": rng.integers(0, 5, n).astype(np.int64),
+            "res": rng.integers(0, 5, n).astype(np.int64)})
+    if name == "IdIndexer":
+        n = 20
+        return C.IdIndexer(input_col="user", partition_key="tenant",
+                           output_col="user_idx"), Table({
+            "tenant": rng.integers(0, 2, n).astype(np.int64),
+            "user": rng.integers(0, 6, n).astype(np.int64)})
+    if name in ("PartitionedStandardScaler", "PartitionedMinMaxScaler"):
+        n = 24
+        return getattr(C, name)(input_col="value", partition_key="tenant",
+                                output_col="scaled"), Table({
+            "tenant": rng.integers(0, 2, n).astype(np.int64),
+            "value": rng.normal(size=n)})
+    raise KeyError(name)
+
+
 def serde_example(name: str):
     """The stage alone, for the stages whose transform needs a live HTTP
     endpoint (save/load + param equality only)."""
@@ -644,6 +767,12 @@ def serde_example(name: str):
     if name == "SimpleHTTPTransformer":
         return T.SimpleHTTPTransformer(input_cols=["a"],
                                        url="http://localhost:9/x")
+    if name in COGNITIVE_STAGES:
+        from mmlspark_tpu_torch import cognitive
+
+        extra = {"count": 2} if name == "BingImageSearch" else {}
+        return getattr(cognitive, name)(url="http://localhost:9/api",
+                                        subscription_key="k", **extra)
     raise KeyError(name)
 
 
