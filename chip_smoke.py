@@ -376,6 +376,7 @@ import json
 import re
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -634,6 +635,19 @@ AA_TENANTS, AA_USERS, AA_RES, AA_PAIRS, AA_DEPTS = (4, 20_000, 8_000,
 # a tenant's card fit against its CPU fit from the same initial factors
 # (scores, absolute), and two card fits (of max |score|)
 AA_CPU_ATOL, AA_REPEAT_RTOL = 1e-3, 1e-6
+
+# phase 19: the device its distributed paths run on (nccl for cuda), the
+# featurizer's new chunk (P19_FEW images), the ring's blocks and the
+# bf16 tolerance of tests/test_sequence_parallel.py, Ulysses' shape, and
+# the 3D step's tokens [A, M, mb, S] at GPT-small's width (bf16, SGD),
+# held against one single-device step over the same 16 rows: the loss
+# (relative) and the parameter updates (relative L2; TRAIN_GRAD_RTOL)
+P19_DEVICE = "cuda"
+P19_FEW = 10
+RING_SHAPE, RING_BLOCKS, RING_ATOL = (1, 8192, 12, 64), 8, 0.02
+ULY_SHAPE = (2, 2048, 12, 64)
+P3D_A, P3D_M, P3D_MB, P3D_SEQ, P3D_STEPS, P3D_LR = 2, 2, 4, 1024, 3, 0.1
+P3D_LOSS_RTOL, P3D_UPDATE_RTOL = 1e-2, 5e-2
 
 # every kernel's wrapper counter, by the name the record line gives it
 KERNELS = ("affine_resample", "flash_attention_fwd", "paged_decode_attention",
@@ -7149,6 +7163,473 @@ def service_layer_path() -> None:
     log(f"[phase 18] (e) {time.perf_counter() - t_part:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: device telemetry and the model side of distributed
+# ---------------------------------------------------------------------------
+
+def _p19_dir(name: str) -> str:
+    path = os.path.join(ROOT, "build", "phase19", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _http_get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode("utf-8")
+
+
+def telemetry_path(images, table, repo, n_chunks, card) -> dict:
+    """Phase 19 (a); returns {kernel: launches} of the featurizer runs."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.core import telemetry as T
+    from mmlspark_tpu_torch.core.pipeline import LambdaTransformer
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.zoo import get_or_create_resnet
+    from mmlspark_tpu_torch.serving.server import ServingServer
+
+    _clear_executor_caches()
+    bundle = get_or_create_resnet("resnet50", (IMG, IMG, 3), 1000, repo=repo)
+    featurizer = ImageFeaturizer(bundle=bundle, batch_size=BATCH,
+                                 device=P19_DEVICE)
+    few = Table({"image": [images[i] for i in
+                           range(0, P19_FEW * len(SIZES), len(SIZES))]})
+    sentry = T.track_compiles()
+    sentry.reset()
+    T.reset_counters("xla.")
+    zero_launches()
+    featurizer.transform(table)  # warmup: its chunk shapes are new
+    warm = T.counters("xla.compile")
+    sentry.end_warmup()
+    with T.span("phase19.featurize"):  # a trace for the Chrome export
+        featurizer.transform(table)  # the same shapes: nothing to flag
+    steady = T.counters("xla.compile.hot_path")
+    featurizer.transform(few)    # a chunk shape the warmup never saw
+    hot = T.counters("xla.compile.hot_path")
+    launches = read_launches()
+    sentry.reset()
+    log(f"[phase 19] (a) compile sentry over phase 4's featurizer: warmup "
+        f"{warm}, steady-state rerun {steady or 'no flag'}, a {P19_FEW}-image "
+        f"chunk {hot}; launches {launches}")
+    if steady:
+        fail(f"the compile sentry flagged a rerun of warmed shapes: {steady}")
+    if hot != {"xla.compile.hot_path": 1,
+               "xla.compile.hot_path.tpu_model.forward": 1}:
+        fail(f"a new chunk shape in steady state must be flagged exactly "
+             f"once at tpu_model.forward, got {hot}")
+    if launches != dict(NO_LAUNCHES, affine_resample=2 * n_chunks + 1):
+        fail(f"phase 19 (a) launched {launches}, expected B1 once a chunk "
+             f"({2 * n_chunks + 1})")
+
+    # the gauges against the allocator's statistics at the same instant
+    torch.cuda.synchronize()
+    got = T.sample_device_memory()
+    stats = torch.cuda.memory_stats(0)
+    want = {"hbm_bytes_in_use": stats["allocated_bytes.all.current"],
+            "hbm_peak_bytes": stats["allocated_bytes.all.peak"],
+            "live_buffer_count": stats["allocation.all.current"]}
+    log(f"[phase 19] (a) sample_device_memory {got}; memory_stats {want}")
+    if got != want:
+        fail(f"device memory gauges {got} != torch.cuda.memory_stats {want}")
+
+    # the Chrome trace export parses, and a server's /metrics carries the
+    # memory gauges (each scrape samples them)
+    doc = json.loads(json.dumps(T.render_chrome_trace()))
+    events = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    path = os.path.join(_p19_dir("trace"), "trace.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    srv = ServingServer(LambdaTransformer(lambda t: t.with_column(
+        "y", np.asarray(t["v"], np.float32) * 2.0)), reply_col="y",
+        name="phase19-metrics", path="/score", input_schema=["v"])
+    info = srv.start()
+    try:
+        body = _http_get(info.url.rsplit("/", 1)[0] + "/metrics")
+    finally:
+        srv.stop()
+    gauges = {n: line for line in body.splitlines()
+              for n in ("device_hbm_bytes_in_use", "device_hbm_peak_bytes",
+                        "device_live_buffer_count")
+              if line.startswith(n + " ")}
+    log(f"[phase 19] (a) Chrome trace: {len(events)} span events, "
+        f"{os.path.getsize(path)} bytes, parses; /metrics: "
+        f"{sorted(gauges.values())}")
+    if not events or len(gauges) != 3:
+        fail(f"the Chrome trace ({len(events)} events) or /metrics' memory "
+             f"gauges ({gauges}) are missing")
+    return launches
+
+
+def ring_blocks_path(card) -> dict:
+    """Phase 19 (b); returns {kernel: launches} of the counted runs."""
+    import torch
+    from mmlspark_tpu_torch.ops import attention_kernels as A
+    from mmlspark_tpu_torch.parallel import ring_attention as RA
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+
+    b, s, h, d = RING_SHAPE
+    n, blk = RING_BLOCKS, RING_SHAPE[1] // RING_BLOCKS
+    gen = torch.Generator(device=P19_DEVICE).manual_seed(19)
+    q, k, v = (torch.randn(RING_SHAPE, device=P19_DEVICE,
+                           generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    total = dict(NO_LAUNCHES)
+    for causal in (True, False):
+        ref = RA.full_attention(q, k, v, causal)
+        zero_launches()
+        outs = []
+        for r in range(n):
+            # rank r holds query block r and receives K/V blocks r, r-1, ...
+            qr = q[:, r * blk:(r + 1) * blk]
+            o, m, l = RA._init_carry(qr)
+            for i in range(n):
+                src = (r - i) % n
+                kv = slice(src * blk, (src + 1) * blk)
+                o, m, l = RA.ring_block_step(qr, k[:, kv], v[:, kv], o, m, l,
+                                             r * blk, src * blk, causal)
+            outs.append(RA._finish(o, l))
+        got = torch.cat(outs, dim=1)
+        counted = read_launches()
+        err = float((got - ref).abs().max())
+        close = bool(torch.allclose(got, ref, atol=RING_ATOL, rtol=RING_ATOL))
+        want = n * (n + 1) // 2 if causal else n * n
+        log(f"[phase 19] (b) ring blocks bf16{list(RING_SHAPE)} in {n} blocks "
+            f"of {blk}, causal={causal}: B4 {counted['flash_attention_fwd']} "
+            f"launches (want {want}); max_abs_err vs full_attention {err:.3e} "
+            f"(atol = rtol = {RING_ATOL}: {close})")
+        if counted != dict(NO_LAUNCHES, flash_attention_fwd=want):
+            fail(f"the ring's blocks launched {counted}, expected B4 {want}")
+        if not close:
+            fail(f"the ring's blocks disagree with full_attention ({err:.3e})")
+        total = {key: total[key] + counted[key] for key in KERNELS}
+        del ref, got, outs
+    # one block behind the queries: the per-block step against B4 alone
+    qr, kb, vb = q[:, blk:2 * blk], k[:, :blk], v[:, :blk]
+    o, m, l = RA._init_carry(qr)
+    step_ms = queued_ms(lambda: RA.ring_block_step(qr, kb, vb, o, m, l, blk,
+                                                   0, True))
+    b4_ms = queued_ms(lambda: A.flash_attention_fwd(qr, kb, vb, False))
+    bound_ms, bound_by = attention_bound((b, blk, h, d), "bfloat16", False)
+    log(f"[phase 19] (b) per-block step (B4 + the logsumexp merge) at "
+        f"bf16{[b, blk, h, d]}: {step_ms:.4f} ms; B4 alone {b4_ms:.4f} ms "
+        f"(queued behind a spin); B4's bound {bound_ms:.4f} ms ({bound_by}) "
+        f"on {card}")
+    # ring_attention itself through the world-1 group: one diagonal block
+    mesh = make_mesh(device=P19_DEVICE)
+    ref = RA.full_attention(q, k, v, True)
+    zero_launches()
+    out = RA.ring_attention(q, k, v, mesh, causal=True)
+    counted = read_launches()
+    err = float((out - ref).abs().max())
+    log(f"[phase 19] (b) ring_attention over the world-1 mesh: launches "
+        f"{counted}; max_abs_err vs full_attention {err:.3e}")
+    if counted != dict(NO_LAUNCHES, flash_attention_fwd=1) or \
+            not torch.allclose(out, ref, atol=RING_ATOL, rtol=RING_ATOL):
+        fail("ring_attention at world 1 must be one causal B4 launch equal "
+             "to full_attention")
+    del q, k, v, ref, out
+    torch.cuda.empty_cache()
+    return {key: total[key] + counted[key] for key in KERNELS}
+
+
+def ulysses_path(card) -> dict:
+    """Phase 19 (c); returns {kernel: launches} of the counted run."""
+    import torch
+    from mmlspark_tpu_torch.parallel import ring_attention as RA
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device=P19_DEVICE)
+    gen = torch.Generator(device=P19_DEVICE).manual_seed(20)
+    q, k, v, g = (torch.randn(ULY_SHAPE, device=P19_DEVICE,
+                              generator=gen).to(torch.bfloat16)
+                  for _ in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    zero_launches()
+    out = RA.ulysses_attention(q, k, v, mesh, causal=True)
+    (out * g.float()).sum().backward()
+    counted = read_launches()
+    got = [x.grad.float() for x in (q, k, v)]
+    q2, k2, v2 = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    ref = RA.full_attention(q2, k2, v2, True)
+    (ref * g.float()).sum().backward()
+    want = [x.grad.float() for x in (q2, k2, v2)]
+    fwd_err = float((out - ref).abs().max())
+    rels = [float((a - b).norm() / b.norm()) for a, b in zip(got, want)]
+    log(f"[phase 19] (c) ulysses_attention bf16{list(ULY_SHAPE)} causal over "
+        f"the world-1 mesh: launches {counted}; forward max_abs_err vs "
+        f"full_attention {fwd_err:.3e} (limit {ATTN_ATOL['bfloat16']}), "
+        f"dq/dk/dv rel_l2 {rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e} (limit "
+        f"{AUTOGRAD_TOL['bfloat16']})")
+    if counted != dict(NO_LAUNCHES, flash_attention_fwd=1,
+                       flash_attention_bwd_dkdv=1, flash_attention_bwd_dq=1):
+        fail(f"Ulysses launched {counted}: B4, B5 and B6 once each")
+    if fwd_err > ATTN_ATOL["bfloat16"] or max(rels) > AUTOGRAD_TOL["bfloat16"]:
+        fail("Ulysses disagrees with full_attention")
+    del q, k, v, g, out, ref, got, want
+    torch.cuda.empty_cache()
+    return counted
+
+
+def _flat_tree(tree) -> dict:
+    from mmlspark_tpu_torch.parallel.sharding_rules import \
+        tree_leaves_with_path
+
+    return {"/".join(p): v.float().cpu() for p, v in
+            tree_leaves_with_path(tree)}
+
+
+def trainer3d_path(card):
+    """Phase 19 (d); returns ({kernel: launches}, state, step, tokens)."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import telemetry as T
+    from mmlspark_tpu_torch.models import training as TR
+    from mmlspark_tpu_torch.models.bundle import get_builder
+    from mmlspark_tpu_torch.parallel.mesh import MeshPlan
+    from mmlspark_tpu_torch.parallel.sharding_rules import lm_3d_rules
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dict(LM, max_len=P3D_SEQ)
+    layers = cfg["num_layers"]
+    ref = TR.init_train_state(get_builder("transformer_lm")(**cfg),
+                              TR.sgd(P3D_LR), seed=0,
+                              compute_dtype="bfloat16", device=P19_DEVICE)
+    plan = MeshPlan(1, 1, 1, device=P19_DEVICE)
+    tree0 = TR.lm_params_tree(ref.module)
+    p3 = TR.shard_params(TR.lm_params_to_3d(tree0, layers, plan.pipe), plan,
+                         lm_3d_rules())
+    state = TR.init_lm_state_3d(p3, TR.sgd(P3D_LR), plan, "bfloat16")
+    del p3
+    step = TR.make_lm_train_step_3d(ref.module, plan, remat=True)
+    rows = P3D_A * P3D_M * P3D_MB
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg["vocab_size"], (rows, P3D_SEQ)).astype(np.int64)).to(
+            P19_DEVICE)
+    toks3d = toks.reshape(P3D_A, P3D_M, P3D_MB, P3D_SEQ)
+
+    # the counted run: two steps of the 3D step
+    torch.cuda.synchronize()
+    zero_launches()
+    losses3d = []
+    for _ in range(2):
+        state, m = step(state, toks3d)
+        losses3d.append(float(m["loss"]))
+    launches = read_launches()
+    blocks = layers * P3D_A * P3D_M * 2  # block applications in 2 steps
+    want = dict(NO_LAUNCHES, flash_attention_fwd=2 * blocks,
+                flash_attention_bwd_dkdv=blocks, flash_attention_bwd_dq=blocks)
+    log(f"[phase 19] (d) 3D step on {plan} (GPT-small {cfg}, bf16, SGD "
+        f"{P3D_LR}, tokens [A={P3D_A}, M={P3D_M}, mb={P3D_MB}, S={P3D_SEQ}], "
+        f"remat): 2 steps, launches {launches} (B4 twice a block with remat)")
+    if launches != want:
+        fail(f"the 3D step launched {launches}, expected {want}")
+
+    # the port's single-device LM step on the same weights and tokens
+    epoch = TR.make_lm_train_epoch()
+    ref_losses = []
+    for _ in range(2):
+        ref, loss = epoch(ref, toks[None])
+        ref_losses.append(float(loss[0]))
+    got, want_p = (_flat_tree(TR.lm_params_from_3d(TR.gather_params(state),
+                                                   layers)),
+                   _flat_tree(TR.lm_params_tree(ref.module)))
+    base = _flat_tree(tree0)
+    upd = torch.cat([(got[n] - base[n]).reshape(-1) for n in base])
+    upd_ref = torch.cat([(want_p[n] - base[n]).reshape(-1) for n in base])
+    upd_rel = float((upd - upd_ref).norm() / upd_ref.norm())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses3d, ref_losses))
+    log(f"[phase 19] (d) losses 3D {losses3d} vs single-device "
+        f"{ref_losses}: worst rel {loss_rel:.3e} (limit {P3D_LOSS_RTOL}); "
+        f"parameters after step 2: rel_l2 of the updates {upd_rel:.3e} "
+        f"(limit {P3D_UPDATE_RTOL})")
+    if loss_rel > P3D_LOSS_RTOL or upd_rel > P3D_UPDATE_RTOL:
+        fail("the 3D step disagrees with the single-device LM step")
+    del ref, epoch, got, want_p, base, upd, upd_ref, tree0
+    torch.cuda.empty_cache()
+
+    # timed steps under a memory sampler
+    step_s = []
+    with T.MemorySampler(0.005) as sampler:
+        for _ in range(P3D_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, toks3d)
+            float(m["loss"])
+            step_s.append(time.perf_counter() - t0)
+    med = float(np.median(step_s))
+    gauges = T.export_snapshot(include_spans=False)["gauges"]
+    lo, hi = min(step_s) * 1e3, max(step_s) * 1e3
+    log(f"[phase 19] (d) 3D step {lo:.3f}..{hi:.3f} ms over "
+        f"{P3D_STEPS} steps, median {med * 1e3:.3f} ms = "
+        f"{rows * P3D_SEQ / med:.0f} tokens/s (CUDA-synchronised host clock) "
+        f"on {card}; MemorySampler: {sampler.samples} samples, "
+        f"device.hbm.peak_bytes {gauges.get('device.hbm.peak_bytes')}")
+    if sampler.samples < 1 or not gauges.get("device.hbm.peak_bytes"):
+        fail("the MemorySampler took no sample over the LM step")
+
+    # the memory remat saves: one step each way from a reset peak
+    # (and each way's wall and device time: where the step's time goes)
+    peaks, walls, busy = {}, {}, {}
+    for remat in (True, False):
+        fn = step if remat else TR.make_lm_train_step_3d(
+            get_builder("transformer_lm")(**cfg), plan, remat=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = fn(state, toks3d)
+        torch.cuda.synchronize()
+        walls[remat] = (time.perf_counter() - t0) * 1e3
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        busy[remat] = profiled_kernel_ms(
+            lambda fn=fn: fn(state, toks3d),
+            ["flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"])
+    log(f"[phase 19] (d) torch.cuda.max_memory_allocated of one step: remat "
+        f"{peaks[True] / 2**30:.3f} GiB, no remat {peaks[False] / 2**30:.3f} "
+        f"GiB (saves {(peaks[False] - peaks[True]) / 2**30:.3f} GiB)")
+    for remat in (True, False):
+        if busy[remat] is None:
+            log(f"[phase 19] (d) remat={remat}: step {walls[remat]:.3f} ms; "
+                f"the profiler saw no device time (not measured)")
+            continue
+        total_ms, by_name, wall_ms = busy[remat]
+        log(f"[phase 19] (d) remat={remat}: step {walls[remat]:.3f} ms; "
+            f"profiled step: device kernels {total_ms:.3f} ms of its "
+            f"{wall_ms:.3f} ms wall (busy share {total_ms / wall_ms:.3f}), "
+            + " ".join(f"{n} {ms:.3f} ms" for n, ms in by_name.items()))
+    if peaks[True] >= peaks[False]:
+        fail(f"remat saved no memory: {peaks}")
+
+    # span names on a torch.profiler capture of one step
+    T.enable_device_annotations()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with T.span("training.step"):
+                state, m = step(state, toks3d)
+                float(m["loss"])
+        names = {e.key for e in prof.key_averages()}
+    finally:
+        T.enable_device_annotations(False)
+    log(f"[phase 19] (d) profiler capture of one step with the annotation "
+        f"hook: 'training.step' event {'training.step' in names}")
+    if "training.step" not in names:
+        fail("the annotation hook's span name is not in the profiler run")
+    return launches, state, step, toks3d
+
+
+def checkpoint3d_path(state, step, toks3d, card) -> None:
+    """Phase 19 (e): format-2 checkpoints of the 3D state."""
+    import torch
+    from mmlspark_tpu_torch.models.checkpoint import (
+        MANIFEST_NAME, CheckpointCorruptError, CheckpointManager)
+
+    root = _p19_dir("ckpt")
+    mgr = CheckpointManager(root)
+    t0 = time.perf_counter()
+    mgr.save(state, step=1)
+    save_s = time.perf_counter() - t0
+    saved = [p.detach().clone() for p in state.module.parameters()]
+    with open(os.path.join(root, "1", MANIFEST_NAME)) as f:
+        doc = json.load(f)
+    entry = doc["leaves"]["module/blocks.qkv.kernel"]
+    t0 = time.perf_counter()
+    mgr.restore(step=1, template=state)
+    verify_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in
+               zip(saved, state.module.parameters()))
+    state, _m = step(state, toks3d)
+    mgr.save(state, step=2)
+    victim = os.path.join(root, "2", entry["file"])
+    with open(victim, "r+b") as f:
+        f.seek(os.path.getsize(victim) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    try:
+        mgr.restore(step=2, template=state)
+        rejection = None
+    except CheckpointCorruptError as e:
+        rejection = str(e)
+    restored, at = mgr.restore_verified(template=state, quarantine=True)
+    back = all(torch.equal(a, b) for a, b in
+               zip(saved, restored.module.parameters()))
+    size = sum(os.path.getsize(os.path.join(root, "1", n))
+               for n in os.listdir(os.path.join(root, "1")))
+    log(f"[phase 19] (e) format {doc['format']} checkpoint of the 3D state "
+        f"({size / 2**20:.1f} MiB): save {save_s:.3f} s, verified restore "
+        f"{verify_s:.3f} s (bit-exact {same}); qkv spec {entry.get('spec')} "
+        f"with {len(entry.get('shards', []))} shard(s); a flipped byte in "
+        f"step 2: {rejection!r}; quarantined {mgr.all_steps()} left, resumed "
+        f"step {at} bit-exact {back}")
+    if doc["format"] != 2 or not entry.get("shards") or not same:
+        fail("the 3D state's checkpoint is not a verified format-2 save")
+    if rejection is None or "shard=0" not in rejection or \
+            "module/blocks.qkv.kernel" not in rejection:
+        fail(f"the flipped byte's rejection must name its shard: "
+             f"{rejection!r}")
+    if at != 1 or not back or not os.path.isdir(
+            os.path.join(root, "quarantined", "2")):
+        fail("restore_verified did not quarantine step 2 and resume step 1")
+
+
+def elastic_path(rendezvous_s: float, card) -> None:
+    """Phase 19 (f): the elastic runtime at world 1."""
+    import torch
+    import torch.distributed as dist
+    from mmlspark_tpu_torch.core.telemetry.fleet import merge_snapshots
+    from mmlspark_tpu_torch.parallel import distributed as D
+
+    store = D.MembershipStore(_p19_dir("members"))
+    me = D.local_host_info("h0")
+    t0 = time.perf_counter()
+    view = store.rendezvous(me, expected=1, coordinator=True, timeout_s=30)
+    file_s = time.perf_counter() - t0
+    try:
+        store.publish(D.MembershipView(1, [me]))
+        stale = None
+    except D.StaleMembershipError as e:
+        stale = str(e)
+    mon = D.HeartbeatMonitor(["h0", "h1"], lease_s=0.2, self_id="h0")
+    mon.beat("h0")
+    time.sleep(0.3)
+    lost = mon.check_now() + mon.check_now()
+    t0 = time.perf_counter()
+    D.run_with_deadline(lambda: D.barrier("phase19", timeout_s=60), 120,
+                        name="phase19")
+    barrier_ms = (time.perf_counter() - t0) * 1e3
+    x = torch.arange(4, dtype=torch.float32, device=P19_DEVICE)
+    dist.all_reduce(x)
+    srv = D.HostTelemetryServer("h0")
+    host, port = srv.start()
+    try:
+        snap = json.loads(_http_get(f"http://{host}:{port}/metrics.json"))
+        health = json.loads(_http_get(f"http://{host}:{port}/health"))
+    finally:
+        srv.stop()
+    merged = merge_snapshots({"h0": snap, "h1": snap})
+    attempts = snap["counters"].get("dist.rendezvous.attempt", 0)
+    log(f"[phase 19] (f) rendezvous {rendezvous_s:.3f} s (nccl, a loopback "
+        f"TCPStore, world 1) and {file_s * 1e3:.1f} ms on the file plane "
+        f"(epoch {view.epoch}); stale publish: {stale!r}; lease expiry "
+        f"declared {lost}; barrier under run_with_deadline {barrier_ms:.1f} "
+        f"ms; all_reduce on {x.device}: {x.tolist()}; /metrics.json merged "
+        f"over 2 hosts: dist.rendezvous.attempt {attempts} -> "
+        f"{merged['counters'].get('dist.rendezvous.attempt')}, hbm gauge "
+        f"{snap['gauges'].get('device.hbm.bytes_in_use')}; /health {health}")
+    if view.epoch != 1 or stale is None or lost != ["h1"]:
+        fail("the membership plane misbehaved at world 1")
+    if x.tolist() != [0.0, 1.0, 2.0, 3.0]:
+        fail(f"all_reduce at world 1 changed the tensor: {x.tolist()}")
+    if merged["counters"].get("dist.rendezvous.attempt") != 2 * attempts \
+            or "device.hbm.bytes_in_use" not in snap["gauges"] \
+            or health.get("host_id") != "h0":
+        fail("the host telemetry endpoint's snapshot did not merge")
+
+
 def int8_gemm_timing(card) -> None:
     """`torch._int_mm` at the ViT-B/16 qkv shape of one chunk against a
     bf16 `torch.matmul` at the same shape, each from calls queued behind
@@ -7490,6 +7971,26 @@ def main() -> None:
     paths.append(rest)
     del adult_model, adult_test, review_model
     log(f"[phase 18] {time.perf_counter() - t18:.1f} s")
+
+    # ---- 19. device telemetry and the model side of distributed ----------
+    t19 = time.perf_counter()
+    import torch.distributed as dist
+    from mmlspark_tpu_torch.parallel import distributed as D
+    from mmlspark_tpu_torch.utils.cluster import find_open_port
+
+    paths.append(telemetry_path(images, table, repo, n_chunks, card))
+    t0 = time.perf_counter()
+    D.initialize_distributed(f"127.0.0.1:{find_open_port(29500)}", 1, 0,
+                             device=P19_DEVICE)
+    rendezvous_s = time.perf_counter() - t0
+    paths += [ring_blocks_path(card), ulysses_path(card)]
+    launches3d, state3d, step3d, toks3d = trainer3d_path(card)
+    paths.append(launches3d)
+    checkpoint3d_path(state3d, step3d, toks3d, card)
+    del state3d, step3d, toks3d
+    elastic_path(rendezvous_s, card)
+    dist.destroy_process_group()
+    log(f"[phase 19] {time.perf_counter() - t19:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------

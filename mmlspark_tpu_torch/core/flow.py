@@ -54,7 +54,7 @@ from . import telemetry as core_telemetry
 
 __all__ = ["Stage", "StagePolicy", "FlowGraph", "FlowItem", "Expired",
            "AdmissionStage", "deadline_from_ms", "deadline_expired",
-           "flow_fault_points"]
+           "flow_fault_points", "set_sanitizer"]
 
 _POLL_S = 0.05  # cancel-aware queue/credit wait quantum
 
@@ -63,6 +63,23 @@ _POLL_S = 0.05  # cancel-aware queue/credit wait quantum
 # Fault-point auto-registration: every queue in the system becomes
 # chaos-injectable the moment a graph is built around it.
 # ---------------------------------------------------------------------------
+# A runtime sanitizer's observer, or None.  Installed via
+# set_sanitizer(); every hook site below is a plain attribute read plus a
+# None check.
+_SAN = None
+
+
+def set_sanitizer(observer) -> None:
+    """Install (or, with None, remove) the credit/EOF conservation
+    observer: it is told of every credit acquire and release
+    (`on_credit_acquire(credits)` / `on_credit_release(credits)`), every
+    graph built (`on_graph(graph)`), every end-of-stream marker enqueued
+    (`on_eof(graph, idx)`) and every clean end of a graph's stream
+    (`on_graph_eof(graph)`)."""
+    global _SAN
+    _SAN = observer
+
+
 _REG_LOCK = make_lock("flow.registry")
 _FLOW_FAULT_POINTS: Dict[str, None] = {}  #: guarded-by _REG_LOCK
 
@@ -160,10 +177,14 @@ class _Credits:
         """Block for a credit; False when the graph cancelled first."""
         while not cancelled.is_set():
             if self._sem.acquire(timeout=_POLL_S):
+                if _SAN is not None:
+                    _SAN.on_credit_acquire(self)
                 return True
         return False
 
     def release(self) -> None:
+        if _SAN is not None:
+            _SAN.on_credit_release(self)
         self._sem.release()
 
 
@@ -349,6 +370,8 @@ class FlowGraph:
         self._ctx = None  # (trace_id, span_id) captured at start
         for s in self.stages:
             _register_fault_point(f"flow.{s.name}")
+        if _SAN is not None:
+            _SAN.on_graph(self)
 
     # ---- lifecycle -----------------------------------------------------
     def start(self, items: Iterable[Any]):
@@ -404,6 +427,8 @@ class FlowGraph:
                 break
             except queue.Full:
                 continue
+        if _SAN is not None and isinstance(item, _EOF):
+            _SAN.on_eof(self, idx)
         name = self._qnames[idx]
         depth = q.qsize()
         self._note_depth(name, depth)
@@ -482,7 +507,11 @@ class FlowGraph:
                 continue
             t0 = time.perf_counter()
             try:
-                out = stage.run_item(fi.value, point)
+                # the stage's work on a profiler capture's timeline when
+                # enable_device_annotations() armed the hook
+                with core_telemetry.device_annotation(
+                        f"{self.span_prefix}.{stage.name}"):
+                    out = stage.run_item(fi.value, point)
             except BaseException as e:  # noqa: BLE001 — forwarded
                 self._fail(e)
                 return
@@ -520,6 +549,10 @@ class FlowGraph:
             if isinstance(item, _EOF):
                 if self._error is not None:
                     raise self._error
+                if _SAN is not None:
+                    # clean end-of-stream: every credit must be home —
+                    # the sanitizer audits the ledger at this instant
+                    _SAN.on_graph_eof(self)
                 return item
             self._credits[-1].release()
             return item

@@ -14,12 +14,20 @@ training loop's goodput plane: the step-timeline ledger ``LEDGER``
 fleet merge helpers; and the fleet plane that federates many processes
 (``fleet.py``: ``merge_snapshots``, ``render_fleet_prometheus``,
 ``stitch_spans``, ``SLOEngine``, ``FlightRecorder``), with the trace
-headers (``trace_headers``) that carry one trace across processes.
+headers (``trace_headers``) that carry one trace across processes; and
+the device plane (``device.py``): the compile sentry over the port's
+kernel builds and watched step sites (``track_compiles`` /
+``watch_compiles``), the device-memory gauges
+(``sample_device_memory`` / ``start_memory_sampler``) and opt-in
+``torch.profiler.record_function`` annotations on stage spans
+(``enable_device_annotations``).  ``format_span_tree`` /
+``format_latency_table`` render the ascii reports.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
+from ...utils.stopwatch import StopWatch
 from .metrics import (
     BUCKET_FAMILIES,
     BYTE_BUCKETS,
@@ -34,7 +42,13 @@ from .metrics import (
     default_buckets,
     is_declared,
 )
-from .exposition import export_snapshot, render_chrome_trace, render_prometheus
+from .exposition import (
+    export_snapshot,
+    format_latency_table,
+    format_span_tree,
+    render_chrome_trace,
+    render_prometheus,
+)
 from .goodput import (
     GoodputLedger,
     LEDGER,
@@ -49,7 +63,7 @@ from .timeseries import (
     TimeSeriesStore,
     merge_timeseries_exports,
 )
-from .records import clear_records, log_verb, recent_records
+from .records import clear_records, log_verb, logger, recent_records
 from .spans import (
     SPAN_HEADER,
     TRACE_HEADER,
@@ -78,18 +92,30 @@ from .fleet import (
     render_fleet_prometheus,
     stitch_spans,
 )
+from .device import (
+    SENTRY,
+    CompileSentry,
+    MemorySampler,
+    device_annotation,
+    enable_device_annotations,
+    sample_device_memory,
+    start_memory_sampler,
+    track_compiles,
+    watch_compiles,
+)
 
 __all__ = [
     "incr", "counters", "reset_counters", "gauge", "histogram",
     "REGISTRY", "MetricsRegistry", "Gauge", "Histogram", "default_buckets",
     "BYTE_BUCKETS", "FILL_BUCKETS", "BUCKET_FAMILIES", "HISTOGRAM_FAMILY",
     "buckets_for", "DECLARED_METRICS", "is_declared",
-    "log_verb", "recent_records", "clear_records",
+    "log_verb", "recent_records", "clear_records", "logger", "StopWatch",
     "span", "record_span", "use_trace", "current_context",
     "current_trace_id", "trace_headers", "extract_trace", "get_trace",
     "span_tree", "recent_spans", "clear_spans", "TRACE_HEADER",
     "SPAN_HEADER",
     "render_prometheus", "export_snapshot", "render_chrome_trace",
+    "format_span_tree", "format_latency_table",
     "GoodputLedger", "LEDGER", "LOST_KINDS", "StepTimeline",
     "detect_straggler", "merge_goodput_exports",
     "SAMPLED_SERIES", "STORE", "TimeSeriesStore", "merge_timeseries_exports",
@@ -97,6 +123,10 @@ __all__ = [
     "merge_histogram_snapshots", "merge_snapshots", "federate_host_snapshots",
     "hist_total", "cum_le", "render_fleet_prometheus", "stitch_spans",
     "SLO", "SLOEngine", "default_slos", "FlightRecorder",
+    # device (compile sentry, memory gauges, annotations)
+    "SENTRY", "CompileSentry", "track_compiles", "watch_compiles",
+    "sample_device_memory", "MemorySampler", "start_memory_sampler",
+    "enable_device_annotations", "device_annotation",
 ]
 
 

@@ -1,9 +1,8 @@
-"""Render the registry for the serving endpoints: Prometheus text, JSON
-snapshots and Chrome trace-event JSON.
+"""Render the registry for consumers: Prometheus text, JSON snapshots,
+Chrome trace-event JSON, and the ascii span-tree / latency tables.
 
 A copy of the JAX package's `core/telemetry/exposition.py` for this
-package, without the ascii report renderers; the snapshot's backend facts
-come from `torch.cuda`.
+package; the snapshot's backend facts come from `torch.cuda`.
 
 Prometheus exposition convention (text format 0.0.4): dotted internal
 names (`serving.request.latency`) sanitize to underscore names
@@ -26,7 +25,7 @@ from . import timeseries as _timeseries
 from .metrics import REGISTRY, MetricsRegistry
 
 __all__ = ["render_prometheus", "export_snapshot", "render_chrome_trace",
-           "sanitize_name"]
+           "format_span_tree", "format_latency_table", "sanitize_name"]
 
 # process uptime baseline: first telemetry import ~ process start
 _T0_MONOTONIC = time.monotonic()
@@ -214,3 +213,44 @@ def render_chrome_trace(span_records: Optional[Iterable[Dict[str, Any]]]
             "args": args,
         })
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+# ---- ascii report renderers ----------------------------------------------
+
+def format_span_tree(roots: List[Dict[str, Any]], indent: str = "") -> str:
+    """Ascii tree of nested span dicts (the `span_tree()` shape)."""
+    lines: List[str] = []
+    for i, node in enumerate(roots):
+        last = i == len(roots) - 1
+        branch = "└─ " if last else "├─ "
+        attrs = node.get("attrs") or {}
+        extra = "".join(f" {k}={v}" for k, v in sorted(attrs.items()))
+        err = f" !{node['error']}" if node.get("error") else ""
+        lines.append(f"{indent}{branch}{node['name']} "
+                     f"[{node['wall_s'] * 1e3:.2f} ms]{err}{extra}")
+        child_indent = indent + ("   " if last else "│  ")
+        children = node.get("children") or []
+        if children:
+            lines.append(format_span_tree(children, child_indent))
+    return "\n".join(lines)
+
+
+def format_latency_table(histograms: Dict[str, Any]) -> str:
+    """p50/p95/p99 table from export_snapshot()['histograms']."""
+    rows = [("histogram", "count", "p50", "p95", "p99")]
+    for key in sorted(histograms):
+        snap = histograms[key]
+
+        def fmt(v: Optional[float]) -> str:
+            return "-" if v is None else f"{v:.6g}"
+
+        rows.append((key, str(snap["count"]), fmt(snap.get("p50")),
+                     fmt(snap.get("p95")), fmt(snap.get("p99"))))
+    widths = [max(len(r[c]) for r in rows) for c in range(5)]
+    lines = []
+    for i, r in enumerate(rows):
+        lines.append("  ".join(cell.ljust(w) for cell, w in zip(r, widths))
+                     .rstrip())
+        if i == 0:
+            lines.append("  ".join("-" * w for w in widths))
+    return "\n".join(lines)

@@ -80,6 +80,19 @@ DECLARED_METRICS: Dict[str, str] = {
     "slo.alert.resolved": "counter",      # + .<slo> variants
     "autoscale.up": "counter",
     "autoscale.down": "counter",
+    # -- counters: the compile sentry (core/telemetry/device.py)
+    "xla.compile.count": "counter",       # kernel builds + new signatures
+    "xla.compile.hot_path": "counter",    # + .<fn> variants: steady-state
+    # -- counters: elastic multi-host runtime (parallel/distributed.py)
+    "dist.rendezvous.attempt": "counter",   # one per join attempt
+    "dist.rendezvous.retry": "counter",     # backed-off re-attempts
+    "dist.rendezvous.failed": "counter",    # deadline/budget exhausted
+    "dist.heartbeat.missed": "counter",     # dropped beats (injected/lost)
+    "dist.host.lost": "counter",            # + .<host> variants
+    "dist.membership.update": "counter",    # published epoch advances
+    "dist.membership.stale": "counter",     # rejected stale epochs
+    "dist.barrier.timeout": "counter",
+    "dist.collective.overrun": "counter",   # hang-budget deadline fired
     # -- histograms
     "io.feed.transfer.latency": "histogram",
     "io.feed.transfer.bytes": "histogram",
@@ -94,6 +107,8 @@ DECLARED_METRICS: Dict[str, str] = {
     "serving.fleet.request.latency": "histogram",   # gateway e2e, labeled
     "serving.fleet.replica.latency": "histogram",   # labeled {replica=...}
     "fleet.scrape.latency": "histogram",    # one full federated pull+merge
+    "xla.compile.latency": "histogram",
+    "dist.rendezvous.latency": "histogram",  # join time, per host
     # -- gauges
     "io.feed.queue.depth": "gauge",
     "io.pipeline.queue.depth": "gauge",   # + .<stage> variants
@@ -111,6 +126,11 @@ DECLARED_METRICS: Dict[str, str] = {
     "fleet.pull.replicas": "gauge",       # replicas reached by last pull
     "slo.burn_rate": "gauge",             # + .<slo> variants
     "autoscale.target_replicas": "gauge",
+    "device.hbm.bytes_in_use": "gauge",
+    "device.hbm.peak_bytes": "gauge",
+    "device.live_buffer_count": "gauge",
+    "dist.membership.epoch": "gauge",     # current membership epoch
+    "dist.membership.hosts": "gauge",     # live hosts in the view
 }
 
 
@@ -161,6 +181,8 @@ HISTOGRAM_FAMILY: Dict[str, str] = {
     "serving.fleet.request.latency": "latency",
     "serving.fleet.replica.latency": "latency",
     "fleet.scrape.latency": "latency",
+    "xla.compile.latency": "latency",
+    "dist.rendezvous.latency": "latency",
 }
 
 

@@ -1,7 +1,9 @@
 """Dapper-style spans: trace-id / span-id / parent-id wall-time records.
 
-A copy of the JAX package's `core/telemetry/spans.py` for this package,
-without the device-annotation hooks.
+A copy of the JAX package's `core/telemetry/spans.py` for this package.
+Its device-annotation hook (`set_annotation_hook`) is armed by
+`telemetry.device.enable_device_annotations` with
+`torch.profiler.record_function`.
 
 A **trace** is one logical request's causal tree; a **span** is one
 timed operation inside it.  The current (trace_id, span_id) pair lives
@@ -32,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 __all__ = ["span", "record_span", "use_trace", "current_context",
            "current_trace_id", "trace_headers", "extract_trace",
            "get_trace", "span_tree", "recent_spans", "clear_spans",
+           "set_annotation_hook", "get_annotation_hook",
            "TRACE_HEADER", "SPAN_HEADER",
            "MAX_SPANS", "MAX_TRACES", "MAX_SPANS_PER_TRACE"]
 
@@ -48,6 +51,38 @@ _SPANS: "collections.deque[Dict[str, Any]]" = collections.deque(
     maxlen=MAX_SPANS)
 _TRACES: "collections.OrderedDict[str, List[Dict[str, Any]]]" = \
     collections.OrderedDict()
+
+
+# Optional device-annotation hook (set by telemetry.device): a factory of
+# context managers (torch.profiler.record_function) plus the span-name
+# prefixes it applies to.  When armed, span() additionally enters an
+# annotation for matching names so a profiler capture carries our span
+# names.  Kept here (not in device.py) so span() stays import-light: the
+# factory is injected, never looked up.
+_ANNOTATION_FACTORY = None
+_ANNOTATION_PREFIXES: Tuple[str, ...] = ()
+
+
+def set_annotation_hook(factory, prefixes: Tuple[str, ...] = ()) -> None:
+    """Arm (or with factory=None disarm) the device-annotation hook."""
+    global _ANNOTATION_FACTORY, _ANNOTATION_PREFIXES
+    _ANNOTATION_FACTORY = factory
+    _ANNOTATION_PREFIXES = tuple(prefixes)
+
+
+def get_annotation_hook():
+    return _ANNOTATION_FACTORY, _ANNOTATION_PREFIXES
+
+
+def _annotation_for(name: str):
+    if _ANNOTATION_FACTORY is None or not _ANNOTATION_PREFIXES:
+        return None
+    if not name.startswith(_ANNOTATION_PREFIXES):
+        return None
+    try:
+        return _ANNOTATION_FACTORY(name)
+    except Exception:
+        return None
 
 
 def _new_id() -> str:
@@ -104,12 +139,17 @@ def span(name: str, parent_ctx: Optional[Tuple[str, str]] = None,
     span_id = _new_id()
     sp = _Span(name, trace_id, span_id,
                parent[1] if parent else None, dict(attrs))
+    annotation = _annotation_for(name)
     token = _CTX.set((trace_id, span_id))
     t_start = time.time()
     t0 = time.perf_counter()
     err: Optional[str] = None
     try:
-        yield sp
+        if annotation is not None:
+            with annotation:
+                yield sp
+        else:
+            yield sp
     except BaseException as e:  # noqa: BLE001 — recorded, then re-raised
         err = type(e).__name__
         raise

@@ -253,7 +253,10 @@ class DeviceFeed:
         after it."""
         def attempt(_):
             fault_point("feed.device_put")
-            with torch.cuda.stream(self._stream):
+            # no-op unless enable_device_annotations() armed the profiler
+            # hook: the transfer span itself is recorded after the fact
+            with core_telemetry.device_annotation("feed.transfer"), \
+                    torch.cuda.stream(self._stream):
                 dev = torch.empty(slot.host.shape, dtype=slot.host.dtype,
                                   device=self.device)
                 dev.copy_(slot.host, non_blocking=True)

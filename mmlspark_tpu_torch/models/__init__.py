@@ -18,7 +18,7 @@ the same name, imported by module (nothing is imported here):
 - `linear`: `LogisticRegression` and `LinearRegression` on the card;
 - `train_classifier`: `TrainClassifier` / `TrainRegressor` over
   auto-featurized tables;
-- `bilstm`: the BiLSTM tagger and `SequenceTagger` / `SequenceTaggerModel`.
-
-Not ported yet (ROADMAP): the 3D trainer and elastic resume (A19).
+- `bilstm`: the BiLSTM tagger and `SequenceTagger` / `SequenceTaggerModel`;
+- `trainer3d`: the 3D (data x tensor x pipe) LM trainer over a
+  `parallel.mesh.MeshPlan`, re-exported by `training`.
 """

@@ -42,9 +42,25 @@ refreshes the bf16 working copy's parameters from the masters: after a
 poisoned step every one of them holds NaN.  Without a template it
 returns the verified leaves as a dict.
 
-Not here: format 2 (a crc32 per shard of a sharded leaf) waits for the
-port's sharded trainer (ROADMAP A19) and raises `NotImplementedError`;
-a step directory that orbax wrote (the JAX package's checkpoints) is
+**Format 2** is the 3D trainer's (`models.trainer3d.TrainState3D`,
+one SPMD process a rank): each leaf is saved WHOLE — the ranks gather it
+(a DTensor `full_tensor()`) and rank 0 writes it — and the manifest
+entry of a leaf its spec splits also carries the PartitionSpec and one
+crc32 per shard, keyed by the shard's index and slice bounds in the
+global array (replicated copies dedupe by their bounds; a split over an
+axis of one rank is one shard).  Verification re-slices the
+restored global array by those bounds, so a flipped byte is pinned to
+the exact (leaf, spec, shard) — the error names it — and one bad shard
+fails the whole step.  The restore re-slices: every rank reads the
+global leaves and keeps its own chunk for the template's CURRENT plan,
+so a checkpoint saved on one mesh resumes on another (the elastic
+shrink).  The directory is shared by the job's ranks: rank 0 is the
+writer (saves, deletes, retention, quarantine moves); a sharded save
+ends with a barrier, so every rank reads what rank 0 wrote.  A format-2
+step restores only into a `TrainState3D` and a format-1 step only into a
+`TrainState` (`CheckpointFormatError` otherwise).
+
+A step directory that orbax wrote (the JAX package's checkpoints) is
 refused with `CheckpointFormatError` — weights cross from the JAX
 package through `models.bundle.from_flax_variables`.
 """
@@ -63,6 +79,7 @@ import torch
 from ..core import telemetry as core_telemetry
 from ..utils.faults import fault_point
 from .training import TrainState
+from .trainer3d import TrainState3D
 
 __all__ = ["CheckpointManager", "CheckpointCorruptError",
            "CheckpointFormatError", "MANIFEST_NAME", "save_checkpoint",
@@ -132,14 +149,85 @@ def _groups_doc(state: TrainState) -> bytes:
                        "state_scalars": scalars}, sort_keys=True).encode()
 
 
+def _multi_rank() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized() and \
+        dist.get_world_size() > 1
+
+
+def _is_rank0() -> bool:
+    import torch.distributed as dist
+
+    return not _multi_rank() or dist.get_rank() == 0
+
+
+def _shard_bounds(state: TrainState3D, path: str) -> List[List[int]]:
+    """This rank's chunk of leaf `path` as [[start, stop], ...] bounds in
+    the global array."""
+    from ..parallel.mesh import addressable_shard_layout
+    from ..parallel.mesh import NamedSharding
+
+    shape = state.shapes[path]
+    (_dev, index), = addressable_shard_layout(
+        NamedSharding(state.plan.mesh, state.specs[path]), shape)
+    return [[0 if sl.start is None else int(sl.start),
+             int(dim) if sl.stop is None else int(sl.stop)]
+            for sl, dim in zip(index, shape)]
+
+
+def _sharded_leaves(state: TrainState3D):
+    """key -> (this rank's chunk, leaf path whose spec it follows) for
+    every tensor leaf of a 3D state: the masters and the optimizer's
+    per-parameter tensors shaped like their parameter; other optimizer
+    tensors (Adam's step count) follow no spec (path None)."""
+    out = {}
+    paths = [p for _n, p in state.leaf_paths()]
+    for (name, path), t in zip(state.leaf_paths(),
+                               state.module.parameters()):
+        out[f"module/{name}"] = (t.detach(), path)
+    for i, st in state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            if isinstance(v, torch.Tensor):
+                follows = paths[int(i)] if v.dim() > 0 else None
+                out[f"optimizer/state/{i}/{k}"] = (v, follows)
+    return out
+
+
+def _gather_leaf(state: TrainState3D, local: torch.Tensor,
+                 path: Optional[str]) -> torch.Tensor:
+    """The full global tensor of a chunk (a collective over the mesh)."""
+    if path is None:
+        return local.detach().cpu()
+    return state.dtensor(local, path).full_tensor().cpu()
+
+
+def _local_of(state: TrainState3D, full: torch.Tensor,
+              path: Optional[str]) -> torch.Tensor:
+    """This rank's chunk of a restored global tensor on the state's
+    current plan."""
+    if path is None:
+        return full
+    from ..parallel.sharding_rules import local_chunk
+
+    return local_chunk(full, state.plan.mesh, state.specs[path]).contiguous()
+
+
 class CheckpointManager:
     """Step directories under `directory` with retention (`max_to_keep`
-    newest steps) and per-leaf checksum manifests."""
+    newest steps) and per-leaf checksum manifests.  In a multi-process
+    job the directory is shared and rank 0 writes (`writer`)."""
 
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(os.fspath(directory))
         self.max_to_keep = int(max_to_keep)
         os.makedirs(self.directory, exist_ok=True)
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes: rank 0 of a multi-process job, or
+        the only process."""
+        return _is_rank0()
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(int(step)))
@@ -153,6 +241,53 @@ class CheckpointManager:
         # position) is independent of the state's own step count, which
         # the round trip keeps
         mgr_step = int(state.step if step is None else step)
+        if isinstance(state, TrainState3D):
+            return self._save_sharded(state, mgr_step)
+        self._write(state, mgr_step, _leaves(state), {}, 1)
+        return mgr_step
+
+    def _save_sharded(self, state: TrainState3D, mgr_step: int) -> int:
+        """Format 2: every rank takes part in gathering the leaves and
+        their shard checksums; rank 0 writes; all meet at a barrier."""
+        import torch.distributed as dist
+
+        leaves = _sharded_leaves(state)
+        mine = {}
+        for key, (local, path) in leaves.items():
+            if path is not None and any(tuple(state.specs[path])):
+                mine[key] = (_shard_bounds(state, path),
+                             zlib.crc32(_host(local).tobytes()))
+        tables = [mine]
+        if _multi_rank():
+            tables = [None] * dist.get_world_size()
+            dist.all_gather_object(tables, mine)
+        full = {key: _gather_leaf(state, local, path)
+                for key, (local, path) in leaves.items()}
+        full["step"] = torch.tensor(int(state.step), dtype=torch.int64)
+        extra: Dict[str, Dict[str, Any]] = {}
+        for key, (_local, path) in leaves.items():
+            seen = {}
+            for table in tables:
+                if key in table:
+                    bounds, crc = table[key]
+                    seen.setdefault(tuple(map(tuple, bounds)), crc)
+            if seen:  # a leaf its spec splits, however many ranks
+                extra[key] = {
+                    "spec": str(state.specs[path]),
+                    "shards": [{"i": i, "index": [list(b) for b in bounds],
+                                "crc32": crc}
+                               for i, (bounds, crc) in
+                               enumerate(sorted(seen.items()))]}
+        if self.writer:
+            self._write(state, mgr_step, full, extra, 2)
+        if _multi_rank():
+            dist.barrier()
+        return mgr_step
+
+    def _write(self, state, mgr_step: int, leaves: Dict[str, torch.Tensor],
+               extra: Dict[str, Dict[str, Any]], fmt: int) -> None:
+        """Write `leaves` and the manifest (`extra` merged into their
+        entries) as step `mgr_step`, atomically; then retention."""
         final = self._step_dir(mgr_step)
         if os.path.exists(final):
             raise ValueError(f"checkpoint step {mgr_step} already exists in "
@@ -162,19 +297,20 @@ class CheckpointManager:
         os.makedirs(tmp)
         try:
             entries: Dict[str, Dict[str, Any]] = {}
-            for n, (key, t) in enumerate(_leaves(state).items()):
+            for n, (key, t) in enumerate(leaves.items()):
                 arr = _host(t)
                 name = f"{n:05d}.npy"
                 _write_file(os.path.join(tmp, name),
                             lambda f, a=arr: np.save(f, a))
                 entries[key] = dict(_digest(arr), file=name,
-                                    dtype=str(t.dtype).replace("torch.", ""))
+                                    dtype=str(t.dtype).replace("torch.", ""),
+                                    **extra.get(key, {}))
             groups = _groups_doc(state)
             _write_file(os.path.join(tmp, _GROUPS_FILE),
                         lambda f: f.write(groups))
             entries[_GROUPS] = {"crc32": zlib.crc32(groups), "shape": [],
                                 "file": _GROUPS_FILE, "dtype": "json"}
-            doc = json.dumps({"format": 1, "step": mgr_step,
+            doc = json.dumps({"format": fmt, "step": mgr_step,
                               "state_step": int(state.step),
                               "leaves": entries}).encode()
             _write_file(os.path.join(tmp, MANIFEST_NAME + ".tmp"),
@@ -190,7 +326,6 @@ class CheckpointManager:
         for old in self.all_steps()[:-self.max_to_keep or None]:
             if old != mgr_step:
                 self.delete(old)
-        return mgr_step
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -203,8 +338,10 @@ class CheckpointManager:
 
     def delete(self, step: int) -> None:
         """Drop one step (leaves + manifest) — used when a rollback
-        replay re-saves a schedule position it already passed."""
-        shutil.rmtree(self._step_dir(step))
+        replay re-saves a schedule position it already passed.  Only the
+        writer deletes."""
+        if self.writer:
+            shutil.rmtree(self._step_dir(step))
 
     def quarantine_step(self, step: int) -> str:
         """Move a corrupt step's directory aside into
@@ -222,16 +359,18 @@ class CheckpointManager:
             while os.path.exists(f"{dst}.{n}"):
                 n += 1
             dst = f"{dst}.{n}"
-        os.replace(self._step_dir(step), dst)
-        core_telemetry.incr("checkpoint.quarantine")
+        if self.writer:
+            # the other ranks of a job report the same destination
+            os.replace(self._step_dir(step), dst)
+            core_telemetry.incr("checkpoint.quarantine")
         return dst
 
     # ------------------------------------------------------ integrity
 
     def _read_manifest(self, step: int) -> Dict:
         """The step's manifest.  Raises CheckpointFormatError for a step
-        orbax wrote, NotImplementedError for format 2, and
-        CheckpointCorruptError for a missing or torn manifest."""
+        orbax wrote or of an unknown format, and CheckpointCorruptError
+        for a missing or torn manifest."""
         step_dir = self._step_dir(step)
         path = os.path.join(step_dir, MANIFEST_NAME)
         doc = None
@@ -261,20 +400,21 @@ class CheckpointManager:
             raise CheckpointCorruptError(
                 f"checkpoint step {step} in {self.directory} has no "
                 "manifest")
-        if doc.get("format") != 1:
-            raise NotImplementedError(
+        if doc.get("format") not in (1, 2):
+            raise CheckpointFormatError(
                 f"checkpoint step {step} in {self.directory} is format "
-                f"{doc.get('format')!r} (per-shard): the port's sharded "
-                "trainer is not ported yet (ROADMAP A19)")
+                f"{doc.get('format')!r}; this package reads formats 1 and 2")
         return doc
 
-    def _load_leaves(self, step: int) -> Dict[str, Any]:
-        """Every leaf of the step, verified against its manifest (raises
-        CheckpointCorruptError on any mismatch or unreadable leaf)."""
-        doc = self._read_manifest(step)
+    def _load_leaves(self, step: int, doc: Dict) -> Dict[str, Any]:
+        """Every leaf of the step, verified against its manifest `doc` —
+        whole leaves and, in format 2, each shard re-sliced from the
+        global leaf by its bounds (raises CheckpointCorruptError on any
+        mismatch or unreadable leaf, naming every corrupt shard)."""
         step_dir = self._step_dir(step)
         leaves: Dict[str, Any] = {}
         bad: List[str] = []
+        bad_shards: List[str] = []
         t_verify = 0.0
         for key, entry in doc["leaves"].items():
             path = os.path.join(step_dir, entry["file"])
@@ -291,6 +431,14 @@ class CheckpointManager:
                     t0 = time.perf_counter()
                     ok = _digest(arr) == {"crc32": entry["crc32"],
                                           "shape": entry["shape"]}
+                    for sh in entry.get("shards", ()):
+                        sl = tuple(slice(a, b) for a, b in sh["index"])
+                        crc = zlib.crc32(np.ascontiguousarray(
+                            arr[sl]).tobytes())
+                        if crc != sh["crc32"]:
+                            bad_shards.append(
+                                f"{key} spec={entry.get('spec')} "
+                                f"shard={sh['i']} bounds={sh['index']}")
                     t_verify += time.perf_counter() - t0
                     leaves[key] = arr
             except (OSError, ValueError, EOFError) as e:
@@ -300,12 +448,15 @@ class CheckpointManager:
                 bad.append(f"{key} checksum mismatch")
         core_telemetry.histogram("checkpoint.verify.latency").observe(
             t_verify)
-        if bad:
+        if bad or bad_shards:
             core_telemetry.incr("checkpoint.corrupt")
+            detail = ("; corrupt shards: " + ", ".join(bad_shards)
+                      if bad_shards else "")
             raise CheckpointCorruptError(
                 f"checkpoint step {step} in {self.directory} failed "
                 f"verification: {len(bad)} leaves bad: "
-                + "; ".join(bad[:5]))
+                + "; ".join(bad[:5])
+                + f"; {len(bad_shards)} shard mismatches{detail}")
         out: Dict[str, Any] = {"module": {}, "optimizer_state": {},
                                "step": None, "groups": leaves.pop(_GROUPS)}
         for key, arr in leaves.items():
@@ -340,7 +491,14 @@ class CheckpointManager:
                 raise FileNotFoundError(
                     f"no checkpoint for step {step} in {self.directory}")
         fault_point("checkpoint.read")
-        leaves = self._load_leaves(step)
+        doc = self._read_manifest(step)
+        sharded = isinstance(template, TrainState3D)
+        if template is not None and (doc["format"] == 2) != sharded:
+            raise CheckpointFormatError(
+                f"checkpoint step {step} in {self.directory} is format "
+                f"{doc['format']}: format 2 (per-shard) restores into a "
+                "TrainState3D, format 1 into a TrainState")
+        leaves = self._load_leaves(step, doc)
         groups = leaves["groups"]
         opt_state = leaves["optimizer_state"]
         for i, extra in groups["state_scalars"].items():
@@ -350,7 +508,11 @@ class CheckpointManager:
         if template is None:
             return {"module": leaves["module"], "optimizer": optimizer,
                     "step": leaves["step"]}
-        _load_into(template, leaves["module"], optimizer, leaves["step"])
+        if sharded:
+            _load_into_sharded(template, leaves["module"], optimizer,
+                               leaves["step"])
+        else:
+            _load_into(template, leaves["module"], optimizer, leaves["step"])
         return template
 
     def restore_verified(self, template: Optional[TrainState] = None,
@@ -365,9 +527,11 @@ class CheckpointManager:
         :meth:`quarantine_step`; ``on_corrupt(step, path)`` fires per
         corrupt step with its (possibly quarantined) directory path.  A
         step in a format this package does not read raises instead: it
-        is not corrupt.  Catches Exception only — an InjectedCrash
-        (BaseException) still kills the process, as a real SIGKILL
-        would."""
+        is not corrupt.  The steps walked past are moved aside (and
+        reported) once the walk is over — for a 3D state after a barrier
+        of the job's ranks, so every rank walks the same steps.  Catches
+        Exception only — an InjectedCrash (BaseException) still kills the
+        process, as a real SIGKILL would."""
         steps = self.all_steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -382,25 +546,37 @@ class CheckpointManager:
             if on_corrupt is not None:
                 on_corrupt(step, path)
 
+        found, condemned = None, []
         for step in reversed(steps):
             try:
-                return self.restore(step=step, template=template), step
-            except (CheckpointFormatError, NotImplementedError):
+                found = self.restore(step=step, template=template), step
+                break
+            except CheckpointFormatError:
                 raise
             except CheckpointCorruptError:
                 # _read_manifest/_load_leaves already counted it corrupt
                 core_telemetry.incr("checkpoint.fallback")
-                _condemn(step)
+                condemned.append(step)
             except Exception:
                 # read errors, a state of another structure, injected
                 # checkpoint.read faults: this step is not trustworthy
                 # either — keep walking back
                 core_telemetry.incr("checkpoint.corrupt")
                 core_telemetry.incr("checkpoint.fallback")
-                _condemn(step)
-        raise FileNotFoundError(
-            f"no checkpoint in {self.directory} passed verification "
-            f"(tried {len(steps)} steps)")
+                condemned.append(step)
+        if isinstance(template, TrainState3D) and _multi_rank():
+            import torch.distributed as dist
+
+            # every rank has read the steps it condemns before rank 0
+            # moves any of them aside: all walk the same bytes
+            dist.barrier()
+        for step in condemned:
+            _condemn(step)
+        if found is None:
+            raise FileNotFoundError(
+                f"no checkpoint in {self.directory} passed verification "
+                f"(tried {len(steps)} steps)")
+        return found
 
     def close(self) -> None:
         """Nothing to wait for: every save is synchronous."""
@@ -421,6 +597,22 @@ def _load_into(state: TrainState, module_sd: Dict[str, torch.Tensor],
         with torch.no_grad():
             torch._foreach_copy_(list(state.work.parameters()),
                                  list(state.module.parameters()))
+
+
+def _load_into_sharded(state: TrainState3D, module_sd, optimizer: Dict,
+                       step: int) -> None:
+    """A 3D state from restored GLOBAL leaves: each rank copies in its own
+    chunk for the state's current plan (the masters, the optimizer's
+    per-parameter tensors), then refreshes the working copy."""
+    paths = [p for _n, p in state.leaf_paths()]
+    names = [n for n, _p in state.leaf_paths()]
+    local_sd = {n: _local_of(state, module_sd[n], p)
+                for n, p in zip(names, paths)}
+    for i, st in optimizer["state"].items():
+        for k, v in list(st.items()):
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                st[k] = _local_of(state, v, paths[int(i)])
+    _load_into(state, local_sd, optimizer, step)
 
 
 def save_checkpoint(directory: str, state: TrainState,

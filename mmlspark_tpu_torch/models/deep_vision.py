@@ -38,6 +38,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core import telemetry as core_telemetry
 from ..core.params import ComplexParam, Param, TypeConverters
 from ..core.pipeline import Estimator, Model
 from ..core.registry import register_stage
@@ -171,6 +172,7 @@ class DeepVisionClassifier(Estimator):
             state.apply_gradients(grad_norm=False)
             return loss.detach()
 
+        step = core_telemetry.watch_compiles(step, name="deep_vision.epoch")
         bs = max(1, int(self.batch_size))
         rng = np.random.default_rng(int(self.seed))
         ckpt = None

@@ -29,6 +29,7 @@ from typing import Any, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..core import telemetry as core_telemetry
 from ..core.params import ComplexParam, Param, TypeConverters
 from ..core.pipeline import Transformer
 from ..core.registry import register_stage
@@ -191,7 +192,10 @@ class TorchModel(Transformer):
                         f"fetch node {fetch!r} not in model taps {list(taps)}")
                 return taps[fetch].float()
 
-        _EXEC_CACHE[key] = (module, forward)
+        # the compile sentry flags steady-state new chunk shapes (the
+        # pad_to_batch hazard) and names the shape
+        _EXEC_CACHE[key] = (module, core_telemetry.watch_compiles(
+            forward, name="tpu_model.forward"))
         while len(_EXEC_CACHE) > _EXEC_CACHE_MAX:
             _EXEC_CACHE.popitem(last=False)
         return _EXEC_CACHE[key]

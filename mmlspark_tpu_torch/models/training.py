@@ -48,7 +48,18 @@ anomaly ladder (quarantine a poisoned batch, roll back, abort).
 teacher bundle: KL at a temperature plus next-token cross-entropy, the
 teacher's forward without gradients.
 
-Not ported yet: the 3D trainer and elastic resume (ROADMAP A19).
+The 3D trainer (`make_lm_train_step_3d`, data x tensor x pipe over a
+`parallel.mesh.MeshPlan`, one SPMD process a rank) and its layout
+helpers live in `models/trainer3d.py` and are re-exported here;
+`fit_epochs_resumable(elastic=...)` runs the multi-process
+shrink-and-resume ladder over `parallel.distributed.ElasticContext`.
+
+Each step / epoch factory's result is wrapped by
+`core.telemetry.watch_compiles` under the JAX package's names
+(`training.train_step`, `training.train_epoch`,
+`training.lm_train_epoch`, `training.eval_step`,
+`training.distill_epoch`, `training.lm_train_step_3d`): a new input
+shape after the caller ended warmup is flagged.
 """
 from __future__ import annotations
 
@@ -66,11 +77,18 @@ from torch import nn
 
 from ..core import telemetry as core_telemetry
 from ..device import resolve_device
+from .trainer3d import (TrainState3D, gather_params, init_lm_state_3d,
+                        lm_params_from_3d, lm_params_to_3d, lm_params_tree,
+                        load_lm_params, make_lm_resumable_step_3d,
+                        make_lm_train_step_3d, shard_params)
 
 __all__ = ["TrainState", "sgd", "adam", "init_train_state",
            "softmax_cross_entropy", "lm_loss", "make_train_step",
            "make_train_epoch", "make_lm_train_epoch", "make_distill_epoch",
-           "make_eval_step",
+           "make_eval_step", "make_lm_train_step_3d", "lm_params_to_3d",
+           "lm_params_from_3d", "make_lm_resumable_step_3d",
+           "shard_params", "lm_params_tree", "load_lm_params",
+           "TrainState3D", "init_lm_state_3d", "gather_params",
            "fit_epochs", "fit_epochs_resumable", "scan_slice_steps",
            "SCAN_SLICE_BYTES"]
 
@@ -281,7 +299,7 @@ def make_train_step(num_classes: int,
         return state, {"loss": loss.detach(), "accuracy": acc,
                        "grad_norm": grad_norm}
 
-    return step
+    return core_telemetry.watch_compiles(step, name="training.train_step")
 
 
 def make_train_epoch(num_classes: int) -> Callable:
@@ -294,7 +312,7 @@ def make_train_epoch(num_classes: int) -> Callable:
               for i in range(images.shape[0])]
         return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
-    return epoch
+    return core_telemetry.watch_compiles(epoch, name="training.train_epoch")
 
 
 def make_lm_train_epoch() -> Callable:
@@ -315,7 +333,8 @@ def make_lm_train_epoch() -> Callable:
             losses.append(loss.detach())
         return state, torch.stack(losses)
 
-    return epoch
+    return core_telemetry.watch_compiles(epoch,
+                                         name="training.lm_train_epoch")
 
 
 def make_distill_epoch(teacher, temperature: float = 2.0,
@@ -355,7 +374,8 @@ def make_distill_epoch(teacher, temperature: float = 2.0,
         losses = [step(state, tokens[i]) for i in range(tokens.shape[0])]
         return state, torch.stack(losses)
 
-    return epoch
+    return core_telemetry.watch_compiles(epoch,
+                                         name="training.distill_epoch")
 
 
 def make_eval_step() -> Callable:
@@ -369,7 +389,7 @@ def make_eval_step() -> Callable:
         work.train()
         return logits.argmax(-1)
 
-    return step
+    return core_telemetry.watch_compiles(step, name="training.eval_step")
 
 
 def _observe(dt: float, steps: int, batch_size: int) -> None:
@@ -548,17 +568,31 @@ def fit_epochs_resumable(
     lost time for checkpoint writes and rollbacks, and one
     ``core_telemetry.STORE.tick()``.
 
-    ``elastic=`` (multi-host resume) is not ported (ROADMAP A19)."""
+    With a `parallel.distributed.ElasticContext` passed as ``elastic``,
+    the loop runs in multi-process mode (every rank runs it, SPMD): every
+    step it beats this host's lease and polls for peer loss (lease expiry
+    the coordinator's monitor detects, an epoch the coordinator
+    published, or an injected ``training.host_lost`` fault), and the step
+    runs under a hang budget (``elastic.hang_budget_s``, else the guard's
+    ``hang_budget_s()``) so a dead peer's wedged collective raises
+    ``CollectiveTimeout`` instead of stalling.  A detected loss runs the
+    quarantine -> shrink -> resume ladder: ``guard.host_lost`` ledgers
+    the peer into quarantine.json, the membership epoch advances
+    (``elastic.commit_loss``), ``elastic.rebuild(view)`` may hand back
+    ``(plan, step_fn)`` built over the survivors (its callback starts
+    with ``elastic.regroup(view)``, the process group without the lost
+    ranks), and the state rolls back to the newest verified checkpoint,
+    re-sliced onto the survivors' plan (a `TrainState3D` takes the new
+    plan first), after which the schedule replays from the checkpoint
+    floor.  In a multi-process job the checkpoint directory is shared:
+    rank 0 writes the checkpoints and quarantine.json."""
     from ..io.feed import DeviceFeed
+    from ..parallel.distributed import run_with_deadline
     from ..utils.faults import InjectedFault, fault_point
     # lazy: checkpoint.py imports TrainState from this module
     from .checkpoint import CheckpointManager
     from .guard import GuardAction, TrainingAborted
 
-    if elastic is not None:
-        raise NotImplementedError(
-            "fit_epochs_resumable(elastic=...): multi-host elastic resume "
-            "is not ported to mmlspark_tpu_torch yet (ROADMAP A19)")
     if checkpoint_every < 1:
         raise ValueError(
             f"checkpoint_every must be >= 1, got {checkpoint_every}")
@@ -578,13 +612,18 @@ def fit_epochs_resumable(
     if own_guard:
         guard.start()
 
+    def _persist():
+        # one writer for the shared directory of a multi-process job
+        if mgr.writer:
+            guard.save_quarantine(qpath)
+
     def _on_corrupt(step, path):
         # corrupt checkpoints walked past get moved aside on disk AND
         # recorded in the guard's persisted ledger — the walk-back and
         # the quarantine must never disagree about which steps are dead
         if guard is not None:
             guard.quarantine_checkpoint(step, path)
-            guard.save_quarantine(qpath)
+            _persist()
 
     try:
         if guard is not None:
@@ -614,6 +653,42 @@ def fit_epochs_resumable(
         order = None
         order_epoch = -1
         while g < total:
+            lost = elastic.poll() if elastic is not None else None
+            if lost:
+                # the elastic ladder: ledger the dead peers, advance the
+                # membership epoch, rebuild the plan over the survivors,
+                # roll back to the checkpoint floor, replay
+                t_loss0 = time.perf_counter()
+                view = elastic.commit_loss(lost)
+                if guard is not None:
+                    for h in lost:
+                        guard.host_lost(h, {"epoch": view.epoch,
+                                            "schedule_step": int(g)})
+                    _persist()
+                rebuilt = elastic.rebuild(view)
+                if rebuilt is not None:
+                    plan, step_fn = rebuilt
+                    if hasattr(state, "plan"):
+                        state.plan = plan
+                with core_telemetry.span("training.elastic.shrink") as sp:
+                    try:
+                        state, g = mgr.restore_verified(
+                            template=state, on_corrupt=_on_corrupt,
+                            quarantine=True)
+                    except FileNotFoundError as e:
+                        core_telemetry.incr("training.abort")
+                        raise TrainingAborted(
+                            f"host loss {lost} at schedule step {g} "
+                            f"found no verifiable checkpoint: {e}") from e
+                    sp.attrs["lost"] = ",".join(lost)
+                    sp.attrs["epoch"] = view.epoch
+                    sp.attrs["restored_step"] = g
+                core_telemetry.incr("training.resume")
+                # the whole ladder is the host-loss window the goodput
+                # plane attributes (detection -> resume)
+                core_telemetry.LEDGER.note_lost(
+                    "host_loss", time.perf_counter() - t_loss0)
+                continue
             epoch, b = divmod(g, steps_per_epoch)
             if epoch != order_epoch:
                 # schedule is (seed, epoch)-pure: resume regenerates it
@@ -651,11 +726,24 @@ def fit_epochs_resumable(
             with core_telemetry.span("training.step"):
                 if guard is not None:
                     guard.step_begin(g)
-                try:
-                    state, m = step_fn(state, dbi, dbl)
+                def _exec(st=state, xi=dbi, yi=dbl):
+                    ns, m = step_fn(st, xi, yi)
                     # float() waits for the step's device work, so the
-                    # measured wall is the step's cost, not its dispatch
-                    metrics = {k: float(v) for k, v in m.items()}
+                    # measured wall is the step's cost (collectives
+                    # included), not its dispatch
+                    return ns, {k: float(v) for k, v in m.items()}
+
+                try:
+                    if elastic is not None:
+                        # multi-process mode: a dead peer wedges the
+                        # collectives — bound every step by a budget
+                        budget = elastic.hang_budget_s
+                        if budget is None and guard is not None:
+                            budget = guard.hang_budget_s()
+                        state, metrics = run_with_deadline(
+                            _exec, budget, name="training.step")
+                    else:
+                        state, metrics = _exec()
                 finally:
                     if guard is not None:
                         guard.step_end()
@@ -676,7 +764,7 @@ def fit_epochs_resumable(
                     grad_norm = float("nan")
                 action = guard.observe(g, loss, grad_norm)
             if action == GuardAction.ABORT:
-                guard.save_quarantine(qpath)
+                _persist()
                 raise TrainingAborted(
                     f"guard exhausted its rollback budget "
                     f"({guard.max_rollbacks}) at schedule step {g}; "
@@ -685,7 +773,7 @@ def fit_epochs_resumable(
                 # persist the verdict BEFORE restoring: a crash here must
                 # not forget which batch was poisoned
                 t_rb0 = time.perf_counter()
-                guard.save_quarantine(qpath)
+                _persist()
                 with core_telemetry.span("training.guard.rollback") as sp:
                     try:
                         # the step ran in place: the live state holds the
@@ -714,7 +802,7 @@ def fit_epochs_resumable(
         if total > g0 and g % checkpoint_every != 0:
             _autosave(mgr, state, g)  # final state always resumable
         if guard is not None and guard.quarantined:
-            guard.save_quarantine(qpath)
+            _persist()
     finally:
         if own_guard:
             guard.stop()

@@ -56,6 +56,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -142,6 +143,7 @@ def _build(backend: str, command: Tuple[str, ...]) -> str:
         try:
             if not os.path.exists(target):
                 tmp = f"{target}.{os.getpid()}.tmp"
+                t0 = time.perf_counter()
                 proc = subprocess.run(
                     [command[0], "-o", tmp, *srcs, *command[1:]],
                     capture_output=True, text=True, timeout=600)
@@ -153,6 +155,10 @@ def _build(backend: str, command: Tuple[str, ...]) -> str:
                         f"native/src/{' '.join(_SOURCES[backend])}:\n"
                         f"{proc.stdout}{proc.stderr}")
                 os.replace(tmp, target)
+                from ..core.telemetry import device as _device_obs
+
+                _device_obs.note_build(f"native/{backend}",
+                                       time.perf_counter() - t0)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return target

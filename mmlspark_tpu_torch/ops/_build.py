@@ -73,7 +73,11 @@ def _compile(nvcc: str, name: str, target: str) -> float:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, target)
-    return time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    from ..core.telemetry import device as _device_obs
+
+    _device_obs.note_build(f"csrc/{name}.cu", seconds)
+    return seconds
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

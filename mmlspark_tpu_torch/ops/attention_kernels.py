@@ -49,7 +49,7 @@ import torch
 
 from ..parallel.ring_attention import attention_with_lse
 
-__all__ = ["fused_attention", "flash_attention_fwd",
+__all__ = ["fused_attention", "kernel_ok", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_dkdv",
            "flash_attention_bwd_dkdv_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_plain", "LAUNCHES", "LAUNCHES_BWD_DKDV",
@@ -61,6 +61,18 @@ MAX_HEAD_DIM = 256  # the largest D the kernels instantiate
 LAUNCHES = 0            # B4, the forward
 LAUNCHES_BWD_DKDV = 0   # B5
 LAUNCHES_BWD_DQ = 0     # B6
+
+
+def kernel_ok(q) -> bool:
+    """The static shape rule (the JAX package's `kernel_ok`, resized to
+    what these kernels take): will a (B, S, H, D) array of this dtype and
+    head dim take B4/B5/B6 on the card?  bf16 or f32, D <= 256, and a
+    bf16 D a multiple of 8.  Callers that have a dense path (the ring,
+    Ulysses) choose by this rule, never by catching a launch error."""
+    d = q.shape[-1]
+    if q.dtype not in (torch.bfloat16, torch.float32) or d > MAX_HEAD_DIM:
+        return False
+    return q.dtype != torch.bfloat16 or d % 8 == 0
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..core import telemetry as core_telemetry
 from ..core.params import Param, TypeConverters
 from ..core.pipeline import Transformer
 from ..core.registry import register_stage
@@ -82,6 +83,18 @@ class _BatchedImageStage(Transformer):
         plain op composition over its f32 cast (exact for uint8)."""
         return self._pipeline_fn()(batch.to(torch.float32))
 
+    def _watched_group(self):
+        """`_run_group` behind the compile sentry, cached per stage
+        instance and current param values (a new batch shape in steady
+        state is flagged as `xla.compile.hot_path.image_stages.<Stage>`)."""
+        token = repr(sorted(self.simple_param_values().items()))
+        cached = self.__dict__.get("_watched_run_group")
+        if cached is None or cached[0] != token:
+            cached = (token, core_telemetry.watch_compiles(
+                self._run_group, name=f"image_stages.{type(self).__name__}"))
+            self.__dict__["_watched_run_group"] = cached
+        return cached[1]
+
     def _transform(self, table: Table) -> Table:
         device = resolve_device(self.device)
         out_col = self.output_col or self.input_col
@@ -96,7 +109,7 @@ class _BatchedImageStage(Transformer):
             rows = [cells[i] for i in members]
             batch = torch.from_numpy(
                 np.stack([image_row_to_array(r) for r in rows])).to(device)
-            out = self._run_group(batch)
+            out = self._watched_group()(batch)
             for r_out, i in zip(self._emit(out, rows), members):
                 result[i] = r_out
         return table.with_column(out_col, result)

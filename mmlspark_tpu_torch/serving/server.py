@@ -14,8 +14,8 @@ held connections.  The data path never leaves the host that accepted the
 request (the reference's sub-ms claim rests on the same property).
 
 A copy of the JAX package's `serving/server.py` for this package; its
-`/metrics` endpoints do not sample device memory (the JAX package's
-device gauges are not ported).
+`/metrics` and `/metrics.json` scrapes sample device memory
+(`telemetry.sample_device_memory`) first.
 """
 from __future__ import annotations
 
@@ -279,6 +279,12 @@ class WorkerServer:
                                       {"Content-Type": "application/json"})
                     return
                 if path.rstrip("/") == "/metrics":
+                    try:
+                        # freshen the device gauges on every scrape;
+                        # passive no-op when CUDA is not initialised
+                        telemetry.sample_device_memory()
+                    except Exception:
+                        pass
                     payload = telemetry.render_prometheus().encode("utf-8")
                     self._reply_bytes(
                         200, payload,
@@ -289,6 +295,10 @@ class WorkerServer:
                     # the federated-pull wire format: the full registry
                     # as an export_snapshot dict (what the gateway's
                     # FleetTelemetry merges across the pool)
+                    try:
+                        telemetry.sample_device_memory()
+                    except Exception:
+                        pass
                     payload = json.dumps(
                         telemetry.export_snapshot(include_spans=False),
                         default=repr).encode("utf-8")

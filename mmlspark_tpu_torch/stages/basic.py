@@ -6,7 +6,8 @@ MultiColumnAdapter (:19), EnsembleByKey (:20), ClassBalancer (:25),
 SummarizeData (:101), Timer (:55), StratifiedRepartition (:31),
 PartitionConsolidator (PartitionConsolidator.scala:22).  A copy of the
 JAX package's `stages/basic.py` for this package; `StratifiedRepartition`'s
-default shard count is this process's device count (`_num_shards`).
+default shard count is `utils.cluster.get_num_shards()` (the world size
+inside a process group, else the local card count).
 """
 from __future__ import annotations
 
@@ -321,16 +322,6 @@ class TimerModel(Model):
         return out
 
 
-def _num_shards() -> int:
-    """The default partition count: the CUDA devices this process sees, 1
-    on the CPU.  The JAX package asks `utils.cluster.get_num_shards` (its
-    device count); the port's `utils/cluster.py` comes with the
-    distributed runtime (ROADMAP A19)."""
-    import torch
-
-    return max(torch.cuda.device_count(), 1)
-
-
 @register_stage
 class StratifiedRepartition(Transformer):
     """Reassign rows to `n` partitions so every partition sees every label —
@@ -344,7 +335,9 @@ class StratifiedRepartition(Transformer):
     seed = Param("shuffle seed for mixed mode", default=0, converter=TypeConverters.to_int)
 
     def _transform(self, table: Table) -> Table:
-        n = self.n or _num_shards()
+        from ..utils.cluster import get_num_shards
+
+        n = self.n or get_num_shards()
         part = np.zeros(table.num_rows, dtype=np.int32)
         if self.mode == "equal":
             # every partition gets an equal share of every class

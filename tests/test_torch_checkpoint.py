@@ -7,7 +7,8 @@ in-place state needs: a restore into a live state that a poisoned step
 filled with NaN leaves the masters, the optimizer's state, the BatchNorm
 buffers and the bf16 working copy equal to the saved ones, bit for bit.
 A step that orbax wrote (the JAX package's CheckpointManager) is refused
-with a clear error, and a format-2 manifest names ROADMAP A19.
+with a clear error, and a format-2 manifest restores only into the 3D
+trainer's state.
 """
 import json
 import os
@@ -315,13 +316,18 @@ def test_orbax_directory_of_the_jax_package_is_refused(tmp_path):
 
 
 def test_format_2_manifest_waits_for_a19(tmp_path):
+    """Format 2 (per-shard, the 3D trainer's) restores only into a
+    TrainState3D: into a plain TrainState it is refused as a format
+    error — not walked past as corrupt (tests/test_torch_trainer3d.py
+    covers the format-2 round trip)."""
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(_fresh(), step=1)
     manifest = tmp_path / "1" / MANIFEST_NAME
     doc = json.loads(manifest.read_text())
     doc["format"] = 2
     manifest.write_text(json.dumps(doc))
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+    with pytest.raises(CheckpointFormatError, match="format 2"):
         mgr.restore(step=1, template=_fresh())
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+    with pytest.raises(CheckpointFormatError, match="format 2"):
         mgr.restore_verified(template=_fresh())
+    assert mgr.all_steps() == [1]  # not quarantined

@@ -2269,3 +2269,106 @@ def test_access_anomaly_card_fits_agree(cuda_device):
     np.testing.assert_allclose(sa, sb, rtol=0, atol=1e-6 * np.abs(sa).max())
     cpu = AccessAnomaly(**kw, device="cpu").fit(tab).transform(tab)
     np.testing.assert_allclose(sa, cpu["anomaly_score"], rtol=0, atol=1e-4)
+
+
+# ---- device telemetry and the model side of distributed --------------------
+# The ring's per-block step (B4 and the logsumexp merge) against the same
+# step through B4's plain version on the same card tensors (bf16 2e-2,
+# f32 1e-4 abs, B4's own limits); the 3D step at world 1 (nccl over a
+# loopback store) against the single-device step, f32, 2 steps: loss
+# within 1e-4 and parameters atol 1e-4 (test_torch_trainer3d.py's
+# limits); the memory gauges equal torch.cuda.memory_stats.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("bfloat16", 2e-2), ("float32", 1e-4)])
+def test_ring_block_step_matches_its_plain_version(cuda_device, dtype, atol):
+    from mmlspark_tpu_torch.ops import attention_kernels as A
+    from mmlspark_tpu_torch.parallel import ring_attention as RA
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shape, blk = (2, 512, 4, 64), 128
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(
+        getattr(torch, dtype)) for _ in range(3))
+    qr = q[:, blk:2 * blk]  # query block 1
+
+    def merge_plain(carry, kb, vb, causal):
+        o_b, lse = A.flash_attention_fwd_plain(qr, kb, vb, causal)
+        return RA._merge_normalized(*carry, o_b, lse.reshape(2, 4, blk))
+
+    # a carry that already holds block 0, then blocks 0 (behind: full),
+    # 1 (diagonal: causal) and 2 (ahead: skipped, no launch)
+    start = merge_plain(RA._init_carry(qr), k[:, :blk], v[:, :blk], False)
+    for k_off, relation in ((0, "behind"), (blk, "diagonal"),
+                            (2 * blk, "ahead")):
+        kb, vb = k[:, k_off:k_off + blk], v[:, k_off:k_off + blk]
+        n0 = A.LAUNCHES
+        got = RA.ring_block_step(qr, kb, vb, *start, blk, k_off, True)
+        assert A.LAUNCHES - n0 == (0 if relation == "ahead" else 1)
+        want = start if relation == "ahead" else \
+            merge_plain(start, kb, vb, relation == "diagonal")
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_3d_step_at_world_1_matches_the_single_device_step(cuda_device):
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.models import training as T
+    from mmlspark_tpu_torch.models.bundle import get_builder
+    from mmlspark_tpu_torch.parallel import distributed as D
+    from mmlspark_tpu_torch.parallel.mesh import MeshPlan
+    from mmlspark_tpu_torch.parallel.sharding_rules import lm_3d_rules
+    from mmlspark_tpu_torch.utils.cluster import find_open_port
+
+    started = not dist.is_initialized()
+    if started:
+        D.reset_distributed_state()
+        D.initialize_distributed(f"127.0.0.1:{find_open_port(29600)}", 1, 0)
+    try:
+        cfg = dict(vocab_size=512, embed_dim=128, num_layers=2, num_heads=2,
+                   max_len=128)
+        ref = T.init_train_state(get_builder("transformer_lm")(**cfg),
+                                 T.sgd(0.1), seed=3)
+        plan = MeshPlan(1, 1, 1)
+        p3 = T.shard_params(T.lm_params_to_3d(T.lm_params_tree(ref.module),
+                                              2, 1), plan, lm_3d_rules())
+        state = T.init_lm_state_3d(p3, T.sgd(0.1), plan)
+        step = T.make_lm_train_step_3d(ref.module, plan, remat=True)
+        toks = torch.from_numpy(np.random.default_rng(4).integers(
+            0, 512, (8, 128))).cuda()
+        epoch = T.make_lm_train_epoch()
+        for _ in range(2):
+            state, m = step(state, toks.reshape(2, 2, 2, 128))
+            ref, loss = epoch(ref, toks[None])
+            assert abs(float(m["loss"]) - float(loss[0])) < 1e-4
+        got = T.lm_params_from_3d(T.gather_params(state), 2)
+        want = T.lm_params_tree(ref.module)
+        from mmlspark_tpu_torch.parallel.sharding_rules import \
+            tree_leaves_with_path
+        for (p, a), (_q, b) in zip(tree_leaves_with_path(got),
+                                   tree_leaves_with_path(want)):
+            torch.testing.assert_close(a.cpu(), b.cpu(), atol=1e-4, rtol=0,
+                                       msg=lambda m, p=p: f"{p}: {m}")
+    finally:
+        if started:
+            dist.destroy_process_group()
+            D.reset_distributed_state()
+
+
+@pytest.mark.cuda
+def test_sample_device_memory_matches_memory_stats(cuda_device):
+    from mmlspark_tpu_torch.core.telemetry import device as device_obs
+
+    keep = torch.ones(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    got = device_obs.sample_device_memory()
+    stats = [torch.cuda.memory_stats(i)
+             for i in range(torch.cuda.device_count())]
+    assert got == {
+        "hbm_bytes_in_use": sum(s["allocated_bytes.all.current"]
+                                for s in stats),
+        "hbm_peak_bytes": sum(s["allocated_bytes.all.peak"] for s in stats),
+        "live_buffer_count": sum(s["allocation.all.current"] for s in stats)}
+    assert got["hbm_bytes_in_use"] >= keep.numel() * 4
+    del keep

@@ -276,3 +276,32 @@ def test_the_scan_covers_the_explainers_cyber_and_the_service_layer():
               "mmlspark_tpu_torch.codegen",
               "mmlspark_tpu_torch.codegen.generate"):
         assert m in mods, m
+
+
+def test_the_scan_covers_device_telemetry_and_the_distributed_slice():
+    """... and so are the device telemetry's, the mesh and rule tables',
+    the sequence-parallel attention's, the pipeline's, the elastic
+    runtime's, the topology's and the 3D trainer's — and the gloo rank
+    worker the distributed tests spawn imports no JAX either."""
+    mods = set(_modules())
+    for m in ("mmlspark_tpu_torch.core.telemetry.device",
+              "mmlspark_tpu_torch.parallel",
+              "mmlspark_tpu_torch.parallel.mesh",
+              "mmlspark_tpu_torch.parallel.sharding_rules",
+              "mmlspark_tpu_torch.parallel.ring_attention",
+              "mmlspark_tpu_torch.parallel.pipeline",
+              "mmlspark_tpu_torch.parallel.distributed",
+              "mmlspark_tpu_torch.utils.cluster",
+              "mmlspark_tpu_torch.models.trainer3d"):
+        assert m in mods, m
+    worker = os.path.join(ROOT, "tests", "torch_dist_worker.py")
+    with open(worker) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_blocked(n) for n in names), names

@@ -253,11 +253,28 @@ def test_resume_walks_past_corrupted_checkpoint(tmp_path):
 
 
 def test_elastic_resume_waits_for_a19(tmp_path):
+    """`elastic=` is ported: a single-process job with a quiet
+    ElasticContext (one host, its lease beaten every step, each step
+    under a hang budget) trains exactly as the loop without it, and
+    leaves the membership at epoch 1.  The multi-process shrink runs in
+    tests/test_torch_distributed.py."""
+    from mmlspark_tpu_torch.parallel import distributed as dist
+
     imgs, lbls = _data()
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        PT.fit_epochs_resumable(PT.make_train_step(4), _fresh(), imgs, lbls,
-                                checkpoint_dir=str(tmp_path), epochs=1,
-                                elastic=object(), **KW)
+    plain, _ = PT.fit_epochs_resumable(
+        PT.make_train_step(4), _fresh(), imgs, lbls,
+        checkpoint_dir=str(tmp_path / "plain"), epochs=1, **KW)
+    host = dist.HostInfo("h0", 0, 1)
+    ctx = dist.ElasticContext(
+        host, dist.MembershipView(1, [host]),
+        monitor=dist.HeartbeatMonitor(["h0"], lease_s=1e9, self_id="h0"),
+        coordinator=True, hang_budget_s=60.0)
+    state, metrics = PT.fit_epochs_resumable(
+        PT.make_train_step(4), _fresh(), imgs, lbls,
+        checkpoint_dir=str(tmp_path / "elastic"), epochs=1, elastic=ctx,
+        **KW)
+    assert _equal(_params(state), _params(plain))
+    assert np.isfinite(metrics["loss"]) and ctx.view.epoch == 1
 
 
 # ---- against the JAX package's loop ---------------------------------------

@@ -230,11 +230,14 @@ def test_stratified_repartition_refuses_an_unknown_mode():
 
 
 def test_stratified_repartition_default_is_one_shard_on_the_cpu():
-    """Without `n` the port asks its device count: 1 without a card (the
-    JAX package asks jax.device_count(), 8 under this suite's virtual
-    mesh); every row lands in partition 0."""
+    """Without `n` the port asks `utils.cluster.get_num_shards`: 1 without
+    a card and outside a process group (the JAX package asks
+    jax.device_count(), 8 under this suite's virtual mesh); every row
+    lands in partition 0."""
+    from mmlspark_tpu_torch.utils.cluster import get_num_shards
+
     assert not torch.cuda.is_available()
-    assert PSB._num_shards() == 1
+    assert get_num_shards() == 1
     out = PSB.StratifiedRepartition(label_col="k").transform(
         PTable(num_cols()))
     assert out.get_meta("__partitioning__") == {"num_partitions": 1}
