@@ -362,6 +362,39 @@ exit, no result line) if anything in it fails:
    `generate_wrappers` + `generate_tests` over the 161 stages, the
    generated smoke tests run by pytest in a subprocess that cannot import
    JAX or the JAX package.
+19. device telemetry and the model side of distributed (after phase 18,
+   in a world-1 nccl group): (a) the compile sentry, the memory gauges,
+   the Chrome trace and /metrics over phase 4's featurizer; (b) the
+   ring's blocks (B4 + the logsumexp merge) and (c) Ulysses against
+   `full_attention`; (d) the 3D trainer's step at GPT-small on
+   `MeshPlan(1, 1, 1)` against a single-device step; (e) format-2
+   checkpoints; (f) the elastic runtime at world 1.
+20. the data side of distributed (after phase 19; its seconds on a line
+   of their own; (b)-(e) in a new world-1 nccl group; the bit-for-bit
+   checks rely on cuDNN's deterministic algorithms from phase 11 and
+   cuBLAS's fixed workspace set at the script's top; a `feed.degraded`
+   or `feed.shard_degraded` outside (b)'s injected faults fails the run):
+   (a) phase 4's ResNet-50 featurizer over its 192 uint8 images with the
+   feed's coalescing at 4 and at 1 chunk a copy (`load_tuned` from a
+   temporary file), in turns: features bit for bit, groups and images/s,
+   `FeedTelemetry.summarize`; (b) `ShardEngine.put_sharded` on a world-1
+   batch sharding of (64, 224, 224, 3) uint8 and f32, read back byte for
+   byte, `DTensor.from_local` without a copy (`data_ptr`), one pinned
+   staging bucket over 20 fenced puts (GB/s), then
+   tools/torch_chaos_soak.py's flow soak with its h2d leg on the card:
+   the `feed.shard_put` ladder exhausts, the feed degrades stickily to
+   coalesced, every item arrives in order; (c) `ImageFeaturizer(ResNet-50,
+   bf16)` through the meshed TorchModel (the mesh `host_local_feed`
+   builds), B1 once a chunk, features against the same rows on the
+   single-device path and within 2e-2 of the plain-preprocess run,
+   images/s in turns; (d) phase 15's HIGGS-shaped fit under
+   `data_parallel` on the world-1 mesh (trees equal to phase 15's serial
+   card fit, by the tie rule where not bit for bit; ms an iteration and
+   the all-reduces' share), `voting_parallel` (top_k 20: every split
+   inside its tree's vote, held-out AUC), and example 02's reviews under
+   `data_parallel`; (e) phase 17 (d)'s 1,000,000 VW rows through
+   `VowpalWabbitClassifier(use_all_reduce=True)`: K1 once a pass, weights
+   against `use_all_reduce=False`, the all-reduce's ms a pass.
 9. record: a `{"kernels": [...]}` JSON line (the eight TPU kernels, C2
    and K1), the nvidia-smi line, and last the `{"ok": true, "device":
    ...}` line.
@@ -4922,9 +4955,10 @@ def iter_clock():
     return IterClock()
 
 
-def gbdt_dense_path(card) -> None:
+def gbdt_dense_path(card):
     """Phase 15 (a): GBDTClassifier at LightGBM's defaults on a HIGGS-shaped
-    table of GBDT_ROWS rows, GBDT_ITERS iterations on the card."""
+    table of GBDT_ROWS rows, GBDT_ITERS iterations on the card.  Returns
+    an unhooked card fit and its recorded split calls (phase 20 (d))."""
     import numpy as np
     import torch
 
@@ -5124,12 +5158,14 @@ def gbdt_dense_path(card) -> None:
 
     # determinism: a second card fit of the same data, no hooks
     t0 = time.perf_counter()
-    second = GBDTClassifier(num_iterations=GBDT_ITERS).fit(table).booster
+    with C.recorded_splits(T) as second_calls:
+        second = GBDTClassifier(num_iterations=GBDT_ITERS).fit(table).booster
     same, exact = same_forest(booster.trees, second.trees)
-    log(f"[phase 15] a second card fit ({time.perf_counter() - t0:.2f} s): "
-        f"split structure equal to the first's: {same}, leaf values bit "
-        f"for bit: {exact} (the first fit's {len(ties)} steered tie(s) "
-        f"aside)")
+    log(f"[phase 15] a second card fit ({time.perf_counter() - t0:.2f} s, "
+        f"its split calls recorded for phase 20): split structure equal to "
+        f"the first's: {same}, leaf values bit for bit: {exact} (the first "
+        f"fit's {len(ties)} steered tie(s) aside)")
+    return second, second_calls
 
 
 def synthetic_reviews(n: int, seed: int = 0):
@@ -5154,9 +5190,9 @@ def synthetic_reviews(n: int, seed: int = 0):
                   "label": np.asarray(labels)})
 
 
-def gbdt_sparse_path(card) -> None:
+def gbdt_sparse_path(card):
     """Phase 15 (b): example 02's hashed reviews through the CSR path on
-    the card."""
+    the card.  Returns (the fit's booster, the featurized table)."""
     import numpy as np
     import torch
 
@@ -5231,6 +5267,7 @@ def gbdt_sparse_path(card) -> None:
         f"mass (limit {GBDT_TOL})")
     if not err <= GBDT_TOL:
         fail(f"GBDT COO histogram: card vs CPU {err} > {GBDT_TOL}")
+    return model.booster, table
 
 
 # ---------------------------------------------------------------------------
@@ -7630,6 +7667,464 @@ def elastic_path(rendezvous_s: float, card) -> None:
         fail("the host telemetry endpoint's snapshot did not merge")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the data side of distributed (A19) at world 1
+# ---------------------------------------------------------------------------
+# The process group of phase 20 is world 1 on nccl.  (a) phase 4's
+# featurizer with the feed's coalescing at 4 and at 1 chunk a copy, in
+# P20_TURNS turns of each; (b) the shard engine at phase 4's chunk shape
+# and one staging bucket over P20_PUTS puts; (c) the meshed featurizer,
+# P20_TURNS turns against the single-device path; (d) phase 15's fits on
+# the world-1 mesh (voting over P20_TOP_K features); (e) phase 17 (d)'s VW
+# rows with use_all_reduce.
+P20_TURNS = 3
+P20_PUTS = 20
+P20_TOP_K = 20
+P20_SHAPE = (BATCH, IMG, IMG, 3)
+P20_AUC_DROP = 0.01   # voting may restrict splits; its AUC may trail this much
+
+
+def _p20_dir(name: str) -> str:
+    path = os.path.join(ROOT, "build", "phase20", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _feed_counters() -> dict:
+    from mmlspark_tpu_torch.core import telemetry as T
+
+    return {k: v for k, v in T.counters("feed.").items()
+            if k in ("feed.degraded", "feed.shard_degraded") and v}
+
+
+def _no_degrade(part: str) -> None:
+    got = _feed_counters()
+    if got:
+        fail(f"phase 20 {part}: the feed degraded without an injected "
+             f"fault: {got}")
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def feed_coalesce_path(table, repo, n_chunks, card) -> dict:
+    """Phase 20 (a); returns {kernel: launches} of the counted run."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.io import feed as PF
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.zoo import get_or_create_resnet
+
+    bundle = get_or_create_resnet("resnet50", (IMG, IMG, 3), 1000, repo=repo)
+    featurizer = ImageFeaturizer(bundle=bundle, batch_size=BATCH)
+    featurizer.transform(table)  # warm
+    d = _p20_dir("tuned")
+    files = {c: os.path.join(d, f"feed_coalesce_{c}.json") for c in (4, 1)}
+    for c, path in files.items():
+        with open(path, "w") as f:
+            json.dump({"coalesce": c}, f)
+    runs = {4: [], 1: []}
+    feats = {}
+    launches = None
+    try:
+        for turn in range(P20_TURNS):
+            for c in (4, 1):
+                os.environ["MMLSPARK_FEED_TUNED"] = files[c]
+                if PF.load_tuned() != {"coalesce": c}:
+                    fail(f"load_tuned read {PF.load_tuned()} from {files[c]}")
+                counted = turn == 0 and c == 4
+                if counted:
+                    zero_launches()
+                torch.cuda.synchronize()
+                before = PF.FEED_TELEMETRY.snapshot()
+                t0 = time.perf_counter()
+                out = featurizer.transform(table)
+                wall = time.perf_counter() - t0
+                if counted:
+                    launches = read_launches()
+                runs[c].append((wall, PF.FEED_TELEMETRY.delta(before)))
+                if c not in feats:
+                    feats[c] = out["features"]
+                elif not np.array_equal(out["features"], feats[c]):
+                    fail(f"coalesce={c}: two runs' features differ")
+    finally:
+        os.environ.pop("MMLSPARK_FEED_TUNED", None)
+    same = np.array_equal(feats[4], feats[1])
+    diff = float(np.abs(feats[4] - feats[1]).max())
+    for c in (4, 1):
+        walls = [w for w, _ in runs[c]]
+        med = _median(runs[c])
+        s = PF.FeedTelemetry.summarize(med[1])
+        log(f"[phase 20] (a) coalesce={c} (load_tuned from {files[c]}): "
+            f"images/s over {P20_TURNS} turns {N_IMAGES / max(walls):.0f} / "
+            f"{N_IMAGES / _median(walls):.0f} / {N_IMAGES / min(walls):.0f}"
+            f" (min / median / max); the median run: groups "
+            f"{med[1]['groups']:.0f} for {med[1]['chunks_fed']:.0f} chunks, "
+            f"coalesced {med[1]['coalesced_chunks']:.0f}; summarize {s}")
+        if c == 1 and (med[1]["groups"] != n_chunks
+                       or med[1]["coalesced_chunks"]):
+            fail(f"coalesce=1 packed chunks: {med[1]}")
+        if med[1]["chunks_fed"] != n_chunks:
+            fail(f"coalesce={c} fed {med[1]['chunks_fed']} of {n_chunks}")
+    log(f"[phase 20] (a) features coalesce=4 vs coalesce=1: bit for bit "
+        f"{same} (max abs diff {diff:.3g}); launches of the first run "
+        f"{launches} on {card}")
+    if not same:
+        fail("phase 20 (a): coalescing changed the features")
+    if launches != dict(NO_LAUNCHES, affine_resample=n_chunks):
+        fail(f"phase 20 (a) launched {launches}, expected B1 once a chunk")
+    _no_degrade("(a)")
+    return launches
+
+
+def shard_engine_path(mesh, card) -> None:
+    """Phase 20 (b): ShardEngine.put_sharded under a world-1 batch
+    sharding, one staging bucket over P20_PUTS puts, then the chaos
+    soak's h2d leg on the card."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import telemetry as T
+    from mmlspark_tpu_torch.io import shard_put as SP
+    from mmlspark_tpu_torch.io.feed import FeedTelemetry
+    from mmlspark_tpu_torch.parallel.mesh import batch_sharding
+
+    rng = np.random.default_rng(20)
+    u8 = rng.integers(0, 256, P20_SHAPE, dtype=np.uint8)
+    f32 = rng.standard_normal(P20_SHAPE, dtype=np.float32)
+    sh = batch_sharding(mesh, len(P20_SHAPE))
+    ptrs = []
+    orig = SP.ShardEngine._copy
+
+    def recording(self, view, host, device):
+        t, ev = orig(self, view, host, device)
+        ptrs.append(t.data_ptr())
+        return t, ev
+
+    SP.ShardEngine._copy = recording
+    try:
+        for arr in (u8, f32):
+            tel = FeedTelemetry()
+            eng = SP.ShardEngine(telemetry=tel, min_shard_bytes=0,
+                                 staging=SP.StagingBuckets())
+            y = eng.put_sharded(arr, sh)
+            local = y.to_local()
+            no_copy = local.data_ptr() == ptrs[-1]
+            same = local.cpu().numpy().tobytes() == arr.tobytes()
+            snap = tel.snapshot()
+            log(f"[phase 20] (b) put_sharded {arr.dtype} {arr.shape} "
+                f"({arr.nbytes / 2**20:.1f} MiB) on the world-1 mesh: a "
+                f"{type(y).__name__} of shape {tuple(y.shape)}, from_local "
+                f"kept the copied block (data_ptr equal): {no_copy}; read "
+                f"back byte for byte: {same}; sharded_groups "
+                f"{snap['sharded_groups']:.0f}")
+            if not (no_copy and same and tuple(y.shape) == arr.shape
+                    and snap["sharded_groups"] == 1):
+                fail(f"phase 20 (b): put_sharded of {arr.dtype} failed")
+    finally:
+        SP.ShardEngine._copy = orig
+
+    # one pinned bucket over P20_PUTS puts of two alternating arrays: each
+    # put re-acquires the bucket behind the previous copy's fence; every
+    # result is read back after the loop
+    staging = SP.StagingBuckets()
+    eng = SP.ShardEngine(telemetry=FeedTelemetry(), min_shard_bytes=0,
+                         staging=staging)
+    srcs = (f32, np.ascontiguousarray(f32[::-1]))
+    eng.put_sharded(f32, sh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [eng.put_sharded(srcs[i % 2], sh) for i in range(P20_PUTS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ok = all(o.to_local().cpu().numpy().tobytes() == srcs[i % 2].tobytes()
+             for i, o in enumerate(outs))
+    gbps = P20_PUTS * f32.nbytes / wall / 1e9
+    log(f"[phase 20] (b) {P20_PUTS} puts of {f32.nbytes / 2**20:.1f} MiB "
+        f"through one staging bucket ({staging.allocated()} allocated): "
+        f"{wall * 1e3:.1f} ms, {gbps:.2f} GB/s (pageable copy into the "
+        f"pinned bucket, then the DMA, fenced); every result equal to its "
+        f"source: {ok} on {card}")
+    # one bucket, reused (a CPU rehearsal discards its aliased buckets)
+    if not ok or staging.allocated() != (0 if mesh.device_type == "cpu"
+                                         else 1):
+        fail("phase 20 (b): a fenced bucket was rewritten too early or "
+             "reallocated")
+    del outs
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_chaos_soak", os.path.join(ROOT, "tools", "torch_chaos_soak.py"))
+    soak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soak)
+    t0 = time.perf_counter()
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        s = soak.run_flow_soak(seed=7, n_items=48, device="cuda")
+    log(f"[phase 20] (b) torch_chaos_soak --flow on the card "
+        f"({time.perf_counter() - t0:.2f} s): h2d delivered "
+        f"{s['h2d_delivered']} in order, shard degraded "
+        f"{s['h2d_shard_degraded']}, feed.shard_put fired "
+        f"{s['faults_fired'].get('feed.shard_put')}, feed.device_put "
+        f"{s['faults_fired'].get('feed.device_put')}; lost {s['lost']}, "
+        f"duplicated {s['duplicated']}")
+    if not (s["h2d_shard_degraded"] and s["h2d_delivered"] == 6
+            and s["faults_fired"].get("feed.shard_put") == 3):
+        fail(f"phase 20 (b): the h2d leg did not degrade as scripted: {s}")
+    T.reset_counters("feed.")  # the injected degrade ends here
+
+
+def meshed_featurizer_path(K, table, repo, n_chunks, card) -> dict:
+    """Phase 20 (c); returns {kernel: launches} of the counted run."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.io.feed import host_local_feed
+    from mmlspark_tpu_torch.models import torch_model as TM
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.zoo import get_or_create_resnet
+    from mmlspark_tpu_torch.parallel.mesh import default_mesh
+
+    feed = host_local_feed(device="cuda")
+    mesh = default_mesh("cuda")
+    if feed.mesh is not mesh or feed._dp() != 1 or \
+            TM._data_mesh(torch.device("cuda")) is not mesh:
+        fail("host_local_feed and the meshed TorchModel see different meshes")
+    bundle = get_or_create_resnet("resnet50", (IMG, IMG, 3), 1000, repo=repo)
+    featurizer = ImageFeaturizer(bundle=bundle, batch_size=BATCH)
+    single = TM._data_mesh
+
+    def run(meshed: bool):
+        if not meshed:
+            TM._data_mesh = lambda device: None  # the single-device path
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = featurizer.transform(table)
+            return time.perf_counter() - t0, out["features"]
+        finally:
+            TM._data_mesh = single
+
+    zero_launches()
+    _w, meshed_feats = run(True)
+    launches = read_launches()
+    _w, single_feats = run(False)
+    plain_model = featurizer._model_for(bundle, "image")
+    plain_model.set(preprocess=plain_preprocess(K))
+    plain_feats = plain_model.transform(table)["features"]
+    same = np.array_equal(meshed_feats, single_feats)
+    diff = float(np.abs(meshed_feats - single_feats).max())
+    err = rel_l2(meshed_feats, plain_feats)
+    walls = {True: [], False: []}
+    for _ in range(P20_TURNS):
+        for meshed in (True, False):
+            walls[meshed].append(run(meshed)[0])
+    log(f"[phase 20] (c) ImageFeaturizer(ResNet-50, bf16, {IMG}x{IMG}) in "
+        f"the world-1 group (host_local_feed's mesh = the meshed "
+        f"TorchModel's): launches {launches} (chunks={n_chunks}); features "
+        f"vs the same rows outside a group: bit for bit {same}, max abs "
+        f"diff {diff:.3g}; vs the plain-preprocess run rel_l2 {err:.3e} "
+        f"(bound {PLAIN_FEATURES_RTOL}); images/s in {P20_TURNS} turns: "
+        f"meshed {N_IMAGES / _median(walls[True]):.0f} (median; "
+        f"{', '.join(f'{N_IMAGES / w:.0f}' for w in walls[True])}), "
+        f"single-device {N_IMAGES / _median(walls[False]):.0f} "
+        f"({', '.join(f'{N_IMAGES / w:.0f}' for w in walls[False])}) on "
+        f"{card}")
+    if launches != dict(NO_LAUNCHES, affine_resample=n_chunks):
+        fail(f"phase 20 (c) launched {launches}, expected B1 once a chunk")
+    if err > PLAIN_FEATURES_RTOL or rel_l2(meshed_feats, single_feats) > \
+            PLAIN_FEATURES_RTOL:
+        fail("phase 20 (c): the meshed features disagree")
+    _no_degrade("(c)")
+    del featurizer, plain_model
+    return launches
+
+
+def gbdt_mesh_path(mesh, serial, sparse, card) -> None:
+    """Phase 20 (d): phase 15's fits on the world-1 mesh."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.gbdt import histogram as H
+    from mmlspark_tpu_torch.gbdt import tree as T
+    from mmlspark_tpu_torch.gbdt.estimators import _features_matrix
+    from mmlspark_tpu_torch.models.statistics import roc_auc
+
+    import torch.distributed as dist
+
+    C = gbdt_compare()
+    serial_booster, serial_calls = serial
+    # the data group's first collective sets up its NCCL communicator:
+    # timed apart, so the fits' all-reduces are the steady state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.all_reduce(torch.zeros(1, device="cuda"),
+                    group=mesh.get_group("data"))
+    torch.cuda.synchronize()
+    log(f"[phase 20] (d) the data group's first all-reduce (its NCCL "
+        f"communicator's setup): {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    x, y = higgs_like(GBDT_ROWS, seed=15)
+    xh, yh = higgs_like(GBDT_HOLD, seed=16)
+    reduces = []
+    orig_reduce = H.RowShardedBuilderBase._all_reduce
+
+    def timed_reduce(self, t):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = orig_reduce(self, t)
+        ev[1].record()
+        reduces.append(ev)
+        return out
+
+    def fit(par, xx, yy, **kw):
+        est = GBDTClassifier(num_iterations=GBDT_ITERS, parallelism=par,
+                             **kw)
+        cfg = est._base_config(objective="binary", num_class=1,
+                               scale_pos_weight=est.scale_pos_weight)
+        clock = iter_clock()
+        reduces.clear()
+        H.RowShardedBuilderBase._all_reduce = timed_reduce
+        try:
+            t0 = time.perf_counter()
+            est.set(delegate=clock)
+            b = est._train_booster(cfg, xx, yy, None, None, mesh=mesh)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        finally:
+            H.RowShardedBuilderBase._all_reduce = orig_reduce
+        red_ms = sum(s.elapsed_time(e) for s, e in reduces)
+        return b, fit_s, clock.ms(), red_ms, len(reduces)
+
+    b, fit_s, iter_ms, red_ms, n_red = fit("data_parallel", x, y)
+    same, exact = same_forest(serial_booster.trees, b.trees)
+    ties = []
+    if not same:
+        with C.following_splits(T, serial_calls, "phase 20 data_parallel") \
+                as (_calls, ties):
+            again = fit("data_parallel", x, y)[0]
+        C.compare_fits(serial_booster, again, "phase 20 data_parallel")
+    med = float(np.median(iter_ms[1:]))
+    log(f"[phase 20] (d) GBDTClassifier data_parallel on the world-1 mesh, "
+        f"{GBDT_ROWS:,} x {GBDT_FEATURES} x {GBDT_ITERS} iterations: fit "
+        f"{fit_s:.2f} s, ms an iteration {med:.1f} (median after the "
+        f"first); {n_red} all-reduces of the f64 histograms, "
+        f"{red_ms:.1f} ms in all = {red_ms / (sum(iter_ms) or 1):.4f} of "
+        f"the iterations' time; trees vs phase 15's serial card fit: "
+        f"structure equal {same}, leaf values bit for bit {exact}"
+        + (f"; by the tie rule after {len(ties)} tie(s)" if not same else "")
+        + f" on {card}")
+
+    masks = []
+    orig_vote = T.vote_features
+
+    def recorded_vote(*a, **k):
+        m = orig_vote(*a, **k)
+        masks.append(m)
+        return m
+
+    T.vote_features = recorded_vote
+    try:
+        vb, vfit_s, viter_ms, vred_ms, vn = fit("voting_parallel", x, y,
+                                                top_k=P20_TOP_K)
+    finally:
+        T.vote_features = orig_vote
+    inside = all(set(int(f) for f in t.split_feature if f >= 0)
+                 <= set(np.nonzero(m)[0].tolist())
+                 for t, m in zip(vb.trees, masks))
+    auc_vote = roc_auc(yh, vb._raw_scores(xh))
+    auc_serial = roc_auc(yh, serial_booster._raw_scores(xh))
+    log(f"[phase 20] (d) voting_parallel (top_k {P20_TOP_K} of "
+        f"{GBDT_FEATURES}): fit {vfit_s:.2f} s, ms an iteration "
+        f"{float(np.median(viter_ms[1:])):.1f}; all-reduces {vn}, "
+        f"{vred_ms:.1f} ms; {len(masks)} votes (one a tree), features a "
+        f"vote {[int(m.sum()) for m in masks]}; every split inside its "
+        f"tree's vote: {inside}; held-out AUC {auc_vote:.6f} against the "
+        f"serial fit's {auc_serial:.6f}")
+    if len(masks) != GBDT_ITERS or not inside or \
+            auc_vote < auc_serial - P20_AUC_DROP:
+        fail("phase 20 (d): voting_parallel misbehaved")
+
+    sparse_booster, sparse_table = sparse
+    xs = _features_matrix(sparse_table["features"],
+                          sparse_table.get_meta("features"))
+    ys = np.asarray(sparse_table["label"], np.float64)
+    est = GBDTClassifier(num_iterations=GBDT_TEXT_ITERS, num_leaves=7,
+                         min_data_in_leaf=10, parallelism="data_parallel")
+    cfg = est._base_config(objective="binary", num_class=1,
+                           scale_pos_weight=est.scale_pos_weight)
+    t0 = time.perf_counter()
+    sb = est._train_booster(cfg, xs, ys, None, None, mesh=mesh)
+    torch.cuda.synchronize()
+    sfit_s = time.perf_counter() - t0
+    ssame, sexact = same_forest(sparse_booster.trees, sb.trees)
+    log(f"[phase 20] (d) example 02's reviews ({len(ys):,} rows, 2^18 "
+        f"hashed features, CSR) data_parallel on the world-1 mesh: fit "
+        f"{sfit_s:.2f} s; trees vs phase 15 (b)'s: structure equal "
+        f"{ssame}, leaf values bit for bit {sexact}")
+    if not ssame:
+        C.compare_fits(sparse_booster, sb, "phase 20 sparse data_parallel")
+    _no_degrade("(d)")
+
+
+def vw_all_reduce_path(card) -> dict:
+    """Phase 20 (e); returns {kernel: launches} of the all-reduce fit."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.online import VowpalWabbitClassifier
+    from mmlspark_tpu_torch.online import learners as L
+
+    rng = np.random.default_rng(20)
+    cols = vw_columns(rng, VW_ROWS)
+    idx, val, nnz = vw_hashed_rows(cols)
+    table = Table({"features": object_rows(idx, val, nnz),
+                   "label": cols["label"]})
+    kw = dict(num_passes=VW_PASSES, learning_rate=0.5, num_bits=VW_BITS)
+    plain = VowpalWabbitClassifier(**kw).fit(table)
+    ends = []
+    orig = L._end_of_pass
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(*a)
+        torch.cuda.synchronize()
+        ends.append((time.perf_counter() - t0) * 1e3)
+
+    L._end_of_pass = timed
+    zero_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduced = VowpalWabbitClassifier(use_all_reduce=True, **kw).fit(table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        L._end_of_pass = orig
+    launches = read_launches()
+    wp, wr = np.asarray(plain.weights), np.asarray(reduced.weights)
+    bitwise = np.array_equal(wp, wr)
+    err = float(np.abs(wp - wr).max()) / max(float(np.abs(wp).max()), 1e-30)
+    shards = list(reduced.performance_statistics["num_shards"])
+    log(f"[phase 20] (e) VowpalWabbitClassifier(use_all_reduce=True) on "
+        f"{VW_ROWS:,} rows x {VW_PASSES} passes in the world-1 group: fit "
+        f"{fit_s:.3f} s; launches {launches}; weights vs use_all_reduce="
+        f"False bit for bit {bitwise} ({err:.3g} of max |w|, limit "
+        f"{K1_W_RTOL}); num_shards {shards}; the end-of-pass all-reduce "
+        f"of w and g2 (2^{VW_BITS} f32 each) and the loss "
+        f"{', '.join(f'{m:.3f}' for m in ends)} ms a pass on {card}")
+    if launches != dict(NO_LAUNCHES, online_pass=VW_PASSES):
+        fail(f"phase 20 (e) launched {launches}, expected K1 once a pass")
+    if err > K1_W_RTOL or shards != [1] * VW_PASSES or len(ends) != VW_PASSES:
+        fail("phase 20 (e): use_all_reduce disagrees with the serial fit")
+    _no_degrade("(e)")
+    return launches
+
+
 def int8_gemm_timing(card) -> None:
     """`torch._int_mm` at the ViT-B/16 qkv shape of one chunk against a
     bf16 `torch.matmul` at the same shape, each from calls queued behind
@@ -7932,8 +8427,8 @@ def main() -> None:
 
     # ---- 15. the GBDT engine ---------------------------------------------
     t15 = time.perf_counter()
-    gbdt_dense_path(card)
-    gbdt_sparse_path(card)
+    gbdt_serial = gbdt_dense_path(card)
+    gbdt_sparse = gbdt_sparse_path(card)
     log(f"[phase 15] {time.perf_counter() - t15:.1f} s")
 
     # ---- 16. the classic-ML slice ----------------------------------------
@@ -7991,6 +8486,27 @@ def main() -> None:
     elastic_path(rendezvous_s, card)
     dist.destroy_process_group()
     log(f"[phase 19] {time.perf_counter() - t19:.1f} s")
+
+    # ---- 20. the data side of distributed --------------------------------
+    # bit-for-bit checks below rely on cuDNN's deterministic algorithms
+    # (phase 11 on) and cuBLAS's fixed workspace (the script's top)
+    t20 = time.perf_counter()
+    from mmlspark_tpu_torch.core import telemetry as core_telemetry
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+
+    core_telemetry.reset_counters("feed.")
+    paths.append(feed_coalesce_path(table, repo, n_chunks, card))
+    D.reset_distributed_state()
+    D.initialize_distributed(f"127.0.0.1:{find_open_port(29700)}", 1, 0,
+                             device="cuda")
+    mesh20 = make_mesh(device="cuda")
+    shard_engine_path(mesh20, card)
+    paths.append(meshed_featurizer_path(K, table, repo, n_chunks, card))
+    gbdt_mesh_path(mesh20, gbdt_serial, gbdt_sparse, card)
+    del gbdt_serial, gbdt_sparse
+    paths.append(vw_all_reduce_path(card))
+    dist.destroy_process_group()
+    log(f"[phase 20] {time.perf_counter() - t20:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
 
     # ---- 9. record -----------------------------------------------------

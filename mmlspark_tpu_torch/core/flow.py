@@ -270,6 +270,9 @@ class Stage:
     """One named map stage: `fn(value) -> value`, run by `workers`
     threads under a bounded credit budget.
 
+    Registered subclasses (AdmissionStage here, io.feed.H2DStage)
+    declare a static class-level `name` and a bounded positive `credits`
+    budget, and their `flow.<name>.*` rows appear in DECLARED_METRICS.
     Anonymous per-graph stages (built from a dynamic name, e.g. by
     HostPipeline) instantiate this base class directly and inherit the
     graph's default budget.  `fn` must be thread-safe for workers > 1;

@@ -36,12 +36,23 @@ __all__ = ["DECLARED_METRICS", "is_declared", "Gauge", "Histogram",
 DECLARED_METRICS: Dict[str, str] = {
     # -- counters
     "feed.transfer_retry": "counter",
+    "feed.degraded": "counter",
+    # -- counters: the sharded direct-to-device path (io/shard_put.py)
+    "feed.shard_retry": "counter",
+    "feed.shard_degraded": "counter",
+    "io.feed.shard.puts": "counter",
+    "io.feed.shard.fallback": "counter",
     "io.feed.shard.compressed_groups": "counter",  # compressed put_groups
     "faults.injected": "counter",         # + .<fault-point> variants
     "io.pipeline.items": "counter",       # + .<stage> variants
     "flow.items": "counter",              # + .<stage> variants
     "flow.expired": "counter",            # + .<stage> variants
     "flow.shed": "counter",               # + .<stage> variants
+    # registered Stage subclasses declare their exact rows
+    "flow.shed.admission": "counter",
+    "flow.expired.admission": "counter",
+    "flow.shed.h2d": "counter",
+    "flow.expired.h2d": "counter",
     "serving.shed": "counter",
     "serving.deadline_expired": "counter",
     "batcher.shed": "counter",
@@ -96,6 +107,8 @@ DECLARED_METRICS: Dict[str, str] = {
     # -- histograms
     "io.feed.transfer.latency": "histogram",
     "io.feed.transfer.bytes": "histogram",
+    "io.feed.shard.latency": "histogram",   # one observation per shard put
+    "io.feed.shard.bytes": "histogram",
     "io.pipeline.stage.latency": "histogram",   # labeled {stage=...}
     "flow.stage.latency": "histogram",          # labeled {stage=...}
     "serving.request.latency": "histogram",     # labeled {endpoint, outcome}
@@ -111,8 +124,16 @@ DECLARED_METRICS: Dict[str, str] = {
     "dist.rendezvous.latency": "histogram",  # join time, per host
     # -- gauges
     "io.feed.queue.depth": "gauge",
+    "io.feed.degraded_engines": "gauge",
+    "io.feed.overlap_frac": "gauge",
+    "io.feed.stall_s": "gauge",
+    "io.feed.shard.concurrency": "gauge",   # pool in-flight high-water
+    "io.feed.shard.wire_ratio": "gauge",    # raw/sent on the RLE wire
+    "io.feed.shard.queue.depth": "gauge",   # transfer-pool task backlog
     "io.pipeline.queue.depth": "gauge",   # + .<stage> variants
     "flow.queue.depth": "gauge",          # + .<stage> variants
+    "flow.queue.depth.admission": "gauge",
+    "flow.queue.depth.h2d": "gauge",
     "serving.queue.depth": "gauge",
     "serving.batcher.queue_depth": "gauge",
     "models.training.examples_per_sec": "gauge",
@@ -170,6 +191,8 @@ BUCKET_FAMILIES: Dict[str, Tuple[float, ...]] = {
 HISTOGRAM_FAMILY: Dict[str, str] = {
     "io.feed.transfer.latency": "latency",
     "io.feed.transfer.bytes": "bytes",
+    "io.feed.shard.latency": "latency",
+    "io.feed.shard.bytes": "bytes",
     "io.pipeline.stage.latency": "latency",
     "flow.stage.latency": "latency",
     "serving.request.latency": "latency",

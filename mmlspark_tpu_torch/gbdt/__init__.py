@@ -16,8 +16,9 @@ engine):
     dense/sparse duality of dataset/DatasetAggregator.scala:69-515;
   - per-host "single dataset mode" aggregation: concurrent feeders append
     chunked rows and one elected worker trains (SharedState.scala:16-106);
-  - one device: the data- and voting-parallel learners over a mesh are
-    ROADMAP A19.
+  - distributed: the data- and voting-parallel learners shard rows over
+    a mesh's data axis, one block a rank, and all-reduce the ranks' f64
+    histograms (`torch.distributed`; the reference's shard_map + psum).
 """
 from .aggregator import ChunkedArray, DatasetAggregator
 from .binning import BinMapper

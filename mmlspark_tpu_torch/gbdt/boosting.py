@@ -9,9 +9,12 @@ unless 'cpu' is asked for); gradients and the loop are host-side, as
 trainCore's loop is.  `model_string()` is the JAX package's format,
 so a forest trained by either package loads in the other.
 
-One device: a `mesh` (the data- and voting-parallel learners) raises
-`NotImplementedError`; `parallelism` is kept in `TrainConfig` for the
-model string, and on one device every value trains serially.
+Distributed: pass a mesh and, under `parallelism="data_parallel"` or
+`"voting_parallel"`, rows shard over its data axis and the ranks'
+histograms are all-reduced (histogram.py) — the reference's
+"data_parallel" / "voting_parallel".  Every rank runs the same host
+grower on the same full host arrays, so the trees are identical on every
+rank by construction.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 
 from ..device import resolve_device
 from .binning import BinMapper
-from .histogram import HistogramBuilder, no_mesh
+from .histogram import HistogramBuilder
 from .objectives import Objective, get_objective, lambdarank_grad
 from .sparse import (
     CSRMatrix,
@@ -288,7 +291,6 @@ class Booster:
         delegate=None,
         device=None,
     ) -> "Booster":
-        no_mesh(mesh)
         if device is not None:
             self.device = device
         cfg = self.config
@@ -333,9 +335,13 @@ class Booster:
             self.bin_mapper.fit(x)
         binned = self.bin_mapper.transform(x)
 
+        use_mesh = mesh if cfg.parallelism in ("data_parallel", "voting_parallel") else None
         builder_cls = SparseHistogramBuilder if sparse else HistogramBuilder
-        builder = builder_cls(binned, self.bin_mapper.num_bins,
-                              device=self.device)
+        builder = builder_cls(binned, self.bin_mapper.num_bins, mesh=use_mesh,
+                              voting=cfg.parallelism == "voting_parallel",
+                              top_k=cfg.top_k,
+                              device=None if use_mesh is not None
+                              else self.device)
         grower = TreeGrower(builder, cfg.grower_config(),
                             self.bin_mapper.bin_upper_value, rng)
 

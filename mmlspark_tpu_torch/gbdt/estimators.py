@@ -148,11 +148,20 @@ class _GBDTParams:
         return x, y, w, eval_set
 
     def _resolve_mesh(self):
-        """Default mesh for the distributed tree learners: none — the port
-        trains on one device, where every `parallelism` runs unsharded, as
-        a single-device host does in the reference (the multi-device
-        learners are ROADMAP A19)."""
-        return None
+        """Default mesh for the distributed tree learners: every rank of
+        the process group on the data axis (LightGBMParams.scala:16-21
+        `parallelism`) when a group of more than one rank is up; serial
+        mode and a single device run unsharded, as in the reference."""
+        if self.parallelism not in ("data_parallel", "voting_parallel"):
+            return None
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size() <= 1:
+            return None
+        from ..parallel.mesh import make_mesh
+
+        return make_mesh(device=self.device)
 
     def _train_booster(self, cfg: TrainConfig, x, y, w, eval_set,
                        group=None, mesh=None) -> Booster:

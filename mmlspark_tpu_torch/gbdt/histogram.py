@@ -16,9 +16,14 @@ order moves the sum by far less than one f32 ulp, so the card, the CPU
 and two builds agree, and the sums stay within the JAX package's own
 f32 rounding of its segment sum.
 
-One device only: the data- and voting-parallel learners of the
-reference (rows sharded over a mesh, shard histograms merged by `psum`)
-are not ported yet, and a `mesh` raises `NotImplementedError`.
+Data- and voting-parallel (`mesh` given): the SPMD counterpart of the
+reference's `shard_map` + `psum`.  Every rank holds the same host rows
+and keeps its zero-padded row block of the binned codes on its device;
+a build is the local f64 scatter-add followed by one
+`torch.distributed.all_reduce` (SUM, f64) over the mesh's data group,
+rounded to f32 once — so the merged histogram is the single-device one
+up to the order of f64 additions.  `build_local` all-gathers the ranks'
+f32 histograms into the reference's [S, F, B, 3] for voting.
 
 Gain math follows LightGBM: for a split of a node with stats (G, H),
   gain = S(G_l,H_l) + S(G_r,H_r) - S(G,H),
@@ -53,21 +58,19 @@ class SplitInfo(NamedTuple):
     right_count: float
 
 
-def no_mesh(mesh) -> None:
-    """The multi-device learners are not ported: refuse a mesh."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the GBDT's data- and voting-parallel learners over a device "
-            "mesh are not ported to mmlspark_tpu_torch yet (ROADMAP A19); "
-            "train on one device (mesh=None)")
-
-
 def build_histogram(binned, grad, hess, sample_weight, node_mask, num_bins):
     """[F, B, 3] histogram (grad, hess, count) of the rows where node_mask.
 
     binned: [N, F] uint8/int; grad/hess: [N] f32; sample_weight: [N] f32
     (bagging/goss weights, 0 = excluded); node_mask: [N] bool.
     """
+    return histogram64(binned, grad, hess, sample_weight, node_mask,
+                       num_bins).to(grad.dtype)
+
+
+def histogram64(binned, grad, hess, sample_weight, node_mask, num_bins):
+    """`build_histogram` before its one rounding: the f64 [F, B, 3] sums
+    (what a data-parallel build reduces across ranks)."""
     n, f = binned.shape
     ids = binned.long() + torch.arange(
         f, dtype=torch.long, device=binned.device)[None, :] * num_bins
@@ -76,7 +79,7 @@ def build_histogram(binned, grad, hess, sample_weight, node_mask, num_bins):
     hist = torch.zeros(f * num_bins, 3, dtype=stacked.dtype,
                        device=grad.device)
     hist.index_add_(0, ids.reshape(-1), vals)
-    return hist.to(grad.dtype).view(f, num_bins, 3)
+    return hist.view(f, num_bins, 3)
 
 
 def weighted_stats(grad, hess, sample_weight, node_mask):
@@ -181,47 +184,125 @@ def best_split(
 
 class RowShardedBuilderBase:
     """Shared row-axis plumbing for the dense and sparse histogram
-    builders: placement of the per-row gradient/hessian/weight/mask arrays
-    on the builder's device (one device; no row sharding yet)."""
+    builders: the rank's row block and the placement of the per-row
+    gradient/hessian/weight/mask arrays on the builder's device.
+
+    Without a mesh the block is every row.  With one, the rows pad with
+    zeros to a multiple of the data degree and this rank keeps the
+    contiguous block at its coordinate on the `axis` dimension — the
+    reference's `P(axis)` row sharding, one block a rank."""
 
     mesh = None
+    axis = "data"
     device = torch.device("cpu")
+    _pad = 0
+    _block = slice(None)
+
+    def _shard_rows(self, n: int, mesh, axis: str, device) -> None:
+        """Set the mesh, device, padding and this rank's row block."""
+        self.mesh, self.axis, self.n = mesh, axis, n
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._pad, self._block, self.n_shards = 0, slice(None), 1
+            return
+        from ..parallel.mesh import as_device_mesh
+
+        mesh = self.mesh = as_device_mesh(mesh)
+        dev = resolve_device(device if device is not None
+                             else mesh.device_type)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        dim = mesh.mesh_dim_names.index(axis)
+        self.n_shards = mesh.size(dim)
+        self.shard = mesh.get_local_rank(axis)
+        self._pad = (-n) % self.n_shards
+        self.rows_per_shard = (n + self._pad) // self.n_shards
+        lo = self.shard * self.rows_per_shard
+        self._block = slice(lo, lo + self.rows_per_shard)
+        self._group = mesh.get_group(axis)
+
+    def _pad_rows(self, arr, fill=0.0):
+        if self._pad:
+            pad_shape = (self._pad,) + arr.shape[1:]
+            arr = np.concatenate([arr, np.full(pad_shape, fill, arr.dtype)])
+        return arr
+
+    def _local_rows(self, arr, fill=0.0):
+        return np.ascontiguousarray(self._pad_rows(arr, fill)[self._block])
 
     def device_arrays(self, grad, hess, weight):
-        """Per-row arrays on the device, cast to f32 on the host first (as
-        the JAX package does: its default x32 truncates the f64 numpy
-        gradients, which `torch.as_tensor` would otherwise keep)."""
-        return tuple(torch.as_tensor(np.asarray(a, np.float32),
+        """This rank's per-row arrays on the device, cast to f32 on the
+        host first (as the JAX package does: its default x32 truncates the
+        f64 numpy gradients, which `torch.as_tensor` would otherwise
+        keep)."""
+        return tuple(torch.as_tensor(self._local_rows(np.asarray(a, np.float32)),
                                      device=self.device)
                      for a in (grad, hess, weight))
 
     def node_mask(self, mask: np.ndarray):
-        return torch.as_tensor(np.asarray(mask, bool), device=self.device)
+        return torch.as_tensor(self._local_rows(np.asarray(mask, bool), False),
+                               device=self.device)
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` over the data group, in place (the reference's psum)."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._group)
+        return t
+
+    def _all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """[S, ...] of every rank's `t`, in rank order along the axis."""
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(t) for _ in range(self.n_shards)]
+        dist.all_gather(parts, t.contiguous(), group=self._group)
+        return torch.stack(parts)
 
 
 class HistogramBuilder(RowShardedBuilderBase):
     """Owns the device-resident binned data and builds per-node
     histograms (`build_histogram` on `device`, which `resolve_device`
-    resolves: the card unless 'cpu' is asked for)."""
+    resolves: the card unless 'cpu' is asked for).
+
+    Data-parallel path (`mesh` given): rows are sharded over `axis`, one
+    block a rank, and the ranks' f64 histograms are summed by an
+    all-reduce over the axis's group — the collective standing in for
+    LightGBM's TCP ring (reference lightgbm/LightGBMBase.scala:392-430).
+    Voting-parallel (`voting=True`) additionally lets each shard vote its
+    top-k features at the root from `build_local`
+    (params/LightGBMParams.scala:17 `voting_parallel`)."""
 
     def __init__(self, binned: np.ndarray, num_bins: int, mesh=None,
+                 axis: str = "data", voting: bool = False, top_k: int = 20,
                  device=None):
-        no_mesh(mesh)
         self.num_bins = int(num_bins)
-        self.device = resolve_device(device)
-        self.n, self.f = binned.shape
-        self.binned = torch.as_tensor(np.ascontiguousarray(binned),
+        self.voting = bool(voting)
+        self.top_k = int(top_k)
+        n, self.f = binned.shape
+        self._shard_rows(n, mesh, axis, device)
+        self.binned = torch.as_tensor(self._local_rows(binned, 0),
                                       device=self.device)
+
+    def _local64(self, grad, hess, weight, mask):
+        return histogram64(self.binned, grad, hess, weight, mask,
+                           self.num_bins)
 
     def build(self, grad, hess, weight, mask):
         """grad/hess/weight/mask: device tensors from device_arrays/node_mask."""
-        return build_histogram(self.binned, grad, hess, weight, mask,
-                               self.num_bins)
+        h = self._local64(grad, hess, weight, mask)
+        if self.mesh is not None:
+            h = self._all_reduce(h)
+        return h.to(grad.dtype)
 
     def build_local(self, grad, hess, weight, mask):
         """Per-shard histograms stacked on a leading shard axis [S, F, B, 3]
-        — the input to voting-parallel feature selection; one shard here."""
-        return self.build(grad, hess, weight, mask)[None]
+        — the input to voting-parallel feature selection (every rank gets
+        every shard's, in axis order)."""
+        h = self._local64(grad, hess, weight, mask).to(grad.dtype)
+        if self.mesh is None:
+            return h[None]
+        return self._all_gather(h)
 
 
 def vote_features(

@@ -21,8 +21,9 @@ features never materialize densely.  Here:
   - `SparseHistogramBuilder`  scatter-add histograms over the COO nonzeros
                           on the device with a linear "implicit zero"
                           fix-up: hist[f, zero_bin[f]] += node_total -
-                          explicit_mass (linear, so it would compose with
-                          a cross-device sum of row-shard histograms).
+                          explicit_mass (linear, so it composes with the
+                          cross-rank sum of row-shard histograms: over a
+                          mesh each rank holds its row block's entries).
 
 Memory model: training state is O(nnz) host + O(nnz) device for the COO
 arrays, plus the [F, B, 3] histogram; nothing
@@ -36,8 +37,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
-from .histogram import RowShardedBuilderBase, no_mesh, weighted_stats
+from .histogram import RowShardedBuilderBase, weighted_stats
 
 __all__ = [
     "CSRMatrix",
@@ -376,6 +376,16 @@ def build_histogram_coo(feat, bins, row, zero_bins, grad, hess, sample_weight,
     (arange(F), zero_bins) are unique, so a plain indexed add is exact.
     Accumulated in f64 and rounded to f32 once, as the dense build is.
     """
+    hist, totals = coo_sums64(feat, bins, row, grad, hess, sample_weight,
+                              node_mask, num_bins, num_features)
+    return fix_zeros(hist, totals, zero_bins).to(grad.dtype)
+
+
+def coo_sums64(feat, bins, row, grad, hess, sample_weight, node_mask,
+               num_bins: int, num_features: int):
+    """The f64 explicit-entry histogram [F, B, 3] and the node's f64
+    totals [3] — the two linear parts a data-parallel build sums across
+    ranks before the fix-up."""
     stacked = weighted_stats(grad, hess, sample_weight, node_mask)  # [N, 3]
     valid = feat >= 0
     ids = torch.where(valid, feat.long() * num_bins + bins.long(),
@@ -385,43 +395,70 @@ def build_histogram_coo(feat, bins, row, zero_bins, grad, hess, sample_weight,
     hist = torch.zeros(num_features * num_bins + 1, 3, dtype=stacked.dtype,
                        device=grad.device)
     hist.index_add_(0, ids, vals)
-    hist = hist[:-1].view(num_features, num_bins, 3)
-    totals = stacked.sum(dim=0)                                    # [3]
+    return hist[:-1].view(num_features, num_bins, 3), stacked.sum(dim=0)
+
+
+def fix_zeros(hist, totals, zero_bins):
+    """Add each feature's implicit-zero mass (totals - explicit) at its
+    zero bin."""
     explicit = hist.sum(dim=1)                                     # [F, 3]
-    feats = torch.arange(num_features, device=hist.device)
+    feats = torch.arange(hist.shape[0], device=hist.device)
     zb = zero_bins.long()
     hist[feats, zb] = hist[feats, zb] + (totals[None, :] - explicit)
-    return hist.to(grad.dtype)
+    return hist
 
 
 class SparseHistogramBuilder(RowShardedBuilderBase):
     """Duck-type of histogram.HistogramBuilder over a SparseBinnedView.
 
     The device residents are the O(nnz) COO arrays instead of the [N, F]
-    dense codes (DatasetAggregator.scala's sparse variant).  One device:
-    the sharded COO slices of the reference's mesh path are not ported
-    yet, and a `mesh` raises `NotImplementedError`.
+    dense codes (DatasetAggregator.scala's sparse variant).  Over a mesh
+    each rank holds the COO entries of its own contiguous row block, with
+    row indices local to the block (padded rows carry no entries); a
+    build all-reduces the f64 explicit histogram and the node totals over
+    the data group and applies the implicit-zero fix-up to the reduced
+    sums, rounding to f32 once.
     """
 
     def __init__(self, view: SparseBinnedView, num_bins: int, mesh=None,
+                 axis: str = "data", voting: bool = False, top_k: int = 20,
                  device=None):
-        no_mesh(mesh)
         self.num_bins = int(num_bins)
-        self.device = resolve_device(device)
-        self.n, self.f = view.shape
+        self.voting = bool(voting)
+        self.top_k = int(top_k)
+        n, self.f = view.shape
+        self._shard_rows(n, mesh, axis, device)
         put = partial(torch.as_tensor, device=self.device)
         self.zero_bins = put(view.zero_bins)
-        self.feat = put(view.feat_nz)
-        self.bins = put(view.bin_nz)
-        self.row = put(view.row_nz)
+        feat, bins, row = view.feat_nz, view.bin_nz, view.row_nz
+        if mesh is not None:
+            # this rank's contiguous row block's entry range (padded rows
+            # lie beyond indptr's range and carry no entries)
+            lo = min(self._block.start, n)
+            hi = min(self._block.stop, n)
+            e0, e1 = int(view.indptr[lo]), int(view.indptr[hi])
+            feat, bins = feat[e0:e1], bins[e0:e1]
+            row = (row[e0:e1] - self._block.start).astype(np.int32)
+        self.feat, self.bins, self.row = put(feat), put(bins), put(row)
+
+    def _sums(self, grad, hess, weight, mask):
+        return coo_sums64(self.feat, self.bins, self.row, grad, hess, weight,
+                          mask, self.num_bins, self.f)
 
     def build(self, grad, hess, weight, mask):
-        return build_histogram_coo(self.feat, self.bins, self.row,
-                                   self.zero_bins, grad, hess, weight, mask,
-                                   self.num_bins, self.f)
+        hist, totals = self._sums(grad, hess, weight, mask)
+        if self.mesh is not None:
+            flat = self._all_reduce(torch.cat([hist.reshape(-1), totals]))
+            hist = flat[:-3].view(hist.shape)
+            totals = flat[-3:]
+        return fix_zeros(hist, totals, self.zero_bins).to(grad.dtype)
 
     def build_local(self, grad, hess, weight, mask):
-        return self.build(grad, hess, weight, mask)[None]
+        hist, totals = self._sums(grad, hess, weight, mask)
+        h = fix_zeros(hist, totals, self.zero_bins).to(grad.dtype)
+        if self.mesh is None:
+            return h[None]
+        return self._all_gather(h)
 
 
 def effective_sparse_max_bin(max_bin: int, num_features: int,

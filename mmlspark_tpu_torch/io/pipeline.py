@@ -36,6 +36,7 @@ ORIGINAL error — no deadlock, no silent truncation.
 from __future__ import annotations
 
 import os
+import queue
 import threading
 from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
@@ -236,20 +237,29 @@ class _PipelineFeedSource(FeedSource):
     def start(self):
         self._pipe.start(self._items)
 
-    def get(self):
+    def _translate(self, block: bool):
         if self._done:
             return FEED_END
         try:
-            item = self._pipe._next_out()
+            item = self._pipe._next_out(block=block)
+        except queue.Empty:
+            raise
         except BaseException:  # noqa: BLE001 — surfaced via error()
             # feed.run raises source.error() after draining in-flight
-            # work, so the error still propagates
+            # work, so the error still propagates — without deadlocking
+            # the transfer window mid-group
             self._done = True
             return FEED_END
         if isinstance(item, _EOF):
             self._done = True
             return FEED_END
         return item[1]
+
+    def get(self):
+        return self._translate(block=True)
+
+    def get_nowait(self):
+        return self._translate(block=False)
 
     def error(self) -> Optional[BaseException]:
         return self._pipe.error

@@ -16,9 +16,19 @@ The bundle is a `TorchBundle` or a `FunctionBundle` (an arbitrary
 its taps (`bundle.apply`), under the same taps rule and `device` Param.
 
 Chunk sizing, padding and grouping (`chunk_plan`, `chunk_sizes`,
-`pad_to_batch`, `run_grouped`) keep the JAX package's semantics exactly,
-with a data-parallel degree of 1 (one card).  The device is the
-`device` Param: ``cuda`` unless the caller passes ``"cpu"`` (device.py).
+`pad_to_batch`, `run_grouped`) keep the JAX package's semantics exactly.
+The device is the `device` Param: ``cuda`` unless the caller passes
+``"cpu"`` (device.py).
+
+Over a data mesh: when a process group is up (parallel/mesh.py's SPMD
+substrate, one rank a device), `run_grouped` feeds a meshed
+`DeviceFeed(mesh=default_mesh(device))`, as the JAX package's TPUModel
+feeds its `default_mesh()`.  Every rank passes the same table; chunks
+pad to a multiple of the data degree; each rank moves only its own rows,
+runs the preprocess (kernel B1) and the backbone on that local shard, and
+the outputs are gathered in rank order, so every rank returns the whole
+column.  Without a group the single-device path runs; a transform never
+starts a group of its own.
 """
 from __future__ import annotations
 
@@ -124,6 +134,35 @@ def _gather_input(col: np.ndarray, input_shape,
                 f"input rows of shape {batch.shape[1:]} incompatible with model "
                 f"input {tuple(input_shape)}")
     return batch
+
+
+def _data_mesh(device: torch.device):
+    """The ambient data mesh when a process group is up (every rank on
+    the data axis unless a MeshContext says otherwise), else None."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from ..parallel.mesh import default_mesh
+
+    return default_mesh(device)
+
+
+def _sharded_forward(forward, mesh):
+    """`forward` on this rank's rows of a batch-sharded chunk; its output
+    is this rank's block of a batch-sharded DTensor, which the feed
+    gathers whole in rank order."""
+    from ..io.shard_put import _global_tensor
+    from ..parallel.mesh import batch_sharding, data_size
+
+    dp = data_size(mesh)
+
+    def run(x):
+        y = forward(x.to_local())
+        return _global_tensor(y, batch_sharding(mesh, y.dim()),
+                              (y.shape[0] * dp,) + tuple(y.shape[1:]))
+
+    return run
 
 
 @register_stage
@@ -235,11 +274,19 @@ class TorchModel(Transformer):
         indices; it runs on the HostPipeline's assembly workers, so
         several chunks assemble in parallel while the feed engine
         transfers earlier ones and the device computes.  `build_chunk`
-        must be thread-safe."""
+        must be thread-safe.  Inside a process group the feed is meshed
+        (module docstring): `forward` runs on each rank's local shard."""
         from ..io.feed import DeviceFeed
         from ..io.pipeline import HostPipeline, PipelineStage, pipeline_workers
 
-        plan, feed_order = self.chunk_plan(groups)
+        mesh = _data_mesh(device)
+        dp = 1
+        if mesh is not None:
+            from ..parallel.mesh import data_size
+
+            dp = data_size(mesh)
+            forward = _sharded_forward(forward, mesh)
+        plan, feed_order = self.chunk_plan(groups, dp)
 
         def assemble(item):
             sel, shape, pad_mult = item
@@ -248,7 +295,7 @@ class TorchModel(Transformer):
         pipe = HostPipeline([PipelineStage(
             "assemble", assemble,
             workers=pipeline_workers() if len(plan) > 1 else 1)])
-        feed = DeviceFeed(device, depth=int(self.feed_depth))
+        feed = DeviceFeed(device, mesh=mesh, depth=int(self.feed_depth))
         outs = feed.run(pipe.feed_source(plan), forward)
         return feed_order, [row for out in outs for row in out]
 

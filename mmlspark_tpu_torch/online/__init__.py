@@ -4,8 +4,8 @@ The port of the JAX package's `online/` (reference vw module, ~2.5k LoC,
 vw/VowpalWabbitBase.scala family): murmur-hashed namespaces on the host,
 and the learners' and the contextual bandit's AdaGrad passes on the card,
 one launch of kernel K1 a pass (`ops/online_pass.py`).  The reference's
-spanning-tree AllReduce (`use_all_reduce`) waits for the distributed layer
-(ROADMAP A19).
+spanning-tree AllReduce (`use_all_reduce`) is a `torch.distributed`
+all-reduce of the weights at the end of every pass over a data mesh.
 """
 from .contextual_bandit import (
     ContextualBanditMetrics,

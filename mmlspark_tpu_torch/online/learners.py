@@ -17,9 +17,17 @@ transform time are a gather and a row sum in PyTorch.
 Each stage has a `device` Param: the card unless the caller passes
 ``device="cpu"``, where the pass is K1's plain loop.  Weights are numpy
 arrays, so a JAX model's `weights` build this package's model as they
-are.  `use_all_reduce=True` (the reference's spanning-tree averaging
-across a mesh) raises until the distributed layer is ported (ROADMAP
-A19).
+are.
+
+`use_all_reduce=True` is the reference's spanning-tree averaging
+(`_allreduce_pass`: a local scan a shard, then `pmean` of the weights at
+the end of every pass; VowpalWabbitBase.scala:434-462, endPass :363-368)
+over the data axis of the ambient mesh when a process group is up (one
+rank a device; every rank passes the same table).  The rows pad with
+all-zero rows — exact no-ops — to a multiple of the data degree; each
+rank runs its contiguous block through K1, one launch a pass, then `w`
+and `g2` are all-reduced as means and the loss sum and count as sums.
+Without a group the data degree is 1.
 """
 from __future__ import annotations
 
@@ -56,6 +64,34 @@ def _rows(idx: np.ndarray, val: np.ndarray, device: torch.device):
                             device=device))
 
 
+def _data_group(dev: torch.device):
+    """(data group or None, data degree, this rank's coordinate, device)
+    of the ambient mesh when a process group is up, else (None, 1, 0,
+    dev)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None, 1, 0, dev
+    from ..parallel.mesh import data_size, default_mesh
+
+    mesh = default_mesh(dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return (mesh.get_group("data"), data_size(mesh),
+            mesh.get_local_rank("data"), dev)
+
+
+def _end_of_pass(w, g2, loss_sum, count, nd: int, group) -> None:
+    """The reference's end-of-pass `pmean` of w and g2 and `psum` of the
+    loss sum and count, in place over the data group."""
+    import torch.distributed as dist
+
+    for t in (w, g2, loss_sum, count):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    w.div_(nd)
+    g2.div_(nd)
+
+
 class _VowpalWabbitBase(Estimator):
     features_col = Param("sparse features column", default="features")
     label_col = Param("label column", default="label")
@@ -81,11 +117,6 @@ class _VowpalWabbitBase(Estimator):
         raise NotImplementedError
 
     def _fit(self, table: Table) -> Model:
-        if self.use_all_reduce:
-            raise NotImplementedError(
-                f"{type(self).__name__}: use_all_reduce (end-of-pass weight "
-                "averaging over a mesh) is not ported to mmlspark_tpu_torch "
-                "yet (ROADMAP A19)")
         dev = resolve_device(self.device)
         t_ingest0 = time.perf_counter_ns()
         col = table[self.features_col]
@@ -102,6 +133,21 @@ class _VowpalWabbitBase(Estimator):
              torch.zeros(dim, dtype=torch.float32, device=dev))
         g2 = torch.zeros(dim, dtype=torch.float32, device=dev)
 
+        group, nd = None, 1
+        if self.use_all_reduce:
+            group, nd, rank, dev = _data_group(dev)
+            # zero-pad to a multiple of the data axis: all-zero values make
+            # the padded rows exact no-ops in the update and the loss count
+            rem = (-len(idx)) % nd
+            if rem:
+                idx = np.concatenate([idx, np.zeros((rem, idx.shape[1]), idx.dtype)])
+                val = np.concatenate([val, np.zeros((rem, val.shape[1]), val.dtype)])
+                y = np.concatenate([y, np.zeros((rem,), y.dtype)])
+            per = len(idx) // nd
+            block = slice(rank * per, (rank + 1) * per)
+            idx, val, y = idx[block], val[block], y[block]
+            w, g2 = w.to(dev), g2.to(dev)
+
         t_learn0 = time.perf_counter_ns()
         plan = plan_rows(*_rows(idx, val, dev))
         yt = torch.as_tensor(y, device=dev)
@@ -109,7 +155,10 @@ class _VowpalWabbitBase(Estimator):
         for _ in range(int(self.num_passes)):
             ls, ct = online_pass(w, g2, plan, yt, self.learning_rate,
                                  self.l1, self.l2, self._loss)
-            losses.append(float(ls.sum()) / max(float(ct.sum()), 1.0))
+            ls, ct = ls.sum().reshape(1), ct.sum().reshape(1)
+            if group is not None:
+                _end_of_pass(w, g2, ls, ct, nd, group)
+            losses.append(float(ls) / max(float(ct), 1.0))
         t_learn = time.perf_counter_ns() - t_learn0
 
         stats = Table({
@@ -118,7 +167,7 @@ class _VowpalWabbitBase(Estimator):
             "ingest_time_ns": np.full(len(losses), t_ingest, np.int64),
             "learn_time_ns": np.full(len(losses), t_learn, np.int64),
             "num_examples": np.full(len(losses), len(table), np.int64),
-            "num_shards": np.full(len(losses), 1, np.int64),
+            "num_shards": np.full(len(losses), nd, np.int64),
         })
         return self._make_model(w.cpu().numpy(), stats)
 

@@ -53,6 +53,7 @@ __all__ = [
     "host_device_groups",
     "shard_batch",
     "pad_to_multiple",
+    "data_size",
 ]
 
 # Every axis name a mesh in this package may declare (the JAX package's
@@ -140,6 +141,29 @@ def make_mesh(
         _check_shape(n, data, model, seq, dcn_data)
     dev = ensure_process_group(device)
     ranks = _world_ranks(devices)
+    # a mesh is built once a group: every rank makes the same calls, so
+    # the cache hits (or misses, collectively) on all of them alike
+    key = (dev.type, tuple(ranks), data, model, seq, dcn_data)
+    group = _default_group()
+    hit = _MESHES.get(key)
+    if hit is not None and hit[0] is group:
+        return hit[1]
+    mesh = _make_mesh(dev, ranks, data, model, seq, dcn_data)
+    _MESHES[key] = (group, mesh)
+    return mesh
+
+
+def _default_group():
+    import torch.distributed.distributed_c10d as c10d
+
+    return c10d._get_default_group()
+
+
+# (device type, ranks, shape) -> (the default group it was built in, mesh)
+_MESHES: Dict[tuple, tuple] = {}
+
+
+def _make_mesh(dev, ranks, data, model, seq, dcn_data):
     data = _check_shape(len(ranks), data, model, seq, dcn_data)
     if dcn_data > 1:
         from ..utils.cluster import device_topology
@@ -344,12 +368,19 @@ def pad_to_multiple(arr: np.ndarray, multiple: int, axis: int = 0) -> Tuple[np.n
     return np.pad(arr, pad_width, mode="edge"), n
 
 
+def data_size(mesh) -> int:
+    """The size of a mesh's `data` axis (1 when it has none)."""
+    mesh = as_device_mesh(mesh)
+    names = mesh.mesh_dim_names or ()
+    return mesh.size(names.index("data")) if "data" in names else 1
+
+
 def shard_batch(arr: np.ndarray, mesh=None):
     """Pad the leading axis to the data-parallel degree and place it with
     a batch sharding: (DTensor holding this rank's rows, original
     length).  Every rank passes the same host batch."""
     mesh = mesh if mesh is not None else default_mesh()
-    dp = mesh.size(mesh.mesh_dim_names.index("data"))
+    dp = data_size(mesh)
     padded, n = pad_to_multiple(np.asarray(arr), dp, axis=0)
     full = torch.from_numpy(np.ascontiguousarray(padded)).to(
         torch.device(mesh.device_type) if mesh.device_type == "cpu" else

@@ -2372,3 +2372,67 @@ def test_sample_device_memory_matches_memory_stats(cuda_device):
         "live_buffer_count": sum(s["allocation.all.current"] for s in stats)}
     assert got["hbm_bytes_in_use"] >= keep.numel() * 4
     del keep
+
+
+# ---- the data side of distributed (PR 19 slice): the card's ring and
+# buckets, which a CPU device never uses (torch.from_numpy aliases)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 4])
+def test_coalescing_run_reuses_its_pinned_ring_on_the_card(cuda_device,
+                                                           depth):
+    """24 same-shape chunks at coalesce 2: 12 packed copies through a ring
+    of depth + 1 pinned slots, each rewritten only behind its fence, and
+    every chunk's output equal to its host computation."""
+    rng = np.random.default_rng(0)
+    chunks = [(rng.integers(0, 250, (4, 16, 3)).astype(np.uint8), 4)
+              for _ in range(24)]
+    feed = DeviceFeed(cuda_device, depth=depth, coalesce=2,
+                      telemetry=FeedTelemetry())
+    got = feed.run(iter(chunks), lambda x: x.to(torch.int32) + 1,
+                   greedy=False)
+    for g, (c, _n) in zip(got, chunks):
+        np.testing.assert_array_equal(g, c.astype(np.int32) + 1)
+    rings = list(feed._rings.values())
+    assert len(rings) == 1 and len(rings[0]) == depth + 1
+    snap = feed.telemetry.snapshot()
+    assert snap["groups"] == 12 and snap["coalesced_chunks"] == 24
+
+
+@pytest.mark.cuda
+def test_shard_engine_reuses_one_fenced_pinned_bucket(cuda_device):
+    """A world-1 nccl mesh: put_sharded keeps the copied block (no second
+    copy) and reuses one pinned bucket behind its fence."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.io import shard_put as SP
+    from mmlspark_tpu_torch.parallel import distributed as D
+    from mmlspark_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from mmlspark_tpu_torch.utils.cluster import find_open_port
+
+    started = not dist.is_initialized()
+    if started:
+        D.reset_distributed_state()
+        D.initialize_distributed(f"127.0.0.1:{find_open_port(29650)}", 1, 0)
+    try:
+        mesh = make_mesh()
+        staging = SP.StagingBuckets()
+        eng = SP.ShardEngine(telemetry=FeedTelemetry(), staging=staging,
+                             min_shard_bytes=0)
+        rng = np.random.default_rng(1)
+        srcs = [rng.standard_normal((8, 64, 64, 3)).astype(np.float32)
+                for _ in range(2)]
+        outs = [eng.put_sharded(srcs[i % 2], batch_sharding(mesh, 4))
+                for i in range(6)]
+        torch.cuda.synchronize()
+        for i, y in enumerate(outs):
+            assert y.to_local().is_cuda
+            np.testing.assert_array_equal(y.to_local().cpu().numpy(),
+                                          srcs[i % 2])
+        assert staging.allocated() == 1
+        again = staging.acquire(srcs[0].nbytes, pinned=True)
+        assert again.host.is_pinned() and staging.allocated() == 1
+    finally:
+        if started:
+            dist.destroy_process_group()
+            D.reset_distributed_state()

@@ -125,7 +125,8 @@ def test_device_feed_cpu_path_keeps_order_and_counts():
     before = FEED_TELEMETRY.snapshot()
     chunks = [(np.full((4, 2), i, np.uint8), 3 if i == 2 else 4)
               for i in range(3)]
-    outs = DeviceFeed(torch.device("cpu"), depth=2).run(
+    # coalesce=1: one copy a chunk (the default packs ready chunks)
+    outs = DeviceFeed(torch.device("cpu"), depth=2, coalesce=1).run(
         iter(chunks), lambda x: x.float() * 2)
     assert [o.shape for o in outs] == [(4, 2), (4, 2), (3, 2)]
     assert [float(o[0, 0]) for o in outs] == [0.0, 2.0, 4.0]

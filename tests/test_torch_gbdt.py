@@ -389,13 +389,28 @@ def test_warm_start_matches_the_jax_package():
 
 
 def test_a_mesh_raises_and_the_default_device_is_the_card():
+    """A world-1 gloo mesh fit (data- and voting-parallel) equals the
+    serial fit: the all-reduce of one rank is the identity, and voting
+    over every feature keeps them all."""
+    from torch_world1 import world1_gloo
+
     x, y = _binary_data(n=100)
-    with pytest.raises(NotImplementedError, match="A19"):
-        Booster(TrainConfig(objective="binary")).fit(x, y, mesh=object(),
-                                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A19"):
-        PH.HistogramBuilder(np.zeros((4, 2), np.uint8), 4, mesh=object(),
-                            device="cpu")
+    kw = dict(objective="binary", num_iterations=3, num_leaves=4,
+              min_data_in_leaf=5)
+    serial = Booster(TrainConfig(**kw)).fit(x, y, device="cpu")
+    with world1_gloo() as mesh:
+        for par in ("data_parallel", "voting_parallel"):
+            meshed = Booster(TrainConfig(parallelism=par, top_k=x.shape[1],
+                                         **kw)).fit(x, y, mesh=mesh,
+                                                    device="cpu")
+            compare_fits(serial, meshed, label=f"world-1 {par}")
+            np.testing.assert_array_equal(meshed._raw_scores(x),
+                                          serial._raw_scores(x))
+        b = PH.HistogramBuilder(np.zeros((4, 2), np.uint8), 4, mesh=mesh,
+                                device="cpu")
+        assert b.build_local(*b.device_arrays(np.ones(4), np.ones(4),
+                                              np.ones(4)),
+                             b.node_mask(np.ones(4, bool))).shape == (1, 2, 4, 3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Booster(TrainConfig(objective="binary",

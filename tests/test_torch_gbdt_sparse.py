@@ -242,9 +242,25 @@ def test_the_default_cuda_entry_raises_without_a_card():
     x, y = _sparse_data(n=100, f=8)
     csr = PS.CSRMatrix.from_dense(x)
     view = PS.SparseBinMapper(7).fit_transform(csr)
-    with pytest.raises(NotImplementedError, match="A19"):
-        PS.SparseHistogramBuilder(view, 8, mesh=object(), device="cpu")
     b = PS.SparseHistogramBuilder(view, 8, device="cpu")
+    # a world-1 gloo mesh builds the single-device histogram, and a
+    # data-parallel fit on it equals the serial one
+    from torch_world1 import world1_gloo
+
+    arrs = (np.linspace(-1, 1, 100), np.full(100, 0.25), np.ones(100))
+    want = b.build(*b.device_arrays(*arrs), b.node_mask(np.ones(100, bool)))
+    kw = dict(objective="binary", num_iterations=2, num_leaves=4,
+              min_data_in_leaf=5)
+    serial = Booster(TrainConfig(**kw)).fit(csr, y, device="cpu")
+    with world1_gloo() as mesh:
+        mb = PS.SparseHistogramBuilder(view, 8, mesh=mesh, device="cpu")
+        got = mb.build(*mb.device_arrays(*arrs),
+                       mb.node_mask(np.ones(100, bool)))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        meshed = Booster(TrainConfig(parallelism="data_parallel",
+                                     **kw)).fit(csr, y, mesh=mesh,
+                                                device="cpu")
+    compare_fits(serial, meshed, label="world-1 sparse")
     assert b.build_local(*b.device_arrays(np.ones(100), np.ones(100),
                                           np.ones(100)),
                          b.node_mask(np.ones(100, bool))).shape == (1, 8, 8, 3)

@@ -22,8 +22,13 @@ def _blocked(name: str) -> bool:
     return any(name == b or name.startswith(b + ".") for b in BLOCKED)
 
 
+# the port's own tools: run as scripts, importing mmlspark_tpu_torch only
+TOOLS = [os.path.join(ROOT, "tools", f"{n}.py")
+         for n in ("torch_fleet_soak", "torch_chaos_soak")]
+
+
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")] + TOOLS
     for d, _subdirs, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
     return out
@@ -31,7 +36,7 @@ def _sources():
 
 def _modules():
     mods = []
-    for path in _sources()[1:]:
+    for path in _sources()[1 + len(TOOLS):]:
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         mods.append(rel[:-len(".__init__")] if rel.endswith(".__init__") else rel)
     return sorted(mods)
@@ -80,8 +85,9 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 for m in {_modules()!r}:
     importlib.import_module(m)
-# chip_smoke.py's own imports (its main() needs a card; not run here)
-runpy.run_path({os.path.join(ROOT, "chip_smoke.py")!r}, run_name="not_main")
+# chip_smoke.py's and the tools' own imports (main() not run here)
+for path in {[os.path.join(ROOT, "chip_smoke.py")] + TOOLS!r}:
+    runpy.run_path(path, run_name="not_main")
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
@@ -305,3 +311,12 @@ def test_the_scan_covers_device_telemetry_and_the_distributed_slice():
         else:
             continue
         assert not any(_blocked(n) for n in names), names
+
+
+def test_the_scan_covers_the_data_side_of_distributed():
+    """... and so are the sharded feed's and the two soak tools' (the
+    AST scan reads every import of a tool, those inside its functions
+    too)."""
+    assert "mmlspark_tpu_torch.io.shard_put" in set(_modules())
+    for tool in TOOLS:
+        assert tool in _sources()

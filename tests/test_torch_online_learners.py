@@ -214,9 +214,20 @@ def test_the_wrapper_checks_its_inputs():
 
 
 def test_use_all_reduce_raises_naming_a19():
+    """use_all_reduce on a world-1 gloo mesh equals the serial fit bit
+    for bit (an all-reduce of one rank, divided by 1)."""
+    from torch_world1 import world1_gloo
+
     _, p = _hashed(_cls_cols(n=20), 10)
-    with pytest.raises(NotImplementedError, match="A19"):
-        PL.VowpalWabbitClassifier(use_all_reduce=True, **CPU).fit(p)
+    serial = PL.VowpalWabbitClassifier(num_passes=2, **CPU).fit(p)
+    with world1_gloo():
+        meshed = PL.VowpalWabbitClassifier(use_all_reduce=True, num_passes=2,
+                                           **CPU).fit(p)
+    np.testing.assert_array_equal(meshed.weights, serial.weights)
+    st = meshed.performance_statistics
+    assert list(st["num_shards"]) == [1, 1]
+    np.testing.assert_array_equal(st["average_loss"],
+                                  serial.performance_statistics["average_loss"])
 
 
 def test_a_jax_model_transforms_on_the_port():

@@ -5,8 +5,9 @@ distributed parity tests.
 
 joins a WORLD-rank gloo group through the port's
 `initialize_distributed` (a TCP store on 127.0.0.1:PORT), runs the
-named scenario on this rank with the inputs the test wrote to
-DIR/inputs.pt, and writes what it computed to DIR/rank<RANK>.pt.  It
+named scenario (here or in tests/torch_data_scenarios.py) on this rank
+with the inputs the test wrote to DIR/inputs.pt, and writes what it
+computed to DIR/rank<RANK>.pt.  It
 imports torch and mmlspark_tpu_torch only — never jax or the JAX
 package.  `run_ranks` starts the WORLD processes and collects their
 results.
@@ -454,6 +455,10 @@ def main(argv) -> int:
         inp = torch.load(os.path.join(tmp_dir, "inputs.pt"),
                          weights_only=False)
         inp["dir"] = tmp_dir
+        if scenario not in SCENARIOS:
+            import torch_data_scenarios
+
+            SCENARIOS.update(torch_data_scenarios.SCENARIOS)
         result = SCENARIOS[scenario](rank, world, inp)
         torch.save(result, os.path.join(tmp_dir, f"rank{rank}.pt"))
     except BaseException:
