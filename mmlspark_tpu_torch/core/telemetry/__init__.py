@@ -4,8 +4,17 @@ histograms and spans behind one process registry.
 A small copy of the JAX package's `core/telemetry`, holding what the
 ported slices record: ``log_verb`` (stage verbs), ``incr`` / ``gauge`` /
 ``histogram`` (the feed, flow, pipeline, batcher and server
-instruments), ``span`` / ``record_span`` (worker-thread spans attached
-to the caller's trace), and what the serving endpoints expose
+instruments; the feed's copies timed on the card,
+``io.feed.transfer.device_latency``, and the steps,
+``models.training.step_device_latency``), ``span`` / ``record_span``
+(worker-thread spans attached to the caller's trace; ``record_span``'s
+``t_start`` places an interval measured on the device, such as
+``training.step.device``; ``DeepVisionClassifier.fit`` records its
+layers as ``deep_vision.*`` spans of one trace, with ``training.step``,
+``feed.next``, ``feed.transfer`` and ``pipeline.<stage>`` under
+them; a trace over its cap keeps its root
+and counts each span it drops in ``telemetry.spans.dropped``), and what
+the serving endpoints expose
 (``render_prometheus`` at ``/metrics``, ``export_snapshot`` at
 ``/metrics.json``, ``render_chrome_trace`` at ``/trace.json``), and the
 training loop's goodput plane: the step-timeline ledger ``LEDGER``

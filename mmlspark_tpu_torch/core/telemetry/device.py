@@ -46,7 +46,8 @@ runtime underneath it.  Three concerns:
 * **Device annotations** — `enable_device_annotations()` arms the span
   layer so `span()` additionally enters a
   `torch.profiler.record_function` for matching span names
-  (`training.step`, `pipeline.<stage>`, ...), and
+  (`training.step`, `pipeline.<stage>`, `deep_vision.<layer>`,
+  `feed.next`, ...), and
   `device_annotation(name)` gives already-measured sites (the feed's
   copy, flow workers) the same opt-in wrapper.  Off by default: under a
   `torch.profiler` capture the trace then carries our span names.
@@ -388,9 +389,11 @@ def start_memory_sampler(interval_s: float = 5.0,
 # ---- device annotations ---------------------------------------------------
 
 # the stage spans worth seeing on a device timeline: the training step,
-# the h2d transfer, and the host-pipeline stages
+# the h2d transfer, the host-pipeline stages, DeepVisionClassifier.fit's
+# layers and a train loop's wait for the feed's next slice
 DEFAULT_ANNOTATION_PREFIXES: Tuple[str, ...] = (
-    "training.step", "feed.transfer", "io.pipeline", "pipeline.")
+    "training.step", "feed.transfer", "io.pipeline", "pipeline.",
+    "deep_vision.", "feed.next")
 
 
 def enable_device_annotations(

@@ -70,6 +70,7 @@ DECLARED_METRICS: Dict[str, str] = {
     "training.hang": "counter",
     "training.straggler": "counter",      # + .<host> variants (merge side)
     "timeseries.samples": "counter",      # one per TimeSeriesStore sweep
+    "telemetry.spans.dropped": "counter",  # spans a full trace index drops
     # -- counters: HTTP circuit breakers (io/http/clients.py)
     "circuit.open": "counter",            # + .<breaker-name> variants
     "circuit.closed": "counter",
@@ -107,6 +108,7 @@ DECLARED_METRICS: Dict[str, str] = {
     # -- histograms
     "io.feed.transfer.latency": "histogram",
     "io.feed.transfer.bytes": "histogram",
+    "io.feed.transfer.device_latency": "histogram",  # a copy on the card
     "io.feed.shard.latency": "histogram",   # one observation per shard put
     "io.feed.shard.bytes": "histogram",
     "io.pipeline.stage.latency": "histogram",   # labeled {stage=...}
@@ -115,6 +117,7 @@ DECLARED_METRICS: Dict[str, str] = {
     "serving.batch.fill": "histogram",
     "serving.batcher.batch_fill": "histogram",  # one observation per tick
     "models.training.step_latency": "histogram",  # seconds per optimizer step
+    "models.training.step_device_latency": "histogram",  # a step on the card
     "checkpoint.verify.latency": "histogram",
     "io.http.request.latency": "histogram",
     "serving.fleet.request.latency": "histogram",   # gateway e2e, labeled
@@ -191,6 +194,7 @@ BUCKET_FAMILIES: Dict[str, Tuple[float, ...]] = {
 HISTOGRAM_FAMILY: Dict[str, str] = {
     "io.feed.transfer.latency": "latency",
     "io.feed.transfer.bytes": "bytes",
+    "io.feed.transfer.device_latency": "latency",
     "io.feed.shard.latency": "latency",
     "io.feed.shard.bytes": "bytes",
     "io.pipeline.stage.latency": "latency",
@@ -199,6 +203,7 @@ HISTOGRAM_FAMILY: Dict[str, str] = {
     "serving.batch.fill": "fill",
     "serving.batcher.batch_fill": "fill",
     "models.training.step_latency": "latency",
+    "models.training.step_device_latency": "latency",
     "checkpoint.verify.latency": "latency",
     "io.http.request.latency": "latency",
     "serving.fleet.request.latency": "latency",

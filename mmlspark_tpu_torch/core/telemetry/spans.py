@@ -19,7 +19,11 @@ the server).
 Finished spans land in a bounded ring (`recent_spans`) and a bounded
 per-trace index (`get_trace`).  Both are capped, so always-on span
 recording cannot grow host memory; the caps drop OLDEST whole traces
-first.
+first.  A trace over `MAX_SPANS_PER_TRACE` keeps its first spans and
+still indexes its root, which closes last (in place of the newest
+non-root span); every span the index drops counts in
+`telemetry.spans.dropped`, so a truncated trace tells itself from a
+short one.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ import threading
 import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
+
+from .metrics import REGISTRY
 
 __all__ = ["span", "record_span", "use_trace", "current_context",
            "current_trace_id", "trace_headers", "extract_trace",
@@ -100,6 +106,7 @@ def current_trace_id() -> Optional[str]:
 
 
 def _store(rec: Dict[str, Any]) -> None:
+    dropped = False
     with _LOCK:
         _SPANS.append(rec)
         tid = rec["trace_id"]
@@ -110,6 +117,16 @@ def _store(rec: Dict[str, Any]) -> None:
             spans = _TRACES[tid] = []
         if len(spans) < MAX_SPANS_PER_TRACE:
             spans.append(rec)
+        else:
+            dropped = True
+            if rec["parent_id"] is None:
+                # the root closes last: it takes the newest non-root's place
+                for i in range(len(spans) - 1, -1, -1):
+                    if spans[i]["parent_id"] is not None:
+                        spans[i] = rec
+                        break
+    if dropped:
+        REGISTRY.incr("telemetry.spans.dropped")
 
 
 class _Span:
@@ -172,17 +189,20 @@ def span(name: str, parent_ctx: Optional[Tuple[str, str]] = None,
 
 
 def record_span(name: str, ctx: Optional[Tuple[str, str]], wall_s: float,
-                **attrs: Any) -> Dict[str, Any]:
+                t_start: Optional[float] = None, **attrs: Any
+                ) -> Dict[str, Any]:
     """Record an already-measured span as a child of `ctx` — the
     cross-thread shape (a batch loop attributing queue wait to the
     handler thread's request span) where a context manager can't wrap
-    the producer.  With ctx=None the span roots a fresh trace."""
+    the producer.  With ctx=None the span roots a fresh trace.  The span
+    ends now unless `t_start` (seconds on `time.time()`'s clock) places
+    it — an interval measured elsewhere, such as on the device."""
     rec: Dict[str, Any] = {
         "name": name,
         "trace_id": ctx[0] if ctx is not None else _new_id(),
         "span_id": _new_id(),
         "parent_id": ctx[1] if ctx is not None else None,
-        "t_start": time.time() - wall_s,
+        "t_start": time.time() - wall_s if t_start is None else t_start,
         "wall_s": round(float(wall_s), 6),
         "tid": threading.get_ident(),
     }

@@ -40,7 +40,12 @@ and its result is fetched back asynchronously:
   * **Telemetry.**  Bytes moved, transfer calls/seconds, stall and
     compute dispatch seconds, groups, the sharded path's counters and
     the compressed wire's accumulate in `FEED_TELEMETRY`;
-    `FeedTelemetry.summarize` derives the JAX package's fields.
+    `FeedTelemetry.summarize` derives the JAX package's fields.  On the
+    card each side-stream copy is also timed on the device, by a timing
+    event recorded before it and its fence after it, read only once the
+    fence is known complete (where a slot's reuse already waits for it,
+    or by `query()` when `stream` or `run` ends): `h2d_device_s` and the
+    `io.feed.transfer.device_latency` histogram.
   * **Fault tolerance.**  Every copy sits behind the `feed.device_put`
     fault point with a bounded retry (`core.flow.StagePolicy`, tiny
     backoff); every shard put behind `feed.shard_put`.  Two sticky rungs
@@ -219,7 +224,10 @@ class FeedTelemetry:
 
     `transfer_s` is the host-visible transfer time: the slot write and
     the copy's enqueue (a `non_blocking` copy from pinned memory returns
-    at once, so on the card this is dispatch, not the copy itself)."""
+    at once, so on the card this is dispatch, not the copy itself).
+    `_DEVICE_FIELDS` are the port's own, with no JAX counterpart: the
+    copies' seconds on the card and the bytes of the copies so timed
+    (`h2d_device_s`, `h2d_device_bytes`)."""
 
     _FIELDS = ("bytes_moved", "transfer_calls", "transfer_s", "chunks_fed",
                "coalesced_chunks", "groups", "stall_decode_s",
@@ -229,12 +237,14 @@ class FeedTelemetry:
                "shard_bytes", "shard_wall_s", "shard_put_s",
                # the compressed wire path (ops/wire_codec.py)
                "compressed_groups", "wire_bytes_raw", "wire_bytes_sent")
+    _DEVICE_FIELDS = ("h2d_device_s", "h2d_device_bytes")
     # high-water marks, not sums (note_max; delta reports the mark itself)
     _MAX_FIELDS = ("transfer_concurrency",)
 
     def __init__(self):
         self._lock = make_lock("io.feed.telemetry")
         self._c: Dict[str, float] = {f: 0.0 for f in self._FIELDS}  #: guarded-by self._lock
+        self._c.update({f: 0.0 for f in self._DEVICE_FIELDS})
         self._c.update({f: 0.0 for f in self._MAX_FIELDS})
 
     def add(self, **kw: float):
@@ -269,7 +279,9 @@ class FeedTelemetry:
         """Derived metrics from a counter delta (the JAX package's fields).
 
         overlap_frac: fraction of feed wall time NOT spent blocked on
-        host-side feeding (producer stalls + transfer dispatch)."""
+        host-side feeding (producer stalls + transfer dispatch).
+        h2d_gbps: the bytes of the copies timed on the card over their
+        device seconds (None without such copies: a CPU feed)."""
         wall = d.get("wall_s", 0.0)
         stall = d.get("stall_decode_s", 0.0) + d.get("stall_drain_s", 0.0)
         blocked = d.get("stall_decode_s", 0.0) + d.get("transfer_s", 0.0)
@@ -280,8 +292,9 @@ class FeedTelemetry:
             "stall_s": round(stall, 4),
             "overlap_frac": (round(max(0.0, min(1.0, 1.0 - blocked / wall)), 4)
                              if wall > 0 else None),
-            "h2d_gbps": (round(d["bytes_moved"] / d["transfer_s"] / 1e9, 4)
-                         if d.get("transfer_s", 0) > 0 else None),
+            "h2d_gbps": (round(d["h2d_device_bytes"] / d["h2d_device_s"]
+                               / 1e9, 4)
+                         if d.get("h2d_device_s", 0) > 0 else None),
         }
         # which transfer path the window took, its per-shard bandwidth,
         # and the transfer pool's concurrency high-water
@@ -332,13 +345,16 @@ def _byte_layout(arrays: Sequence[np.ndarray]) -> Tuple[List[int], int]:
 
 
 class _Slot:
-    """One pinned staging buffer and the event that fences its reuse."""
+    """One pinned staging buffer, the event that fences its reuse, and the
+    timing event recorded before its last copy (None once that copy's
+    device time was read)."""
 
-    __slots__ = ("host", "fence")
+    __slots__ = ("host", "fence", "start")
 
     def __init__(self, shape: Tuple[int, ...], dtype: torch.dtype):
         self.host = torch.empty(shape, dtype=dtype, pin_memory=True)
         self.fence: Optional[torch.cuda.Event] = None
+        self.start: Optional[torch.cuda.Event] = None
 
 
 class DeviceFeed:
@@ -441,7 +457,29 @@ class DeviceFeed:
             t0 = time.perf_counter()
             slot.fence.synchronize()
             self.telemetry.add(stall_drain_s=time.perf_counter() - t0)
+            self._read_copy_time(slot)
         return slot
+
+    def _read_copy_time(self, slot: _Slot) -> None:
+        """The slot's last copy's seconds on the card, from its start and
+        fence events; only once the fence is known complete."""
+        if slot.start is None:
+            return
+        dt = slot.start.elapsed_time(slot.fence) * 1e-3
+        slot.start = None
+        self.telemetry.add(h2d_device_s=dt,
+                           h2d_device_bytes=slot.host.nbytes)
+        core_telemetry.histogram(
+            "io.feed.transfer.device_latency").observe(dt)
+
+    def _read_finished_copies(self) -> None:
+        """Read the device time of every copy whose fence has completed
+        (`query()`, which never waits); a copy still running is read when
+        its slot is next reused."""
+        for ring in self._rings.values():
+            for slot in ring:
+                if slot.start is not None and slot.fence.query():
+                    self._read_copy_time(slot)
 
     def _copy_in(self, slot: _Slot) -> torch.Tensor:
         """The slot's host buffer -> a new device tensor: one non-blocking
@@ -456,12 +494,14 @@ class DeviceFeed:
                     torch.cuda.stream(self._stream):
                 dev = torch.empty(slot.host.shape, dtype=slot.host.dtype,
                                   device=self.device)
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self._stream)
                 dev.copy_(slot.host, non_blocking=True)
-                fence = torch.cuda.Event()
+                fence = torch.cuda.Event(enable_timing=True)
                 fence.record(self._stream)
-            return dev, fence
+            return dev, start, fence
 
-        x, slot.fence = self._put_policy.run(attempt, None)
+        x, slot.start, slot.fence = self._put_policy.run(attempt, None)
         compute = torch.cuda.current_stream(self.device)
         compute.wait_event(slot.fence)
         # allocated on the side stream, used on the compute stream
@@ -702,6 +742,7 @@ class DeviceFeed:
         while buf:
             yield buf.popleft()
         self.telemetry.add(wall_s=time.perf_counter() - t0)
+        self._read_finished_copies()
 
     # ---- the pipelined chunk engine ------------------------------------
     def run(self, chunk_iter, compute_fn: Callable, greedy: bool = True
@@ -808,6 +849,7 @@ class DeviceFeed:
         while inflight:
             drain_group()
         tel.add(wall_s=time.perf_counter() - t_wall)
+        self._read_finished_copies()
         src_err = source.error()
         if src_err is not None:
             raise src_err

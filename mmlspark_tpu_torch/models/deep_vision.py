@@ -14,8 +14,9 @@ row whose size differs from (height, width) is resized on the host by
 PIL's `Image.resize((width, height))` with its default filter, on the
 BGR -> RGB -> BGR round trip, on HostPipeline workers — the JAX
 package's own call (PIL imports on both machines), so the pixels are
-its pixels.  Each step runs, as the JAX step does, `ImagePreprocess`
-(kernel B1 on the card: cast, resize, normalise) -> the backbone in
+its pixels; rows already at that size skip the pipeline.  Each step
+runs, as the JAX step does, `ImagePreprocess` (kernel B1 on the card:
+cast, resize, normalise) -> the backbone in
 train mode (bf16 compute over f32 state, models/training.py) -> weighted
 softmax cross-entropy -> backward -> SGD.  Each epoch is fed in slices
 of stacked uint8 batches through `DeviceFeed.stream`.
@@ -25,6 +26,19 @@ With `checkpoint_dir` the fit saves the state after each epoch, at step
 fit on a directory that holds a checkpoint restores the latest one,
 skips the epochs it covers and replays their shuffle draws, so a fit
 resumed after an interruption ends where an uninterrupted fit ends.
+A fit records its layers as spans of one trace: the root
+`deep_vision.fit` (attributes backbone, rows, epochs, steps) over
+`deep_vision.decode`, `deep_vision.rows` (attribute `resized`: the rows
+that went through the resize pipeline), `deep_vision.build` (the
+builder's constructor), `deep_vision.init` (`_initial_state`),
+`deep_vision.train_state`, one `deep_vision.epoch` an epoch,
+`deep_vision.checkpoint` (with `checkpoint_dir`) and
+`deep_vision.bundle`.  In an epoch each step's dispatch is a
+`training.step` span, each wait for the feed's next slice a `feed.next`
+span, and on the card each step's device time a `training.step.device`
+span (`training.StepEvents`: timing events read after the epoch's loss
+read, which already waits for the card).
+
 `DeepVisionModel` scores through the port's `TorchModel` (B1 and the
 bf16 forward); ragged sizes at scoring time are resized on the device.
 The backbones are the registered vision builders: the ResNets, the ViTs
@@ -33,6 +47,7 @@ convnet_cifar; their dropout runs in the fit's train mode).
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -123,18 +138,25 @@ class DeepVisionClassifier(Estimator):
                    "'cpu' runs", default=None)
 
     def _fit(self, table: Table) -> "DeepVisionModel":
+        with core_telemetry.span("deep_vision.fit",
+                                 backbone=self.backbone) as root:
+            return self._fit_traced(table, root)
+
+    def _fit_traced(self, table: Table, root) -> "DeepVisionModel":
         from ..io.feed import DeviceFeed
         from ..io.pipeline import HostPipeline, PipelineStage, pipeline_workers
-        from .training import (TrainState, _per_example_ce, scan_slice_steps,
-                               sgd)
+        from .training import (StepEvents, TrainState, _per_example_ce,
+                               scan_slice_steps, sgd)
 
+        span = core_telemetry.span
         device = resolve_device(self.device)
         labels_raw = np.asarray(table[self.label_col])
         classes = sorted({v for v in labels_raw.tolist()})
         class_of = {v: i for i, v in enumerate(classes)}
         num_classes = len(classes)
 
-        arrays = _decode_column(table[self.input_col])
+        with span("deep_vision.decode"):
+            arrays = _decode_column(table[self.input_col])
         keep = [i for i, a in enumerate(arrays) if a is not None]
         if len(keep) < len(arrays) and not self.drop_na:
             raise ValueError("DeepVisionClassifier: undecodable rows and "
@@ -146,20 +168,33 @@ class DeepVisionClassifier(Estimator):
         y = np.asarray([class_of[labels_raw[i].item()
                                  if hasattr(labels_raw[i], "item")
                                  else labels_raw[i]] for i in keep], np.int32)
-        # PIL's resize releases the GIL: the ragged-input fixups run
-        # thread-parallel through the input pipeline (order-preserving)
-        resize_pipe = HostPipeline([PipelineStage(
-            "resize", lambda i: _to_hw(arrays[i], h, w),
-            workers=pipeline_workers() if len(keep) > 32 else 1)])
-        x = np.stack(list(resize_pipe.run(keep))).astype(np.uint8)
+        with span("deep_vision.rows") as sp:
+            # PIL's resize releases the GIL: rows of another size run
+            # thread-parallel through the input pipeline (order-preserving);
+            # rows already at (h, w) take _to_hw inline
+            other = [i for i in keep if arrays[i].shape[:2] != (h, w)]
+            resized = {}
+            if other:
+                resize_pipe = HostPipeline([PipelineStage(
+                    "resize", lambda i: _to_hw(arrays[i], h, w),
+                    workers=pipeline_workers() if len(other) > 32 else 1)])
+                resized = dict(zip(other, resize_pipe.run(other)))
+            x = np.stack([resized[i] if i in resized
+                          else _to_hw(arrays[i], h, w)
+                          for i in keep]).astype(np.uint8)
+            sp.attrs["resized"] = len(other)
+        root.attrs["rows"] = len(keep)
 
         kwargs = _builder_kwargs(self.backbone, {"num_classes": num_classes},
                                  (h, w, 3))
-        module = get_builder(self.backbone)(**kwargs)
-        _initial_state(module, int(self.seed))
-        state = TrainState.create(
-            module, sgd(float(self.learning_rate), float(self.momentum)),
-            compute_dtype="bfloat16", device=device)
+        with span("deep_vision.build"):
+            module = get_builder(self.backbone)(**kwargs)
+        with span("deep_vision.init"):
+            _initial_state(module, int(self.seed))
+        with span("deep_vision.train_state"):
+            state = TrainState.create(
+                module, sgd(float(self.learning_rate), float(self.momentum)),
+                compute_dtype="bfloat16", device=device)
         pre = _preprocess(h, w, self.normalize)
 
         def step(images_u8: torch.Tensor, labels: torch.Tensor):
@@ -187,7 +222,8 @@ class DeepVisionClassifier(Estimator):
                 # resume never depends on this run's batch math; a dir
                 # checkpointed at >= epochs yields zero further epochs
                 # (clear it to retrain from scratch)
-                ckpt.restore(latest, template=state)
+                with span("deep_vision.checkpoint", op="restore"):
+                    ckpt.restore(latest, template=state)
                 start_epoch = min(int(latest), int(self.epochs))
         # the shuffle stream must be reproducible across a resume: replay
         # the epochs already consumed
@@ -195,7 +231,10 @@ class DeepVisionClassifier(Estimator):
             rng.permutation(len(x))
         n_steps = -(-len(x) // bs)
         k = scan_slice_steps(n_steps, bs * int(np.prod(x.shape[1:])) + bs * 4)
+        root.attrs["epochs"] = int(self.epochs) - start_epoch
+        root.attrs["steps"] = n_steps * (int(self.epochs) - start_epoch)
         feed = DeviceFeed(device)
+        events = StepEvents(device)
         history = []
         for _epoch in range(start_epoch, int(self.epochs)):
             order = rng.permutation(len(x))
@@ -214,15 +253,29 @@ class DeepVisionClassifier(Estimator):
             pipe = HostPipeline([PipelineStage(
                 "assemble", assemble, workers=pipeline_workers(2))])
             bounds = [(s, min(s + k, n_steps)) for s in range(0, n_steps, k)]
-            losses = [step(dxb[i], dyb[i])
-                      for dxb, dyb in feed.stream(pipe.run(bounds))
-                      for i in range(dxb.shape[0])]
-            history.append(float(torch.stack(losses).mean()))
+            with span("deep_vision.epoch", epoch=_epoch):
+                slices = feed.stream(pipe.run(bounds))
+                losses = []
+                while True:
+                    with span("feed.next"):
+                        batch = next(slices, None)
+                    if batch is None:
+                        break
+                    dxb, dyb = batch
+                    for i in range(dxb.shape[0]):
+                        with span("training.step"), events.step():
+                            losses.append(step(dxb[i], dyb[i]))
+                events.anchor()
+                # the one host read of the epoch: it waits for the card
+                history.append(float(torch.stack(losses).mean()))
+                events.flush(time.time())
             if ckpt is not None:
-                ckpt.save(state, step=_epoch + 1)
+                with span("deep_vision.checkpoint", op="save"):
+                    ckpt.save(state, step=_epoch + 1)
 
-        bundle = TorchBundle.from_module(self.backbone, state.module, kwargs,
-                                         input_shape=(h, w, 3))
+        with span("deep_vision.bundle"):
+            bundle = TorchBundle.from_module(self.backbone, state.module,
+                                             kwargs, input_shape=(h, w, 3))
         return DeepVisionModel(
             bundle=bundle, classes=list(classes), input_col=self.input_col,
             prediction_col=self.prediction_col,

@@ -63,12 +63,13 @@ shape after the caller ended warmup is flagged.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import os
 import time
 import warnings
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,7 +91,7 @@ __all__ = ["TrainState", "sgd", "adam", "init_train_state",
            "shard_params", "lm_params_tree", "load_lm_params",
            "TrainState3D", "init_lm_state_3d", "gather_params",
            "fit_epochs", "fit_epochs_resumable", "scan_slice_steps",
-           "SCAN_SLICE_BYTES"]
+           "SCAN_SLICE_BYTES", "StepEvents", "device_step_intervals"]
 
 # device-memory budget for one slice of stacked training data; an epoch is
 # fed in slices of at most this many bytes, so device memory stays
@@ -397,6 +398,67 @@ def _observe(dt: float, steps: int, batch_size: int) -> None:
         dt / max(1, steps))
     core_telemetry.gauge("models.training.examples_per_sec").set(
         steps * batch_size / dt if dt > 0 else 0.0)
+
+
+def device_step_intervals(anchor_s: float, to_anchor_ms: Sequence[float],
+                          durations_ms: Sequence[float]
+                          ) -> List[Tuple[float, float]]:
+    """Steps timed on the device, placed on the host clock: each step's
+    (start, seconds), its start `to_anchor_ms` before an anchor event
+    whose host time is `anchor_s`, and `durations_ms` long."""
+    return [(anchor_s - a * 1e-3, d * 1e-3)
+            for a, d in zip(to_anchor_ms, durations_ms)]
+
+
+class StepEvents:
+    """The device time of each step, with no added synchronisation.
+
+    `step()` wraps a step's dispatch: a timing event on the compute stream
+    as it starts and another after its optimizer update.  `anchor()`
+    records one more just before a host read that waits for the stream
+    (the epoch's loss read); `flush(anchor_s)`, once that read returned at
+    host time `anchor_s`, records each step as a `training.step.device`
+    span placed by `device_step_intervals` under the current span, and
+    observes its seconds in `models.training.step_device_latency`.  On a
+    CPU device it records nothing."""
+
+    def __init__(self, device: torch.device):
+        self._stream = (torch.cuda.current_stream(device)
+                        if device.type == "cuda" else None)
+        self._steps: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        self._anchor: Optional[torch.cuda.Event] = None
+
+    def _event(self) -> "torch.cuda.Event":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        return ev
+
+    @contextlib.contextmanager
+    def step(self):
+        if self._stream is None:
+            yield
+            return
+        start = self._event()
+        yield
+        self._steps.append((start, self._event()))
+
+    def anchor(self) -> None:
+        if self._steps:
+            self._anchor = self._event()
+
+    def flush(self, anchor_s: float) -> None:
+        steps, anchor = self._steps, self._anchor
+        self._steps, self._anchor = [], None
+        if anchor is None:
+            return
+        ctx = core_telemetry.current_context()
+        hist = core_telemetry.histogram("models.training.step_device_latency")
+        for t0, dt in device_step_intervals(
+                anchor_s, [s.elapsed_time(anchor) for s, _e in steps],
+                [s.elapsed_time(e) for s, e in steps]):
+            core_telemetry.record_span("training.step.device", ctx, dt,
+                                       t_start=t0)
+            hist.observe(dt)
 
 
 def fit_epochs(step_fn: Optional[Callable], state: TrainState,

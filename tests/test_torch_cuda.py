@@ -2436,3 +2436,68 @@ def test_shard_engine_reuses_one_fenced_pinned_bucket(cuda_device):
         if started:
             dist.destroy_process_group()
             D.reset_distributed_state()
+
+
+# ---- device timing of the feed's copies and of DeepVisionClassifier's
+# steps: timing events, which a CPU device never records
+
+@pytest.mark.cuda
+def test_the_feed_times_its_copies_on_the_card(cuda_device):
+    """Every copy of a stream is timed on the card once its fence has
+    completed (the rest read by `query()` after a synchronise)."""
+    rng = np.random.default_rng(2)
+    items = [(rng.integers(0, 250, (4, 64, 64, 3)).astype(np.uint8),
+              rng.integers(0, 9, (4,)).astype(np.int32)) for _ in range(7)]
+    tel = FeedTelemetry()
+    feed = DeviceFeed(cuda_device, depth=2, telemetry=tel)
+    outs = list(feed.stream(iter(items)))
+    torch.cuda.synchronize()
+    feed._read_finished_copies()
+    for (hx, hy), (dx, dy) in zip(items, outs):
+        np.testing.assert_array_equal(dx.cpu().numpy(), hx)
+        np.testing.assert_array_equal(dy.cpu().numpy(), hy)
+    snap = tel.snapshot()
+    assert snap["transfer_calls"] == 7
+    assert snap["h2d_device_bytes"] == snap["bytes_moved"]
+    assert snap["h2d_device_s"] > 0
+    (ring,) = feed._rings.values()
+    assert len(ring) == 3 and all(slot.start is None for slot in ring)
+    assert FeedTelemetry.summarize(snap)["h2d_gbps"] > 0
+
+
+@pytest.mark.cuda
+def test_a_fit_on_the_card_times_each_step_on_the_device(cuda_device):
+    """One `training.step.device` span a step, under its epoch, in step
+    order, not overlapping, inside the epoch's host span, and each
+    observed in `models.training.step_device_latency`."""
+    from mmlspark_tpu_torch.core import telemetry
+    from mmlspark_tpu_torch.models.deep_vision import DeepVisionClassifier
+
+    rng = np.random.default_rng(3)
+    col = np.empty(48, object)
+    for i in range(48):
+        col[i] = rng.integers(0, 256, (32, 32, 3)).astype(np.uint8)
+    hist = telemetry.histogram("models.training.step_device_latency")
+    before = hist.snapshot()["count"]
+    DeepVisionClassifier(backbone="resnet18", epochs=2, batch_size=8,
+                         device="cuda").fit(
+        Table({"image": col, "label": np.asarray(["a", "b"] * 24)}))
+    root = [s for s in telemetry.recent_spans()
+            if s["name"] == "deep_vision.fit"][-1]
+    spans = telemetry.get_trace(root["trace_id"])
+    assert root["attrs"]["steps"] == 12
+    epochs = {s["span_id"]: s for s in spans
+              if s["name"] == "deep_vision.epoch"}
+    device = [s for s in spans if s["name"] == "training.step.device"]
+    assert len(device) == 12
+    assert hist.snapshot()["count"] - before == 12
+    for epoch_id, epoch in epochs.items():
+        mine = [s for s in device if s["parent_id"] == epoch_id]
+        assert len(mine) == 6
+        assert sum(s["wall_s"] for s in mine) <= epoch["wall_s"]
+        for a, b in zip(mine, mine[1:]):
+            assert a["wall_s"] > 0
+            assert a["t_start"] + a["wall_s"] <= b["t_start"] + 1e-6
+        assert mine[0]["t_start"] >= epoch["t_start"] - 1e-3
+        assert mine[-1]["t_start"] + mine[-1]["wall_s"] <= \
+            epoch["t_start"] + epoch["wall_s"] + 1e-3

@@ -28,9 +28,11 @@ from mmlspark_tpu_torch.utils.faults import FAULTS, FaultPlan
 torch.set_num_threads(2)
 
 CPU = torch.device("cpu")
-# counters that measure time, not work: they differ run to run
+# counters that measure time, not work: they differ run to run; and the
+# port's own counters of the copies timed on the card, which the JAX
+# package has not
 TIMED = ("transfer_s", "stall_decode_s", "stall_drain_s", "compute_s",
-         "wall_s", "shard_wall_s", "shard_put_s")
+         "wall_s", "shard_wall_s", "shard_put_s") + FeedTelemetry._DEVICE_FIELDS
 
 
 def _chunks(rng, n, shape, dtype=np.uint8):
@@ -233,7 +235,13 @@ def test_summarize_equals_jax(seed):
     d = {f: float(rng.integers(0, 50)) * rng.choice([0.0, 1.0, 0.37])
          for f in FeedTelemetry._FIELDS + FeedTelemetry._MAX_FIELDS}
     d["wall_s"] = float(rng.uniform(0.5, 2.0))
-    assert FeedTelemetry.summarize(d) == JF.FeedTelemetry.summarize(d)
+    got, ref = FeedTelemetry.summarize(d), JF.FeedTelemetry.summarize(d)
+    # h2d_gbps is the port's copies timed on the card, not their enqueue
+    assert got.pop("h2d_gbps") is None
+    ref.pop("h2d_gbps")
+    assert got == ref
+    d.update(h2d_device_s=0.5, h2d_device_bytes=4e9)
+    assert FeedTelemetry.summarize(d)["h2d_gbps"] == 8.0
     assert FeedTelemetry.summarize({}) == JF.FeedTelemetry.summarize({})
 
 
