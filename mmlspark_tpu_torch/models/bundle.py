@@ -22,6 +22,9 @@ be used exactly once.
 
 `TorchBundle.from_module` takes a trained module's weights (what
 `DeepVisionClassifier.fit` hands to its `DeepVisionModel`).
+`init_state_dict` draws a module's initial weights from a seed;
+`DirectInit` puts the same bits straight onto a device (the fit's
+initial weights), from one walk of the rules both follow.
 
 A bundle's taps (`layer_names`) and its input dtype (`input_dtype`:
 int32 token ids for the LM, float32 otherwise) come from its module, as
@@ -51,7 +54,8 @@ from __future__ import annotations
 import inspect
 import re
 import uuid
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -65,7 +69,7 @@ from . import convnets as C
 
 __all__ = ["TorchBundle", "FunctionBundle", "register_builder",
            "get_builder", "from_flax_variables", "init_state_dict",
-           "prequantize"]
+           "DirectInit", "prequantize"]
 
 _BUILDERS: Dict[str, Callable[..., nn.Module]] = {}
 
@@ -104,6 +108,62 @@ def _builder_kwargs(builder: str, kwargs: Optional[dict],
     return kwargs
 
 
+# A leaf's rule: (kind, arg).  "normal_div": N(0, 1) / arg; "normal_mul":
+# arg * N(0, 1); "uniform_add": arg + U(0, 1); "const": arg.
+_Walk = List[Tuple[torch.Tensor, str, float]]
+
+
+def _init_walk(module: nn.Module, random_bn: bool = False) -> _Walk:
+    """(leaf, kind, arg) for every tensor `init_state_dict` writes, in the
+    order it draws them from its generator: `module.modules()`, then the
+    ViT's position table.  The one statement of the init's rules, which
+    both `init_state_dict` and `DirectInit` follow."""
+    zero_scaled = set()
+    if isinstance(module, R.ResNet) and not random_bn:
+        for block in module.blocks:
+            n_branch = len(block.bns) - int(block.has_proj)
+            zero_scaled.add(block.bns[n_branch - 1])
+    walk: _Walk = []
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            walk.append((m.weight, "normal_div", m.weight[0].numel() ** 0.5))
+            if m.bias is not None:
+                walk.append((m.bias, "const", 0.0))
+        elif isinstance(m, nn.BatchNorm2d):
+            rules = ((m.weight, "uniform_add", 0.5),
+                     (m.running_var, "uniform_add", 0.5),
+                     (m.bias, "normal_mul", 0.1),
+                     (m.running_mean, "normal_mul", 0.1)) if random_bn else (
+                (m.weight, "const", 0.0 if m in zero_scaled else 1.0),
+                (m.bias, "const", 0.0), (m.running_mean, "const", 0.0),
+                (m.running_var, "const", 1.0))
+            walk += [r for r in rules + ((m.num_batches_tracked, "const", 0),)
+                     if r[0] is not None]
+        elif isinstance(m, nn.LayerNorm):
+            walk += [(t, "const", v) for t, v in ((m.weight, 1.0),
+                                                  (m.bias, 0.0))
+                     if t is not None]
+        elif isinstance(m, nn.Embedding):
+            walk.append((m.weight, "normal_div", m.embedding_dim ** 0.5))
+        elif isinstance(m, T._MoEMLP):
+            walk += [(w, "normal_div", (w.shape[0] * w.shape[1]) ** 0.5)
+                     for w in (m.w_in, m.w_out)]
+    if isinstance(module, V.VisionTransformer):
+        walk.append((module.pos_embed, "normal_mul", 0.02))
+    return walk
+
+
+def _fill(out: torch.Tensor, kind: str, arg: float,
+          gen: torch.Generator) -> torch.Tensor:
+    """One leaf's values, written into `out` (f32, contiguous)."""
+    if kind == "const":
+        return out.fill_(arg)
+    if kind == "uniform_add":
+        return torch.rand(out.shape, generator=gen, out=out).add_(arg)
+    torch.randn(out.shape, generator=gen, out=out)
+    return out.div_(arg) if kind == "normal_div" else out.mul_(arg)
+
+
 def init_state_dict(module: nn.Module, seed: int = 0,
                     random_bn: bool = False) -> Dict[str, np.ndarray]:
     """Random weights from a seeded torch.Generator, initialised like the
@@ -122,39 +182,78 @@ def init_state_dict(module: nn.Module, seed: int = 0,
     the whole network, where flax's init would leave each branch at 0."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
-                               / fan_in ** 0.5)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
-                if random_bn:
-                    for t in (m.weight, m.running_var):
-                        t.copy_(0.5 + torch.rand(t.shape, generator=gen))
-                    for t in (m.bias, m.running_mean):
-                        t.copy_(0.1 * torch.randn(t.shape, generator=gen))
-            elif isinstance(m, nn.LayerNorm):
-                m.reset_parameters()
-            elif isinstance(m, nn.Embedding):
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
-                               / m.embedding_dim ** 0.5)
-            elif isinstance(m, T._MoEMLP):
-                for w in (m.w_in, m.w_out):
-                    fan_in = w.shape[0] * w.shape[1]
-                    w.copy_(torch.randn(w.shape, generator=gen)
-                            / fan_in ** 0.5)
-        if isinstance(module, V.VisionTransformer):
-            module.pos_embed.copy_(0.02 * torch.randn(
-                module.pos_embed.shape, generator=gen))
-        if isinstance(module, R.ResNet) and not random_bn:
-            for block in module.blocks:
-                n_branch = len(block.bns) - int(block.has_proj)
-                block.bns[n_branch - 1].weight.zero_()
+        for leaf, kind, arg in _init_walk(module, random_bn):
+            if kind == "const":
+                leaf.fill_(arg)
+            else:
+                leaf.copy_(_fill(torch.empty(leaf.shape), kind, arg, gen))
     return {k: v.detach().cpu().numpy().copy()
             for k, v in module.state_dict().items()}
+
+
+class DirectInit:
+    """`init_state_dict`'s weights put straight onto a module's device: the
+    module is built on the meta device (no storage, no default
+    initialiser) and placed uninitialised, its random leaves are drawn in
+    the walk's order into one flat f32 host buffer (`draw`, which touches
+    no module and may run on another thread), and `land` copies that
+    buffer to the device once and fills the leaves from it.  Each leaf is
+    drawn into its slice as `init_state_dict` draws it into a fresh
+    tensor, so the bits are the same."""
+
+    def __init__(self, module: nn.Module, random_bn: bool = False):
+        self.module = module
+        walk = _init_walk(module, random_bn)
+        self._leaves = [t for t, _kind, _arg in walk if t.is_floating_point()]
+        self._others = [(t, arg) for t, _kind, arg in walk
+                        if not t.is_floating_point()]
+        self._plan, off = [], 0
+        for t, kind, arg in walk:
+            if t.is_floating_point():
+                self._plan.append((off, t.shape, kind, arg))
+                off += t.numel()
+        self.numel = off
+
+    @classmethod
+    def build(cls, builder: str, kwargs: dict, device,
+              random_bn: bool = False) -> Optional["DirectInit"]:
+        """The registered builder's module, placed on `device` with no
+        values yet; None where the walk would leave some parameter,
+        buffer or other tensor of the module unwritten (the caller then
+        builds and initialises as `init_state_dict` does)."""
+        with torch.device("meta"):
+            module = get_builder(builder)(**kwargs)
+        written = {id(t) for t, _kind, _arg in _init_walk(module, random_bn)}
+        if any(id(t) not in written for t in module.parameters()) or any(
+                id(t) not in written for t in module.buffers()) or any(
+                isinstance(v, torch.Tensor)
+                for m in module.modules() for v in vars(m).values()):
+            return None
+        return cls(module.to_empty(device=device), random_bn)
+
+    def draw(self, seed: int, pin_memory: bool = False) -> torch.Tensor:
+        """The flat f32 host buffer of every floating leaf's values, from
+        `seed` (pinned for a copy to the card)."""
+        flat = torch.empty(self.numel, dtype=torch.float32,
+                           pin_memory=pin_memory)
+        gen = torch.Generator().manual_seed(int(seed))
+        for off, shape, kind, arg in self._plan:
+            _fill(flat[off:off + shape.numel()].view(shape), kind, arg, gen)
+        return flat
+
+    def land(self, flat: torch.Tensor) -> None:
+        """`draw`'s buffer into the module: one copy to its device (from
+        pinned memory, asynchronous; the caching host allocator holds the
+        buffer until the copy completes), then one multi-tensor copy."""
+        if not self._leaves:
+            return
+        flat = flat.to(self._leaves[0].device, non_blocking=True)
+        with torch.no_grad():
+            torch._foreach_copy_(
+                self._leaves, [flat[off:off + shape.numel()].view(shape)
+                               for off, shape, _kind, _arg in self._plan])
+            for t, arg in self._others:
+                t.fill_(arg)
 
 
 class _Bundle:

@@ -26,11 +26,23 @@ With `checkpoint_dir` the fit saves the state after each epoch, at step
 fit on a directory that holds a checkpoint restores the latest one,
 skips the epochs it covers and replays their shuffle draws, so a fit
 resumed after an interruption ends where an uninterrupted fit ends.
+The fit builds the backbone on the meta device and places it on its
+device uninitialised (`bundle.DirectInit`) wherever `init_state_dict`'s
+walk writes every parameter and buffer of the module (every registered
+backbone): a background thread draws the initial weights from the seed
+into one flat host buffer (pinned on the card) while the fit decodes and
+stacks its rows, and one copy lands them, the same bits as
+`init_state_dict` on a module the builder made.  Any other module (a
+builder with a tensor the walk does not know) is built by its builder on
+the host and initialised by `init_state_dict`, then moved.
+
 A fit records its layers as spans of one trace: the root
 `deep_vision.fit` (attributes backbone, rows, epochs, steps) over
-`deep_vision.decode`, `deep_vision.rows` (attribute `resized`: the rows
-that went through the resize pipeline), `deep_vision.build` (the
-builder's constructor), `deep_vision.init` (`_initial_state`),
+`deep_vision.build` (the builder's constructor),
+`deep_vision.draw` (attribute `bytes`; the direct path's draw, on its
+thread), `deep_vision.decode`, `deep_vision.rows` (attribute `resized`:
+the rows that went through the resize pipeline), `deep_vision.init`
+(`_initial_state`; attribute `init_path`, "direct" or "module"),
 `deep_vision.train_state`, one `deep_vision.epoch` an epoch,
 `deep_vision.checkpoint` (with `checkpoint_dir`) and
 `deep_vision.bundle`.  In an epoch each step's dispatch is a
@@ -48,7 +60,8 @@ convnet_cifar; their dropout runs in the fit's train mode).
 from __future__ import annotations
 
 import time
-from typing import List, Optional
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +73,8 @@ from ..core.registry import register_stage
 from ..core.schema import Table, find_unused_column_name
 from ..device import resolve_device
 from ..io.image import decode_cells, image_row_to_array
-from .bundle import TorchBundle, _builder_kwargs, get_builder, init_state_dict
+from .bundle import (DirectInit, TorchBundle, _builder_kwargs, get_builder,
+                     init_state_dict)
 from .image_featurizer import IMAGENET_MEAN_BGR, IMAGENET_STD_BGR
 from .torch_model import ImagePreprocess, TorchModel
 
@@ -90,9 +104,26 @@ def _to_hw(a: np.ndarray, h: int, w: int) -> np.ndarray:
     return np.asarray(img.resize((w, h)))[:, :, ::-1]
 
 
-def _initial_state(module: torch.nn.Module, seed: int) -> None:
-    """The fit's initial weights: flax-style random init from `seed`."""
-    init_state_dict(module, seed)
+def _draw(direct: DirectInit, seed: int, pin_memory: bool, ctx
+          ) -> Tuple[DirectInit, torch.Tensor]:
+    """The direct path's draw, run on the fit's background thread as a
+    `deep_vision.draw` span under the fit's root (`ctx`)."""
+    with core_telemetry.span("deep_vision.draw", parent_ctx=ctx,
+                             bytes=4 * direct.numel):
+        return direct, direct.draw(seed, pin_memory=pin_memory)
+
+
+def _initial_state(module: torch.nn.Module, seed: int,
+                   draw: Optional[Future] = None) -> None:
+    """The fit's initial weights: flax-style random init from `seed`
+    (`bundle.init_state_dict`'s bits).  `draw`, on the direct path, is the
+    future of `_draw` for `module`: this waits for it (raising what the
+    draw raised) and lands it on the module's device."""
+    if draw is None:
+        init_state_dict(module, seed)
+        return
+    direct, flat = draw.result()
+    direct.land(flat)
 
 
 def _preprocess(height: int, width: int, normalize: bool) -> ImagePreprocess:
@@ -155,42 +186,26 @@ class DeepVisionClassifier(Estimator):
         class_of = {v: i for i, v in enumerate(classes)}
         num_classes = len(classes)
 
-        with span("deep_vision.decode"):
-            arrays = _decode_column(table[self.input_col])
-        keep = [i for i, a in enumerate(arrays) if a is not None]
-        if len(keep) < len(arrays) and not self.drop_na:
-            raise ValueError("DeepVisionClassifier: undecodable rows and "
-                             "drop_na=False")
-        if not keep:
-            raise ValueError("DeepVisionClassifier: no decodable training "
-                             "rows in the input table")
         h, w = int(self.height), int(self.width)
-        y = np.asarray([class_of[labels_raw[i].item()
-                                 if hasattr(labels_raw[i], "item")
-                                 else labels_raw[i]] for i in keep], np.int32)
-        with span("deep_vision.rows") as sp:
-            # PIL's resize releases the GIL: rows of another size run
-            # thread-parallel through the input pipeline (order-preserving);
-            # rows already at (h, w) take _to_hw inline
-            other = [i for i in keep if arrays[i].shape[:2] != (h, w)]
-            resized = {}
-            if other:
-                resize_pipe = HostPipeline([PipelineStage(
-                    "resize", lambda i: _to_hw(arrays[i], h, w),
-                    workers=pipeline_workers() if len(other) > 32 else 1)])
-                resized = dict(zip(other, resize_pipe.run(other)))
-            x = np.stack([resized[i] if i in resized
-                          else _to_hw(arrays[i], h, w)
-                          for i in keep]).astype(np.uint8)
-            sp.attrs["resized"] = len(other)
-        root.attrs["rows"] = len(keep)
-
+        seed = int(self.seed)
         kwargs = _builder_kwargs(self.backbone, {"num_classes": num_classes},
                                  (h, w, 3))
         with span("deep_vision.build"):
-            module = get_builder(self.backbone)(**kwargs)
-        with span("deep_vision.init"):
-            _initial_state(module, int(self.seed))
+            direct = DirectInit.build(self.backbone, kwargs, device)
+            module = (get_builder(self.backbone)(**kwargs) if direct is None
+                      else direct.module)
+        # the direct path draws the weights on a background thread while
+        # this one decodes and stacks the rows (both release the GIL)
+        with ThreadPoolExecutor(1, thread_name_prefix="deep_vision.draw") \
+                as pool:
+            draw = None if direct is None else pool.submit(
+                _draw, direct, seed, device.type == "cuda",
+                core_telemetry.current_context())
+            x, y = self._training_rows(table, labels_raw, class_of, h, w)
+            root.attrs["rows"] = len(x)
+            with span("deep_vision.init",
+                      init_path="module" if direct is None else "direct"):
+                _initial_state(module, seed, draw)
         with span("deep_vision.train_state"):
             state = TrainState.create(
                 module, sgd(float(self.learning_rate), float(self.momentum)),
@@ -282,6 +297,42 @@ class DeepVisionClassifier(Estimator):
             probability_col=self.probability_col, height=h, width=w,
             normalize=self.normalize, loss_history=history,
             device=self.device)
+
+    def _training_rows(self, table: Table, labels_raw: np.ndarray,
+                       class_of: dict, h: int, w: int):
+        """The decodable rows as one (n, h, w, 3) uint8 stack, and their
+        class indices."""
+        from ..io.pipeline import HostPipeline, PipelineStage, pipeline_workers
+
+        span = core_telemetry.span
+        with span("deep_vision.decode"):
+            arrays = _decode_column(table[self.input_col])
+        keep = [i for i, a in enumerate(arrays) if a is not None]
+        if len(keep) < len(arrays) and not self.drop_na:
+            raise ValueError("DeepVisionClassifier: undecodable rows and "
+                             "drop_na=False")
+        if not keep:
+            raise ValueError("DeepVisionClassifier: no decodable training "
+                             "rows in the input table")
+        y = np.asarray([class_of[labels_raw[i].item()
+                                 if hasattr(labels_raw[i], "item")
+                                 else labels_raw[i]] for i in keep], np.int32)
+        with span("deep_vision.rows") as sp:
+            # PIL's resize releases the GIL: rows of another size run
+            # thread-parallel through the input pipeline (order-preserving);
+            # rows already at (h, w) take _to_hw inline
+            other = [i for i in keep if arrays[i].shape[:2] != (h, w)]
+            resized = {}
+            if other:
+                resize_pipe = HostPipeline([PipelineStage(
+                    "resize", lambda i: _to_hw(arrays[i], h, w),
+                    workers=pipeline_workers() if len(other) > 32 else 1)])
+                resized = dict(zip(other, resize_pipe.run(other)))
+            x = np.stack([resized[i] if i in resized
+                          else _to_hw(arrays[i], h, w)
+                          for i in keep]).astype(np.uint8)
+            sp.attrs["resized"] = len(other)
+        return x, y
 
     def transform_schema(self, columns: List[str]) -> List[str]:
         return list(columns) + [self.prediction_col, self.probability_col]

@@ -86,6 +86,10 @@ largest factor: its observed sums accumulate in f64, the card's atomics
 in another order); two `AccessAnomaly` card fits at the defaults (scores
 within 1e-6 of the largest, whether bit for bit printed) and one against
 its CPU fit from the same initial factors (1e-4).
+
+The fit's direct init: a backbone placed on the card uninitialised and
+filled from a pinned host draw with one copy, bit for bit
+`init_state_dict`'s on the host.
 """
 import base64
 import functools
@@ -2486,6 +2490,8 @@ def test_a_fit_on_the_card_times_each_step_on_the_device(cuda_device):
             if s["name"] == "deep_vision.fit"][-1]
     spans = telemetry.get_trace(root["trace_id"])
     assert root["attrs"]["steps"] == 12
+    init = next(s for s in spans if s["name"] == "deep_vision.init")
+    assert init["attrs"] == {"init_path": "direct"}
     epochs = {s["span_id"]: s for s in spans
               if s["name"] == "deep_vision.epoch"}
     device = [s for s in spans if s["name"] == "training.step.device"]
@@ -2501,3 +2507,32 @@ def test_a_fit_on_the_card_times_each_step_on_the_device(cuda_device):
         assert mine[0]["t_start"] >= epoch["t_start"] - 1e-3
         assert mine[-1]["t_start"] + mine[-1]["wall_s"] <= \
             epoch["t_start"] + epoch["wall_s"] + 1e-3
+
+
+@pytest.mark.cuda
+def test_direct_init_lands_a_pinned_draw_on_the_card(cuda_device):
+    """The fit's direct path on the card: the module placed on the card
+    uninitialised, each draw staged in pinned host memory, one copy to the
+    card, and the leaves equal bit for bit to `init_state_dict`'s on the
+    host; two draws landed back to back, without a synchronise between
+    them, each keep their own seed's bits."""
+    from mmlspark_tpu_torch.models.bundle import DirectInit
+
+    kwargs = {"num_classes": 10}
+    landed = {}
+    for seed in (11, 12):
+        direct = DirectInit.build("resnet18", kwargs, cuda_device)
+        assert direct is not None
+        assert all(t.is_cuda for t in direct.module.state_dict().values())
+        flat = direct.draw(seed, pin_memory=True)
+        assert flat.is_pinned() and flat.numel() == direct.numel
+        direct.land(flat)
+        del flat
+        landed[seed] = direct.module
+    torch.cuda.synchronize()
+    for seed, module in landed.items():
+        want = init_state_dict(get_builder("resnet18")(**kwargs), seed)
+        got = module.state_dict()
+        assert list(got) == list(want)
+        for k, v in want.items():
+            assert torch.equal(got[k].cpu(), torch.from_numpy(v)), (seed, k)

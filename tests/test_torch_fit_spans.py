@@ -1,25 +1,31 @@
 """The spans of `DeepVisionClassifier.fit` (models/deep_vision.py) on the
-CPU: one trace a fit with its layers as named children, a step span a
-step, only rows of another size through the resize pipeline, the
-arithmetic that places device-timed steps on the host clock, a trace over
-the per-trace cap that keeps its root and counts its drops, and the
-fit's span beside the profiler's range of the same name."""
+CPU: one trace a fit with its layers as named children (the direct
+init's draw on its own thread among them), a backbone the init's walk
+does not cover on the module path, an error of the draw raised from the
+fit, a step span a step, only rows of another size through the resize
+pipeline, the arithmetic that places device-timed steps on the host
+clock, a trace over the per-trace cap that keeps its root and counts its
+drops, and the fit's span beside the profiler's range of the same
+name."""
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from mmlspark_tpu_torch.core import telemetry
 from mmlspark_tpu_torch.core.schema import Table
 from mmlspark_tpu_torch.core.telemetry import device as device_obs
 from mmlspark_tpu_torch.core.telemetry import spans as port_spans
+from mmlspark_tpu_torch.models import bundle
 from mmlspark_tpu_torch.models import deep_vision as DV
+from mmlspark_tpu_torch.models.convnets import convnet_cifar
 from mmlspark_tpu_torch.models.training import (StepEvents,
                                                 device_step_intervals)
 
 torch.set_num_threads(2)
 
 CHILDREN = ("deep_vision.decode", "deep_vision.rows", "deep_vision.build",
-            "deep_vision.init", "deep_vision.train_state",
+            "deep_vision.draw", "deep_vision.init", "deep_vision.train_state",
             "deep_vision.bundle")
 
 
@@ -60,6 +66,16 @@ def test_a_fit_records_one_trace_of_its_layers():
                   if s["parent_id"] == root["span_id"]]
     for name in CHILDREN:
         assert under_root.count(name) == 1, name
+    init = next(s for s in spans if s["name"] == "deep_vision.init")
+    assert init["attrs"] == {"init_path": "direct"}
+    # the draw ran on its own thread, before the init landed it
+    draw = next(s for s in spans if s["name"] == "deep_vision.draw")
+    floats = sum(t.size for t in model.bundle.state_dict.values()
+                 if t.dtype.kind == "f")
+    assert draw["attrs"] == {"bytes": 4 * floats}
+    assert draw["tid"] != root["tid"]
+    assert draw["t_start"] + draw["wall_s"] <= \
+        init["t_start"] + init["wall_s"] + 1e-3
     epochs = [s for s in spans if s["name"] == "deep_vision.epoch"]
     assert len(epochs) == 2 == len(model.loss_history)
     assert all(e["parent_id"] == root["span_id"] for e in epochs)
@@ -101,6 +117,49 @@ def test_only_rows_of_another_size_go_through_the_resize_pipeline():
                 if s["name"] == "deep_vision.rows")["attrs"] == {"resized": 0}
     assert not any(s["name"] == "pipeline.resize" for s in spans)
     assert same.loss_history == mixed.loss_history
+
+
+class _ScaledConvNet(nn.Module):
+    """convnet_cifar with a bare scale on its logits: a parameter that
+    the init's walk does not write."""
+
+    def __init__(self, num_classes=10, image_size=(32, 32)):
+        super().__init__()
+        self.net = convnet_cifar(num_classes, image_size)
+        self.scale = nn.Parameter(torch.full((), 0.5))
+
+    def forward(self, x):
+        logits, taps = self.net(x)
+        return logits * self.scale, taps
+
+
+def test_a_backbone_the_walk_does_not_cover_fits_on_the_module_path(
+        monkeypatch):
+    monkeypatch.setitem(bundle._BUILDERS, "test_scaled_convnet",
+                        _ScaledConvNet)
+    model = DV.DeepVisionClassifier(
+        backbone="test_scaled_convnet", epochs=1, batch_size=8, seed=3,
+        device="cpu").fit(_table(16))
+    _root, spans = _last_fit_trace()
+    init = next(s for s in spans if s["name"] == "deep_vision.init")
+    assert init["attrs"] == {"init_path": "module"}
+    assert not any(s["name"] == "deep_vision.draw" for s in spans)
+    assert len(model.loss_history) == 1
+    assert np.isfinite(model.loss_history[0])
+
+
+def test_an_error_in_the_draw_reaches_the_caller_of_fit(monkeypatch):
+    def fails(self, seed, pin_memory=False):
+        raise RuntimeError("the draw failed")
+
+    monkeypatch.setattr(bundle.DirectInit, "draw", fails)
+    with pytest.raises(RuntimeError, match="the draw failed"):
+        _fit(_table(16), epochs=1)
+    root, spans = _last_fit_trace()
+    assert root["error"] == "RuntimeError"
+    draw = next(s for s in spans if s["name"] == "deep_vision.draw")
+    assert draw["error"] == "RuntimeError"
+    assert not any(s["name"] == "deep_vision.epoch" for s in spans)
 
 
 def test_device_step_intervals_end_at_the_anchor():

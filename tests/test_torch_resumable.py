@@ -382,7 +382,7 @@ def _jax_dv_case(kind):
 
 
 def _jax_init(monkeypatch, init_state):
-    def jax_init(module, seed):
+    def jax_init(module, seed, draw=None):
         module.load_state_dict({k: torch.from_numpy(np.array(v))
                                 for k, v in init_state.items()})
 

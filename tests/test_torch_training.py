@@ -274,7 +274,7 @@ def _fit_and_compare_with_jax(monkeypatch):
     against the JAX estimator's loss_history and probabilities."""
     rows, labels, ref_history, ref_probs, init_state = _deep_vision_case()
 
-    def jax_init(module, seed):
+    def jax_init(module, seed, draw=None):
         module.load_state_dict({k: torch.from_numpy(np.array(v))
                                 for k, v in init_state.items()})
 
