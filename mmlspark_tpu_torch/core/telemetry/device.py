@@ -390,10 +390,11 @@ def start_memory_sampler(interval_s: float = 5.0,
 
 # the stage spans worth seeing on a device timeline: the training step,
 # the h2d transfer, the host-pipeline stages, DeepVisionClassifier.fit's
-# layers and a train loop's wait for the feed's next slice
+# layers, a train loop's wait for the feed's next slice and the parts of
+# an LFM2 layer
 DEFAULT_ANNOTATION_PREFIXES: Tuple[str, ...] = (
     "training.step", "feed.transfer", "io.pipeline", "pipeline.",
-    "deep_vision.", "feed.next")
+    "deep_vision.", "feed.next", "lfm2.")
 
 
 def enable_device_annotations(

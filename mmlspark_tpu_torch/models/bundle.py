@@ -66,6 +66,8 @@ from . import resnet as R
 from . import transformer as T
 from . import vit as V
 from . import convnets as C
+from . import lfm2 as L
+from . import moe as M
 
 __all__ = ["TorchBundle", "FunctionBundle", "register_builder",
            "get_builder", "from_flax_variables", "init_state_dict",
@@ -90,6 +92,7 @@ def get_builder(name: str) -> Callable[..., nn.Module]:
 for _name in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152"):
     register_builder(_name, getattr(R, _name))
 register_builder("transformer_lm", T.transformer_lm)
+register_builder("lfm2_moe", L.lfm2_moe)
 for _name in ("vit_tiny", "vit_small", "vit_base"):
     register_builder(_name, getattr(V, _name))
 for _name in ("alexnet", "vgg11", "vgg16", "convnet_cifar"):
@@ -116,8 +119,9 @@ _Walk = List[Tuple[torch.Tensor, str, float]]
 def _init_walk(module: nn.Module, random_bn: bool = False) -> _Walk:
     """(leaf, kind, arg) for every tensor `init_state_dict` writes, in the
     order it draws them from its generator: `module.modules()`, then the
-    ViT's position table.  The one statement of the init's rules, which
-    both `init_state_dict` and `DirectInit` follow."""
+    ViT's position table.  A tensor two modules share (a tied LM head) is
+    drawn once, where the walk first meets it.  The one statement of the
+    init's rules, which both `init_state_dict` and `DirectInit` follow."""
     zero_scaled = set()
     if isinstance(module, R.ResNet) and not random_bn:
         for block in module.blocks:
@@ -125,10 +129,12 @@ def _init_walk(module: nn.Module, random_bn: bool = False) -> _Walk:
             zero_scaled.add(block.bns[n_branch - 1])
     walk: _Walk = []
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             walk.append((m.weight, "normal_div", m.weight[0].numel() ** 0.5))
             if m.bias is not None:
                 walk.append((m.bias, "const", 0.0))
+            if isinstance(m, M.Router):
+                walk.append((m.expert_bias, "normal_mul", 0.01))
         elif isinstance(m, nn.BatchNorm2d):
             rules = ((m.weight, "uniform_add", 0.5),
                      (m.running_var, "uniform_add", 0.5),
@@ -143,14 +149,22 @@ def _init_walk(module: nn.Module, random_bn: bool = False) -> _Walk:
             walk += [(t, "const", v) for t, v in ((m.weight, 1.0),
                                                   (m.bias, 0.0))
                      if t is not None]
+        elif isinstance(m, nn.RMSNorm) and m.weight is not None:
+            walk.append((m.weight, "const", 1.0))
         elif isinstance(m, nn.Embedding):
             walk.append((m.weight, "normal_div", m.embedding_dim ** 0.5))
         elif isinstance(m, T._MoEMLP):
             walk += [(w, "normal_div", (w.shape[0] * w.shape[1]) ** 0.5)
                      for w in (m.w_in, m.w_out)]
+        elif isinstance(m, M.TopKExperts):
+            # [held, out, in] slabs, one an expert: its own fan-in, so an
+            # expert's values do not depend on how many the chip holds
+            walk += [(w, "normal_div", w.shape[-1] ** 0.5)
+                     for w in (m.w1, m.w3, m.w2)]
     if isinstance(module, V.VisionTransformer):
         walk.append((module.pos_embed, "normal_mul", 0.02))
-    return walk
+    seen: set = set()
+    return [r for r in walk if not (id(r[0]) in seen or seen.add(id(r[0])))]
 
 
 def _fill(out: torch.Tensor, kind: str, arg: float,
@@ -167,8 +181,11 @@ def _fill(out: torch.Tensor, kind: str, arg: float,
 def init_state_dict(module: nn.Module, seed: int = 0,
                     random_bn: bool = False) -> Dict[str, np.ndarray]:
     """Random weights from a seeded torch.Generator, initialised like the
-    flax modules: convs and dense layers LeCun-normal (variance 1/fan_in)
-    with zero biases, the MoE expert kernels w_in [X, E, mE] / w_out
+    flax modules: convs (2-D, and the 1-D depthwise convolution of
+    `lfm2_moe`) and dense layers LeCun-normal (variance 1/fan_in) with
+    zero biases, RMSNorm weights 1, the top-k expert slabs of `lfm2_moe`
+    LeCun-normal over one expert's fan-in and its router's untrained
+    expert bias N(0, 0.01), the Switch expert kernels w_in [X, E, mE] / w_out
     [X, mE, E] LeCun-normal over flax's fan-in of a 3-D kernel (the
     expert axis is receptive field: X * E and X * mE), LayerNorm scale 1 / bias 0, embeddings normal with
     variance 1/features, the ViT's position table normal(0.02), and

@@ -318,21 +318,35 @@ def make_train_epoch(num_classes: int) -> Callable:
 
 def make_lm_train_epoch() -> Callable:
     """`epoch(state, tokens [S, B, T] int) -> (state, losses [S])`: S
-    next-token steps of a TransformerLM (`lm_loss`, plus 0.01x the MoE
-    load-balance losses of a model with MoE blocks)."""
+    next-token steps of a TransformerLM or an `Lfm2MoeLM` (`lm_loss`, plus
+    0.01x the MoE load-balance losses of a model with Switch MoE blocks).
+
+    The epoch is a `training.lm_epoch` span and each step a
+    `training.step` span under it.  The epoch ends with one host read of
+    its losses, which waits for the card; on the card each step's device
+    time is then recorded as a `training.step.device` span (`StepEvents`,
+    as `DeepVisionClassifier.fit`'s epochs record theirs)."""
 
     def epoch(state: TrainState, tokens: torch.Tensor):
+        events = StepEvents(state.device)
         losses = []
-        for i in range(tokens.shape[0]):
-            toks = tokens[i]
-            logits, aux = _forward(state.work.train(), toks)
-            loss = lm_loss(logits, toks)
-            if aux is not None:
-                loss = loss + aux
-            loss.backward()
-            state.apply_gradients(grad_norm=False)
-            losses.append(loss.detach())
-        return state, torch.stack(losses)
+        with core_telemetry.span("training.lm_epoch",
+                                 steps=int(tokens.shape[0])):
+            for i in range(tokens.shape[0]):
+                with core_telemetry.span("training.step"), events.step():
+                    toks = tokens[i]
+                    logits, aux = _forward(state.work.train(), toks)
+                    loss = lm_loss(logits, toks)
+                    if aux is not None:
+                        loss = loss + aux
+                    loss.backward()
+                    state.apply_gradients(grad_norm=False)
+                    losses.append(loss.detach())
+            out = torch.stack(losses)
+            events.anchor()
+            out.cpu()  # the epoch's one host read: it waits for the card
+            events.flush(time.time())
+        return state, out
 
     return core_telemetry.watch_compiles(epoch,
                                          name="training.lm_train_epoch")
